@@ -1,0 +1,77 @@
+"""Carry the JAX package's device state over to the port.
+
+The fused tables are this system's weights: a JAX tables object holds
+them as [8, 128] (narrow) or [R, 8, 128] (wide, pair) int32 arrays,
+each 128-entry row broadcast over the 8 sublanes.  The port holds the
+same entries as one flat [R*128] int32 tensor.  These functions take
+the JAX arrays as numpy (the caller does ``np.asarray(x).copy()``), so
+nothing here imports jax.
+"""
+
+import numpy as np
+import torch
+
+from .ops.layout import max_chunk_bytes
+from .ops.pair import SpecTablesPair
+from .ops.spec_scan import SpecTables, SpecTablesWide
+
+
+def _flat_rows(a):
+    """[8, 128] or [R, 8, 128] sublane-broadcast rows -> flat [R*128]."""
+    a = np.asarray(a, dtype=np.int32)
+    rows = a[None] if a.ndim == 2 else a
+    if rows.ndim != 3 or rows.shape[1:] != (8, 128):
+        raise ValueError("fused table must be [8,128] or [R,8,128], got %s"
+                         % (a.shape,))
+    if not (rows == rows[:, :1]).all():
+        raise ValueError("fused table rows are not sublane-broadcast")
+    return np.ascontiguousarray(rows[:, 0]).reshape(-1)
+
+
+def spec_tables_from_jax(arrays, dfa, device):
+    """Build the port's tables from a JAX tables object's arrays.
+
+    ``arrays``: a mapping with ``fused_vec`` ([8,128]) or
+    ``fused_rows`` ([R,8,128]), plus ``cpw``, ``bits``, ``warmup`` and
+    ``rows``; ``bpu`` = 2 (with ``byte_ncls``) marks pair tables.
+    ``dfa`` is the Dfa both were built from.  The tier follows the JAX
+    class: pair, else wide when there are row tiles, else narrow."""
+    pair = arrays.get("bpu", 1) == 2
+    fused_rows = arrays.get("fused_rows")
+    if pair:
+        cls = SpecTablesPair
+    elif fused_rows is not None:
+        cls = SpecTablesWide
+    else:
+        cls = SpecTables
+    fused = _flat_rows(fused_rows if fused_rows is not None
+                       else arrays["fused_vec"])
+    t = cls.__new__(cls)
+    t.nstates = dfa.nstates
+    t.cpw = int(arrays["cpw"])
+    t.bits = int(arrays["bits"])
+    t.warmup = int(arrays["warmup"])
+    t.rows = int(arrays.get("rows", 1))
+    if fused.size != t.rows * 128:
+        raise ValueError("fused table holds %d entries, rows=%d"
+                         % (fused.size, t.rows))
+    if pair:
+        t.bpu = 2
+        t.byte_ncls = int(arrays["byte_ncls"])
+        t.ncls = t.byte_ncls * t.byte_ncls
+        t.wide = t.rows > 1
+    else:
+        t.ncls = dfa.nclasses
+    t.max_chunk = max_chunk_bytes(t.cpw, bpu=2 if pair else 1)
+    t._finish(dfa, fused, device)
+    return t
+
+
+def prepared_from_jax(np_packed, C, K, J, B, device):
+    """A JAX prepared corpus (packed int32 [B, J//CPW, G, 8, 128] as
+    numpy, plus its C, K, J, B) as the port's prepared tuple."""
+    packed = np.ascontiguousarray(np_packed, dtype=np.int32)
+    if packed.ndim != 5 or packed.shape[0] != B:
+        raise ValueError("packed corpus must be [B, Jw, G, 8, 128] with "
+                         "B=%d, got %s" % (B, packed.shape))
+    return torch.from_numpy(packed).to(torch.device(device)), C, K, J, B

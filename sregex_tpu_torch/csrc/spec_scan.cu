@@ -1,0 +1,183 @@
+// Speculative DFA chunk scan for Hopper (sm_90a).
+//
+// Replaces the TPU kernels sregex_tpu/ops/pallas_scan.py::_kernel (the
+// narrow 128-entry table), ::_kernel_wide (tables of R rows of 128) and
+// their launch ::_dispatch_kernel.  It computes what they compute; it
+// does not copy their structure:
+//
+//   - one thread owns one chunk stream; a block of 1024 threads is one
+//     (b, g) tile of the [B, Jw, G, 8, 128] layout, so thread t reads
+//     word data[b, w, g, t] and the loads of a warp are coalesced;
+//   - the whole fused table (any size up to the shared-memory cap) is
+//     copied into dynamic shared memory once per block.  On the TPU a
+//     gather reached only one 128-lane row, hence the narrow/wide split
+//     and the row-select chain; here both tiers are one lookup per step;
+//   - warmup: W units from state0, frozen while j < j0; the state after
+//     it is the speculative entry (swarm);
+//   - main loop: one lookup per unit; COUNT adds the match field
+//     (e >> 20), otherwise the entries are ORed and macc >> 20 is stored.
+//
+// What bounds it: each stream is a chain of dependent shared-memory
+// lookups (about 30 cycles each), and lanes whose table indices differ
+// collide on shared-memory banks, against only 0.5 B of 4-bit packed
+// input read per corpus byte.  The simple design hides the chain's
+// latency with occupancy: 1024 independent streams per block and up to
+// two blocks per SM, each issuing its own chain; the input loads of the
+// next word do not depend on the chain and overlap it.  Several streams
+// per thread, TMA staging and table replication against bank conflicts
+// are left for later.
+//
+// Bounds: a table index is (state + class) and is in range for any
+// input the prep produces.  For any other input the kernel stays inside
+// the table: an index outside [0, table_len) reads entry (index & 127),
+// which is what the TPU kernels' masked lane gather and row-select chain
+// (an out-of-range row falls to row 0) return, so the result still
+// equals the TPU kernels'.  table_len is a multiple of 128.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kTile = 1024;
+constexpr int kMatchShift = 20;
+constexpr int32_t kStateMask = (1 << kMatchShift) - 1;
+
+template <int BITS> struct Packing;
+template <> struct Packing<3> { static constexpr int kCpw = 10; };
+template <> struct Packing<4> { static constexpr int kCpw = 8; };
+template <> struct Packing<8> { static constexpr int kCpw = 4; };
+
+__device__ __forceinline__ int32_t lookup(const int32_t* tab, uint32_t idx,
+                                          uint32_t n) {
+  return tab[idx < n ? idx : (idx & 127u)];
+}
+
+template <int BITS, bool COUNT>
+__global__ void __launch_bounds__(kTile)
+spec_scan_kernel(const int32_t* __restrict__ data,
+                 const int32_t* __restrict__ state0,
+                 const int32_t* __restrict__ j0,
+                 const int32_t* __restrict__ table, int table_len,
+                 int32_t* __restrict__ phi, int32_t* __restrict__ fm,
+                 int32_t* __restrict__ swarm, int Jw, int G, int W_units) {
+  constexpr int CPW = Packing<BITS>::kCpw;
+  constexpr uint32_t kClassMask = (1u << BITS) - 1u;
+  extern __shared__ int32_t tab[];
+  for (int i = threadIdx.x; i < table_len; i += blockDim.x) tab[i] = table[i];
+  __syncthreads();
+
+  const int64_t tile = blockIdx.x;                 // b * G + g
+  const int64_t b = tile / G;
+  const int64_t g = tile % G;
+  const int64_t plane = tile * kTile + threadIdx.x;  // [B, G, 8, 128] index
+  const int64_t wstride = static_cast<int64_t>(G) * kTile;
+  const int32_t* src = data + (b * Jw * G + g) * kTile + threadIdx.x;
+  const uint32_t n = static_cast<uint32_t>(table_len);
+
+  int32_t s = state0[plane];
+  const int32_t jz = j0[plane];
+  const int warm_words = W_units / CPW;
+  for (int w = 0; w < warm_words; ++w) {
+    const uint32_t word = static_cast<uint32_t>(__ldg(src + w * wstride));
+#pragma unroll
+    for (int k = 0; k < CPW; ++k) {
+      const uint32_t cls = (word >> (BITS * k)) & kClassMask;
+      const int32_t e = lookup(tab, static_cast<uint32_t>(s) + cls, n);
+      if (w * CPW + k >= jz) s = e & kStateMask;
+    }
+  }
+  swarm[plane] = s;
+
+  uint32_t acc = 0;
+#pragma unroll 2
+  for (int w = warm_words; w < Jw; ++w) {
+    const uint32_t word = static_cast<uint32_t>(__ldg(src + w * wstride));
+#pragma unroll
+    for (int k = 0; k < CPW; ++k) {
+      const uint32_t cls = (word >> (BITS * k)) & kClassMask;
+      const int32_t e = lookup(tab, static_cast<uint32_t>(s) + cls, n);
+      if (COUNT) {
+        acc += static_cast<uint32_t>(e >> kMatchShift);
+      } else {
+        acc |= static_cast<uint32_t>(e);
+      }
+      s = e & kStateMask;
+    }
+  }
+  phi[plane] = s;
+  fm[plane] = COUNT ? static_cast<int32_t>(acc)
+                    : (static_cast<int32_t>(acc) >> kMatchShift);
+}
+
+template <int BITS, bool COUNT>
+cudaError_t launch(const int32_t* data, const int32_t* state0,
+                   const int32_t* j0, const int32_t* table, int table_len,
+                   int32_t* phi, int32_t* fm, int32_t* swarm, int B, int Jw,
+                   int G, int W_units, cudaStream_t stream) {
+  auto kernel = spec_scan_kernel<BITS, COUNT>;
+  const size_t smem = static_cast<size_t>(table_len) * sizeof(int32_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<B * G, kTile, smem, stream>>>(data, state0, j0, table, table_len,
+                                         phi, fm, swarm, Jw, G, W_units);
+  return cudaGetLastError();
+}
+
+template <int BITS>
+cudaError_t launch_bits(bool count, const int32_t* data,
+                        const int32_t* state0, const int32_t* j0,
+                        const int32_t* table, int table_len, int32_t* phi,
+                        int32_t* fm, int32_t* swarm, int B, int Jw, int G,
+                        int W_units, cudaStream_t stream) {
+  if (count)
+    return launch<BITS, true>(data, state0, j0, table, table_len, phi, fm,
+                              swarm, B, Jw, G, W_units, stream);
+  return launch<BITS, false>(data, state0, j0, table, table_len, phi, fm,
+                             swarm, B, Jw, G, W_units, stream);
+}
+
+}  // namespace
+
+// data int32 [B, Jw, G, 8, 128]; state0, j0, phi, fm, swarm int32
+// [B, G, 8, 128]; table int32 [table_len].  W_units is the warmup length
+// in kernel units (bytes, or byte pairs for the pair tier).  Returns the
+// cudaError_t of the launch (0 on success); the caller checks shapes.
+extern "C" int sre_spec_scan(const void* data, const void* state0,
+                             const void* j0, const void* table,
+                             int table_len, void* phi, void* fm, void* swarm,
+                             int B, int Jw, int G, int W_units, int CPW,
+                             int BITS, int COUNT, void* stream) {
+  const auto* d = static_cast<const int32_t*>(data);
+  const auto* s0 = static_cast<const int32_t*>(state0);
+  const auto* jz = static_cast<const int32_t*>(j0);
+  const auto* t = static_cast<const int32_t*>(table);
+  auto* p = static_cast<int32_t*>(phi);
+  auto* f = static_cast<int32_t*>(fm);
+  auto* sw = static_cast<int32_t*>(swarm);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (table_len <= 0 || table_len % 128 != 0 || B <= 0 || G <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (BITS) {
+    case 3:
+      if (CPW != Packing<3>::kCpw) break;
+      return static_cast<int>(launch_bits<3>(COUNT != 0, d, s0, jz, t,
+                                             table_len, p, f, sw, B, Jw, G,
+                                             W_units, st));
+    case 4:
+      if (CPW != Packing<4>::kCpw) break;
+      return static_cast<int>(launch_bits<4>(COUNT != 0, d, s0, jz, t,
+                                             table_len, p, f, sw, B, Jw, G,
+                                             W_units, st));
+    case 8:
+      if (CPW != Packing<8>::kCpw) break;
+      return static_cast<int>(launch_bits<8>(COUNT != 0, d, s0, jz, t,
+                                             table_len, p, f, sw, B, Jw, G,
+                                             W_units, st));
+    default:
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}

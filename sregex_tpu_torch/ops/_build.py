@@ -1,0 +1,95 @@
+"""Build and load the CUDA kernels of the package.
+
+The kernels are CUDA C++ with a plain C interface
+(sregex_tpu_torch/csrc/*.cu).  At first use they are compiled with
+``nvcc`` for sm_90a into a shared library under build/sregex_tpu_torch/
+at the repository root, named after a hash of the sources so an edit
+rebuilds it, and loaded with ctypes.  Nothing here runs at import.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+_SOURCES = [_PKG / "csrc" / "spec_scan.cu"]
+BUILD_DIR = _PKG.parent / "build" / "sregex_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_lib = None
+# what the last build printed (ptxas registers / shared memory per
+# kernel) and how long it took; None when the library was cached
+build_log = None
+build_seconds = None
+
+
+def find_nvcc():
+    """nvcc from PATH, else $CUDA_HOME/bin (CUDA_HOME defaults to
+    /usr/local/cuda).  Raises when there is none."""
+    nvcc = shutil.which("nvcc")
+    if nvcc:
+        return nvcc
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.isfile(cand) and os.access(cand, os.X_OK):
+        return cand
+    raise RuntimeError(
+        "nvcc not found on PATH or in $CUDA_HOME/bin (%s): the CUDA "
+        "kernels of sregex_tpu_torch cannot be built" % cand)
+
+
+def _library_path():
+    h = hashlib.sha256()
+    for src in _SOURCES:
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / ("libsregex_kernels-%s.so" % h.hexdigest()[:16])
+
+
+def _compile(so):
+    global build_log, build_seconds
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp,
+                            *map(str, _SOURCES)],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError("nvcc failed (%d):\n%s%s"
+                               % (r.returncode, r.stdout, r.stderr))
+        os.replace(tmp, so)       # atomic: concurrent builds agree
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    build_seconds = time.perf_counter() - t0
+    build_log = r.stdout + r.stderr
+
+
+def load():
+    """The kernel library (ctypes.CDLL), built on first use.  Raises
+    when nvcc is missing or the build fails; there is no fallback."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        so = _library_path()
+        if not so.exists():
+            _compile(so)
+        lib = ctypes.CDLL(str(so))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.sre_spec_scan.restype = i
+        lib.sre_spec_scan.argtypes = [p, p, p, p, i, p, p, p,
+                                      i, i, i, i, i, i, i, p]
+        _lib = lib
+        return _lib

@@ -1,0 +1,447 @@
+"""Speculative chunked DFA scan: tables, the scan kernel's wrapper and
+its plain version, the on-device validation summary and the host folds.
+
+Counterpart of sregex_tpu/ops/pallas_scan.py.  The input is
+class-mapped, cut into C chunks of K bytes with W warmup bytes from
+the preceding chunk, and packed CPW classes per int32 word (ops/prep.py).
+Every chunk but the first speculates from state 0 through its warmup;
+the summary checks each speculative entry (swarm) against the exit of
+the chunk before it (phi), and the host fold repairs what failed with
+the native C++ engine, so results are exact whatever the speculation
+did.
+
+The kernel (csrc/spec_scan.cu) replaces pallas_scan.py::_kernel,
+::_kernel_wide and ::_dispatch_kernel.  On the card its time goes to
+each stream's chain of dependent shared-memory table lookups and to
+bank conflicts between lanes that look up different entries; the input
+it reads is only 0.5 B per corpus byte at 4-bit packing.  The simple
+design answers with occupancy: one stream per thread, 1024 streams per
+block, the whole table in shared memory, so the narrow and the wide
+tier are the same single lookup per byte.
+"""
+
+import ctypes
+import os
+
+import numpy as np
+import torch
+
+from .layout import (_MATCH_SHIFT, _STATE_MASK, DEFAULT_K, GROUPS,
+                     SMEM_TABLE_MAX, TILE, WORDS_PER_ITER,
+                     max_chunk_bytes)
+
+# kernel launches since the last reset (the CUDA path only)
+spec_scan_launches = 0
+
+_CPW = {3: 10, 4: 8, 8: 4}
+
+
+def resolve_device(device):
+    """torch.device for a tables object or a Scanner.  A CUDA device
+    must be usable: there is no silent fall back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device %r was asked for, but torch.cuda.is_available() "
+                "is False" % str(device))
+    elif dev.type != "cpu":
+        raise ValueError("unsupported device %r" % str(device))
+    return dev
+
+
+def fused_table(dfa, rows):
+    """Flat int32 [rows*128]: entry s*ncls + c = (next*ncls) |
+    (match << 20), zero padded (the JAX package's fused encoding)."""
+    S, ncls = dfa.nstates, dfa.nclasses
+    nxt = np.asarray(dfa.trans, dtype=np.int64) * ncls
+    m = np.asarray(dfa.match, dtype=np.int64) << _MATCH_SHIFT
+    flat = np.zeros(rows * 128, dtype=np.int32)
+    flat[:S * ncls] = (nxt | m).reshape(-1)
+    return flat
+
+
+class _Tables:
+    """What the scan folds read from every tier: dfa, ncls (the
+    premultiplier), cpw, bits, warmup (bytes), max_chunk, class_map,
+    match_eof, rows, the flat fused table on ``device``, and ``wide``
+    (True: the repair planes come back as 3 int32 planes, else as 4
+    uint8 planes, as in the JAX package)."""
+
+    # (natively repaired chunks, total chunks) of the last completed
+    # no-match scan; None after a matched scan.  Feeds Scanner.stats().
+    last_repair = None
+    wide = False
+
+    def _finish(self, dfa, fused, device):
+        self.dfa = dfa
+        self.device = resolve_device(device)
+        self.fused = torch.from_numpy(fused).to(self.device)
+        self.class_map = dfa.class_map.astype(np.uint8)
+        self.match_eof = dfa.match_eof
+
+    def _scan(self, data, state0, j0, C, bad_tail, W, COUNT=False):
+        return _spec_scan(data, state0, j0, self.fused, C, bad_tail,
+                          W=W, CPW=self.cpw, BITS=self.bits,
+                          COUNT=COUNT, wide=self.wide)
+
+
+class SpecTables(_Tables):
+    """The narrow tier: S * ncls <= 128 (one 128-entry table)."""
+
+    def __init__(self, dfa, device):
+        S, ncls = dfa.nstates, dfa.nclasses
+        if S * ncls > 128:
+            raise ValueError("automaton too large for the 128-entry "
+                             "table (S*ncls = %d)" % (S * ncls))
+        self.nstates = S
+        self.ncls = ncls
+        # 4-bit classes (8 per word) by default, 3-bit (10 per word)
+        # under SREGEX_PACK_BITS=3 when ncls <= 8, 8-bit when ncls > 16
+        want = int(os.environ.get("SREGEX_PACK_BITS", "4"))
+        if ncls > 16:
+            self.bits = 8
+        else:
+            self.bits = 3 if (want == 3 and ncls <= 8) else 4
+        self.cpw = _CPW[self.bits]
+        self.warmup = 4 * self.cpw
+        self.rows = 1
+        self.max_chunk = max_chunk_bytes(self.cpw)
+        self._finish(dfa, fused_table(dfa, 1), device)
+
+
+class SpecTablesWide(_Tables):
+    """Tables of up to MAX_ENTRIES entries (R rows of 128).  On the
+    TPU each extra row cost a gather and a select per byte; here the
+    whole table sits in shared memory and costs one lookup, so the
+    cap is the TPU's hardware cap (16384 entries, 64 KB)."""
+
+    MAX_ENTRIES = 16384
+    wide = True
+
+    def __init__(self, dfa, device):
+        S, ncls = dfa.nstates, dfa.nclasses
+        if ncls > 256:
+            raise ValueError("more than 256 byte classes (%d)" % ncls)
+        if S * ncls > self.MAX_ENTRIES:
+            raise ValueError("automaton too large for the wide fused "
+                             "table (S*ncls = %d)" % (S * ncls))
+        self.nstates = S
+        self.ncls = ncls
+        self.bits = 4 if ncls <= 16 else 8
+        self.cpw = _CPW[self.bits]
+        self.warmup = 4 * self.cpw
+        self.rows = -(-(S * ncls) // 128)
+        self.max_chunk = max_chunk_bytes(self.cpw)
+        self._finish(dfa, fused_table(dfa, self.rows), device)
+
+
+def _check_scan_args(data, state0, j0, table, W, CPW, BITS):
+    tensors = (data, state0, j0, table)
+    for t in tensors:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError("spec_scan takes tensors, got %r" % type(t))
+        if t.dtype != torch.int32:
+            raise TypeError("spec_scan takes int32 tensors, got %s"
+                            % t.dtype)
+        if not t.is_contiguous():
+            raise ValueError("spec_scan takes contiguous tensors")
+        if t.device != data.device:
+            raise ValueError("spec_scan tensors lie on different devices "
+                             "(%s, %s)" % (data.device, t.device))
+    if data.dim() != 5 or tuple(data.shape[3:]) != (8, TILE // 8):
+        raise ValueError("data must be [B, Jw, G, 8, 128], got %s"
+                         % (tuple(data.shape),))
+    B, Jw, G = data.shape[:3]
+    for name, t in (("state0", state0), ("j0", j0)):
+        if tuple(t.shape) != (B, G, 8, TILE // 8):
+            raise ValueError("%s must be %s, got %s"
+                             % (name, (B, G, 8, 128), tuple(t.shape)))
+    n = table.numel()
+    if table.dim() != 1 or n == 0 or n % 128 or n > SMEM_TABLE_MAX:
+        raise ValueError("table must be int32 [R*128] with at most %d "
+                         "entries, got %s" % (SMEM_TABLE_MAX,
+                                              tuple(table.shape)))
+    if _CPW.get(BITS) != CPW:
+        raise ValueError("BITS=%r does not pack CPW=%r classes per word"
+                         % (BITS, CPW))
+    if W < 0 or W % CPW or W > Jw * CPW \
+            or (Jw * CPW - W) % (CPW * WORDS_PER_ITER):
+        raise ValueError("W=%d units does not fit %d words of %d units"
+                         % (W, Jw, CPW))
+
+
+def spec_scan(data, state0, j0, table, *, W, CPW, BITS, COUNT):
+    """Run the speculative scan kernel.  data int32 [B, Jw, G, 8, 128]
+    (CPW BITS-bit classes per word); state0/j0 int32 [B, G, 8, 128];
+    table int32 [R*128]; W the warmup in kernel units.  Returns
+    (phi, fm, swarm), each int32 [B, G, 8, 128].
+
+    CUDA tensors launch csrc/spec_scan.cu on the current stream (no
+    synchronisation) or raise.  CPU tensors take spec_scan_ref."""
+    global spec_scan_launches
+    _check_scan_args(data, state0, j0, table, W, CPW, BITS)
+    if data.device.type == "cpu":
+        return spec_scan_ref(data, state0, j0, table, W=W, CPW=CPW,
+                             BITS=BITS, COUNT=COUNT)
+    if data.device.type != "cuda":
+        raise ValueError("spec_scan runs on cuda or cpu tensors, got %s"
+                         % data.device)
+    from . import _build
+    lib = _build.load()
+    phi = torch.empty_like(state0)
+    fm = torch.empty_like(state0)
+    swarm = torch.empty_like(state0)
+    B, Jw, G = data.shape[:3]
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        rc = lib.sre_spec_scan(
+            data.data_ptr(), state0.data_ptr(), j0.data_ptr(),
+            table.data_ptr(), table.numel(), phi.data_ptr(),
+            fm.data_ptr(), swarm.data_ptr(), B, Jw, G, W, CPW, BITS,
+            int(bool(COUNT)), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError("sre_spec_scan launch failed: cudaError %d"
+                           % rc)
+    spec_scan_launches += 1
+    return phi, fm, swarm
+
+
+def spec_scan_ref(data, state0, j0, table, *, W, CPW, BITS, COUNT):
+    """The plain torch version of spec_scan, on any device: a loop over
+    the J units, vectorised over all streams.  An index outside the
+    table reads entry (index & 127), as the kernel does."""
+    cmask = (1 << BITS) - 1
+    n = table.numel()
+
+    def lookup(s, word, k):
+        idx = s + ((word >> (BITS * k)) & cmask)
+        idx = torch.where((idx >= 0) & (idx < n), idx, idx & 127)
+        return table[idx.long()]
+
+    s = state0
+    for w in range(W // CPW):
+        word = data[:, w]
+        for k in range(CPW):
+            e = lookup(s, word, k)
+            s = torch.where(w * CPW + k >= j0, e & _STATE_MASK, s)
+    swarm = s
+    acc = torch.zeros_like(s)
+    for w in range(W // CPW, data.shape[1]):
+        word = data[:, w]
+        for k in range(CPW):
+            e = lookup(s, word, k)
+            acc = acc + (e >> _MATCH_SHIFT) if COUNT else acc | e
+            s = e & _STATE_MASK
+    return s, (acc if COUNT else acc >> _MATCH_SHIFT), swarm
+
+
+def _summarize(phi, fm, swarm, state0, C, bad_tail, COUNT):
+    """The on-device validation of the speculation chain: int32 [10]
+      [0] all_ok  [1] first_bad  [2] entry@first_bad  [3] phi@first_bad
+      [4] swarm@first_bad  [5] fm@first_bad  [6] phi@C-1
+      [7] sum(fm[0:first_bad])  (the valid-prefix count, COUNT mode)
+      [8] last firing chunk in the validated prefix (-1 none)
+      [9] entry @ that chunk
+    and the narrow repair planes, uint8 [4, B, G, 8, 128]
+    (phi, fm & 0xFF, swarm, fm >> 8 & 0xFF).  first_bad is 0 when
+    every chunk validated, as in the JAX package."""
+    Cp = phi.numel()
+    phi_f, fm_f, swarm_f = (t.reshape(Cp) for t in (phi, fm, swarm))
+    entries = torch.cat([state0.reshape(Cp)[:1], phi_f[:-1]])
+    idx = torch.arange(Cp, dtype=torch.int32, device=phi.device)
+    okv = swarm_f == entries
+    if not COUNT:
+        okv &= fm_f == 0
+    okv = (okv | (idx >= C)) & (idx != bad_tail)
+    all_ok = okv.all()
+    fb = torch.where(all_ok, 0, torch.where(okv, Cp, idx).min())
+    fb_eff = torch.where(all_ok, C, fb)
+    live = (idx < fb_eff) & (idx < C)
+    prefix_cnt = torch.where(live, fm_f, 0).sum().to(torch.int32)
+    last_fire = torch.where((fm_f != 0) & live, idx, -1).max()
+    lf = last_fire.clamp(min=0)
+
+    def at(v, i):
+        return v.index_select(0, i.reshape(1).long())
+
+    summary = torch.cat([
+        all_ok.to(torch.int32).reshape(1), fb.reshape(1), at(entries, fb),
+        at(phi_f, fb), at(swarm_f, fb), at(fm_f, fb), phi_f[C - 1:C],
+        prefix_cnt.reshape(1), last_fire.reshape(1), at(entries, lf)])
+    u8 = torch.uint8
+    packed = torch.stack([phi.to(u8), (fm & 0xFF).to(u8), swarm.to(u8),
+                          ((fm >> 8) & 0xFF).to(u8)])
+    return summary, packed
+
+
+def _spec_scan(data, state0, j0, table, C, bad_tail, *, W, CPW, BITS,
+               COUNT=False, wide=False):
+    """Kernel + summary.  Returns (summary int32 [10], packed): packed
+    is the narrow uint8 [4, ...] planes, or for wide tables (states
+    past 255) the int32 [3, ...] planes (phi, fm, swarm)."""
+    phi, fm, swarm = spec_scan(data, state0, j0, table, W=W, CPW=CPW,
+                               BITS=BITS, COUNT=COUNT)
+    summary, packed = _summarize(phi, fm, swarm, state0, C, bad_tail,
+                                 COUNT)
+    if wide:
+        packed = torch.stack([phi, fm, swarm])
+    return summary, packed
+
+
+def _unpack(outs, C):
+    """Host unpack of the repair planes of either format."""
+    outs = np.asarray(outs.cpu() if isinstance(outs, torch.Tensor)
+                      else outs).astype(np.int64)
+    total = outs[0].size
+    phi = outs[0].reshape(total)[:C]
+    swarm = outs[2].reshape(total)[:C]
+    if outs.shape[0] == 4:
+        fmcnt = (outs[1] | (outs[3] << 8)).reshape(total)[:C]
+    else:
+        fmcnt = outs[1].reshape(total)[:C]
+    return phi, fmcnt, swarm
+
+
+def _entry_planes(entry_premult, w, B, device):
+    """state0/j0 planes: every stream speculates from state 0 except
+    stream 0, which starts at the true entry with its warmup frozen
+    (j0 = W)."""
+    s0 = torch.zeros((B, GROUPS, 8, TILE // 8), dtype=torch.int32,
+                     device=device)
+    j0 = torch.zeros_like(s0)
+    s0[0, 0, 0, 0] = entry_premult
+    j0[0, 0, 0, 0] = w
+    return s0, j0
+
+
+def _launch(tables, data_np, chunk_len, entry_state, prepared, COUNT):
+    """Prep (unless given), entry planes, kernel and summary.  Returns
+    (summary as int64 numpy, packed planes on the device, C, K)."""
+    n = len(data_np)
+    W = tables.warmup
+    if prepared is None:
+        from .prep import prepare_auto
+        prepared = prepare_auto(tables, data_np, chunk_len)
+    data, C, K, _J, B = prepared
+    topm = getattr(tables, "to_premult", None) or (
+        lambda v: v * tables.ncls)
+    s0p, j0p = _entry_planes(topm(entry_state), W, B, data.device)
+    bad_tail = (C - 1) if C * K > n and (n - (C - 1) * K) != K else -1
+    summary, packed = tables._scan(data, s0p, j0p, C, bad_tail, W,
+                                   COUNT=COUNT)
+    # common case: a 40-byte readback; the planes stay on the device
+    # and are read only on the repair path
+    return summary.cpu().numpy().astype(np.int64), packed, C, K
+
+
+def _host_bytes(data_np):
+    return np.frombuffer(data_np, dtype=np.uint8) \
+        if not isinstance(data_np, np.ndarray) else data_np
+
+
+def spec_scan_bytes(tables, data_np, chunk_len=DEFAULT_K, entry_state=0,
+                    prepared=None):
+    """Whole-buffer scan.  Returns (final_state, first_match_boundary
+    or -1); boundaries 0..n-1 only, the EOF boundary is the caller's
+    (tables.match_eof).  On a match the state is the state AT the
+    boundary.  Exact: speculation misses and the firing chunk are
+    re-scanned with the native engine.  ``prepared`` is a prior
+    prepare_* result over the same bytes."""
+    from sregex_tpu.native import NativeDfa
+
+    n = len(data_np)
+    if n == 0:
+        return entry_state, -1
+    summ, packed, C, K = _launch(tables, data_np, chunk_len, entry_state,
+                                 prepared, COUNT=False)
+    ncls = tables.ncls
+    topm = getattr(tables, "to_premult", None) or (lambda v: v * ncls)
+    frpm = getattr(tables, "from_premult", None) or (lambda v: v // ncls)
+    all_ok, fb = bool(summ[0]), int(summ[1])
+    tables.last_repair = None   # set on completed (no-match) scans
+    if all_ok:
+        tables.last_repair = (0, C)
+        return frpm(int(summ[6])), -1
+
+    raw = _host_bytes(data_np)
+    native = NativeDfa(tables.dfa)
+    entry_fb, swarm_fb, many_fb = int(summ[2]), int(summ[4]), int(summ[5])
+    lo = fb * K
+    hi = min(lo + K, n)
+    if swarm_fb == entry_fb and hi - lo == K and many_fb:
+        # validated chunk fired a match: one native re-scan pins it
+        f, st = native.scan_first(raw[lo:hi].tobytes(), frpm(entry_fb))
+        return st, lo + f
+
+    # general repair (speculation miss / ragged tail): pull the
+    # per-chunk planes and walk sequentially from the discrepancy
+    phi, many, swarm = _unpack(packed, C)
+    e = entry_fb
+    c = fb
+    nat = 0
+    while c < C:
+        lo = c * K
+        hi = min(lo + K, n)
+        if swarm[c] == e and hi - lo == K and many[c] == 0:
+            e = int(phi[c])
+            c += 1
+            continue
+        f, st = native.scan_first(raw[lo:hi].tobytes(), frpm(e))
+        if f >= 0:
+            return st, lo + f
+        e = topm(st)
+        c += 1
+        nat += 1
+    tables.last_repair = (nat, C)
+    return frpm(e), -1
+
+
+def spec_count_bytes(tables, data_np, chunk_len=DEFAULT_K, entry_state=0,
+                     prepared=None):
+    """Count every boundary (0..n-1) at which a match ends.  Returns
+    (final_state, count); the EOF boundary is the caller's.  Exact:
+    chunks whose speculation missed are re-counted natively."""
+    from sregex_tpu.native import NativeDfa
+
+    n = len(data_np)
+    if n == 0:
+        return entry_state, 0
+    summ, packed, C, K = _launch(tables, data_np, chunk_len, entry_state,
+                                 prepared, COUNT=True)
+    ncls = tables.ncls
+    topm = getattr(tables, "to_premult", None) or (lambda v: v * ncls)
+    frpm = getattr(tables, "from_premult", None) or (lambda v: v // ncls)
+    if bool(summ[0]):
+        # every chunk validated: the prefix sum covers the corpus.  It
+        # is int32 on the device; past 2**31-1 possible boundaries the
+        # total is re-summed on the host from the per-chunk counts
+        tables.last_repair = (0, C)
+        if n < 2 ** 31:
+            return frpm(int(summ[6])), int(summ[7])
+        _, cnt, _ = _unpack(packed, C)
+        return frpm(int(summ[6])), int(np.sum(cnt, dtype=np.int64))
+
+    # repair from the first speculation miss (or ragged tail)
+    raw = _host_bytes(data_np)
+    fb = int(summ[1])
+    total = int(summ[7])          # counts of the validated prefix
+    native = NativeDfa(tables.dfa)
+    phi, cnt, swarm = _unpack(packed, C)
+    e = int(summ[2])
+    c = fb
+    nat = 0
+    while c < C:
+        lo = c * K
+        hi = min(lo + K, n)
+        if swarm[c] == e and hi - lo == K:
+            total += int(cnt[c])
+            e = int(phi[c])
+        else:
+            k, st = native.count(raw[lo:hi].tobytes(), frpm(e))
+            total += k
+            e = topm(st)
+            nat += 1
+        c += 1
+    tables.last_repair = (nat, C)
+    return frpm(e), total
