@@ -1,20 +1,32 @@
 """Smoke run of sregex_tpu_torch on one CUDA card (run: python3 chip_smoke.py).
 
-Builds the CUDA scan kernel from this checkout, holds it against its
-plain torch version, then drives the port's main path at full size:
-the headline scan (bench.py's 1920 MB corpus and pattern) and the
-90-keyword Scanner.count (bench.py's bench_multi corpus), each checked
-against the native C++ engine.  Every phase prints one line; any
-failure raises, so the script exits non-zero without the final line.
+Builds the CUDA kernels from this checkout, holds each against its
+plain torch version, then drives the port's main paths at full size
+through compile_pattern / Scanner, each checked against the native C++
+engine:
+
+  - headline: a first-match scan of one pattern over 1920 MB (the
+    narrow tier);
+  - multi: Scanner.count of 90 keywords over a 1920 MB text corpus
+    (the wide tier);
+  - affine: Scanner.count and Scanner.scan of a base64-blob detector,
+    [A-Za-z0-9+/]{400,499}=, over 1920 MB of log-like text with base64
+    runs, after the warmup ladder has settled (the affine tier);
+  - big: Scanner.count of a 500-keyword dictionary over the multi
+    corpus with dictionary words planted (the big tier).
+
+Every phase prints one line; any failure raises, so the script exits
+non-zero without the final line.  The kernel launch counts are set to
+0 just before each path is driven and read just after it.
 
 Output, in order: one line per phase, the card's name and power limit
 as nvidia-smi reports them, a JSON line {"kernels": [...]} with each
-kernel's launches on the main path, its largest difference from the
-plain version, and its time beside the plain version's at the main
-path's shapes, and last {"ok": true, "device": {...}}.
+kernel's launches on its main path, its largest difference from the
+plain version, its time beside the plain version's and its bound at
+the main path's shapes, and last {"ok": true, "device": {...}}.
 
-SREGEX_BENCH_MB and SREGEX_BENCH_MULTI_MB size the two corpora
-(default 1920 each, as in bench.py).
+SREGEX_BENCH_MB, SREGEX_BENCH_MULTI_MB, SREGEX_BENCH_AFFINE_MB and
+SREGEX_BENCH_BIG_MB size the four corpora (default 1920 each).
 """
 
 import json
@@ -28,9 +40,10 @@ import numpy as np
 import torch
 
 import sregex_tpu_torch
-from bench import MULTI_WORDS
 from sregex_tpu_torch import Scanner, build_dfa, compile_regex, parse
 from sregex_tpu_torch.ops import _build
+from sregex_tpu_torch.ops import affine as aff
+from sregex_tpu_torch.ops import big
 from sregex_tpu_torch.ops import spec_scan as scan
 from sregex_tpu_torch.ops.layout import GROUPS
 from sregex_tpu_torch.ops.pair import SpecTablesPair
@@ -38,12 +51,35 @@ from sregex_tpu_torch.ops.prep import prepare_on_device
 from sregex_tpu_torch.ops.spec_scan import spec_scan_ref
 
 HEADLINE = "(?:a|b)aa(?:aa|bb)cc(?:a|b)"
-KERNEL_SRC = "sregex_tpu_torch/csrc/spec_scan.cu"
+BASE64_BLOB = "[A-Za-z0-9+/]{400,499}="
+# 90 distinct keywords: the dictionary-matching shape of log scanning
+MULTI_WORDS = """error warning failure timeout retry connect disconnect login
+logout session token refresh expired invalid denied granted access request
+response header payload buffer overflow underflow socket stream packet frame
+segment router gateway proxy cache miss hit evict flush commit rollback begin
+transaction deadlock conflict replica shard leader follower election heartbeat
+snapshot compact merge split index query plan execute fetch cursor batch queue
+topic partition offset consumer producer broker cluster node zone region
+latency throughput quota limit throttle backoff jitter circuit breaker
+fallback primary secondary standby failover recover restore backup archive
+purge""".split()
 REPS = 5
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
+SCALAR_OPS_PER_S = 67e12      # H100 SXM, non-tensor 32-bit rate
 
 
 def say(phase, **fields):
     print("%s: %s" % (phase, json.dumps(fields)), flush=True)
+
+
+def mb_env(name):
+    return int(os.environ.get(name, "1920"))
+
+
+def reset_launches():
+    scan.spec_scan_launches = 0
+    big.big_scan_launches = 0
+    aff.affine_scan_launches = 0
 
 
 def max_abs_err(got, want):
@@ -51,29 +87,41 @@ def max_abs_err(got, want):
                zip(got, want))
 
 
-def compare(args, kw):
+def compare(kernel, plain, args, kw):
     """Kernel vs plain version on the same inputs: bit-exact planes."""
-    got = scan.spec_scan(*args, **kw)
+    got = kernel(*args, **kw)
     torch.cuda.synchronize()
-    want = spec_scan_ref(*args, **kw)
+    want = plain(*args, **kw)
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
     if err:
-        raise AssertionError("kernel differs from plain version by %d "
-                             "(%r)" % (err, kw))
+        raise AssertionError("%s differs from its plain version by %d (%r)"
+                             % (kernel.__name__, err, kw))
     return err
 
 
-def random_case(rng, dev, *, bits, rows, W, count, B=2, G=8, K=512):
-    """Random packed words (classes up to 2**bits, past the table too),
-    a random table of rows*128 valid entries, valid entry states and
-    random warmup freezes."""
+def random_words(rng, shape, bits, hi):
+    """int32 words of CPW classes, each class drawn from [0, hi)."""
+    cpw = {3: 10, 4: 8, 8: 4}[bits]
+    cls = rng.integers(0, hi, shape + (cpw,), dtype=np.int64)
+    words = np.zeros(shape, np.int64)
+    for k in range(cpw):
+        words |= cls[..., k] << (bits * k)
+    return words.astype(np.uint32).view(np.int32)
+
+
+def random_case(rng, dev, *, bits, rows, W, count, B=2, G=8, K=512,
+                ncls=None, in_range=False):
+    """Random packed words, a random table of rows*128 valid entries,
+    valid entry states and random warmup freezes.  Classes run up to
+    2**bits (past the table too) unless ``in_range``, which keeps them
+    below ncls, so every index stays inside the table."""
     cpw = {3: 10, 4: 8, 8: 4}[bits]
     K = K // (2 * cpw) * (2 * cpw)      # whole loop iterations
     Jw = (W + K) // cpw
-    words = rng.integers(0, 1 << 32, (B, Jw, G, 8, 128), dtype=np.uint64)
-    data = words.astype(np.uint32).view(np.int32)
-    ncls = min(1 << bits, 16)
+    ncls = ncls or min(1 << bits, 16)
+    data = random_words(rng, (B, Jw, G, 8, 128), bits,
+                        ncls if in_range else 1 << bits)
     S = rows * 128 // ncls
     table = (rng.integers(0, S, rows * 128) * ncls
              | rng.integers(0, 3, rows * 128) << 20).astype(np.int32)
@@ -81,6 +129,29 @@ def random_case(rng, dev, *, bits, rows, W, count, B=2, G=8, K=512):
     j0 = rng.integers(0, W + 1, (B, G, 8, 128)).astype(np.int32)
     args = [torch.from_numpy(a).to(dev) for a in (data, s0, j0, table)]
     return args, dict(W=W, CPW=cpw, BITS=bits, COUNT=count)
+
+
+def random_affine_case(rng, dev, *, pieces, bits, W, count, B=2, G=8,
+                       K=512):
+    """Random affine tables of P pieces: sorted premultiplied
+    breakpoints, entries with random values, modes and match bits."""
+    cpw = {4: 8, 8: 4}[bits]
+    ncls = int(rng.integers(2, (1 << bits) + 1))
+    S = pieces * int(rng.integers(3, 40))
+    off = S * ncls
+    Jw = (W + K // (2 * cpw) * (2 * cpw)) // cpw
+    data = random_words(rng, (B, Jw, G, 8, 128), bits, 1 << bits)
+    bp = np.sort(rng.choice(np.arange(1, S), pieces - 1, replace=False)
+                 * ncls).astype(np.int32)
+    rows = -(-(pieces * ncls) // 128)
+    val = rng.integers(0, 2 * off, rows * 128)
+    table = (val | rng.integers(0, 2, rows * 128) << 28
+             | rng.integers(0, 2, rows * 128) << 30).astype(np.int32)
+    s0 = (rng.integers(0, S, (B, G, 8, 128)) * ncls).astype(np.int32)
+    j0 = rng.integers(0, W + 1, (B, G, 8, 128)).astype(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (data, s0, j0, table, bp)]
+    return args, dict(W=W, CPW=cpw, BITS=bits, NCLS=ncls, OFF=off,
+                      COUNT=count)
 
 
 def time_gpu(fn, reps):
@@ -109,6 +180,24 @@ def min_rep_seconds(fn, check):
     return min(times)
 
 
+def bound_ms(args, steps):
+    """The least time the card could take for one launch: the larger of
+    the bytes it must move (every input read once, the three output
+    planes written once) over the HBM rate, and its operations, counted
+    as one 32-bit operation per transition step (a lower bound on the
+    work), over the scalar peak."""
+    moved = sum(a.numel() * a.element_size() for a in args)
+    moved += 3 * args[1].numel() * 4
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = steps / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def native_count(sc, corpus):
+    k, st = sc._native.count(corpus, 0)
+    return k + int(sc.dfa.match_eof[st])
+
+
 def headline_corpus(mb):
     body = b"abccc" * (1024 * 1024 * (mb // 5))
     ofs = (len(body) * 255 // 256) // 5 * 5 + 2
@@ -116,8 +205,8 @@ def headline_corpus(mb):
 
 
 def multi_corpus(mb, words):
-    """bench.py bench_multi's corpus: disjoint filler, a dictionary word
-    planted every 64 KB."""
+    """Disjoint filler words with a dictionary word planted every 64 KB
+    (the JAX package's bench_multi corpus)."""
     rng = random.Random(1234)
     filler = [w.encode() for w in
               ("alpha bravo delta golf hotel juliet kilo lima mike "
@@ -131,6 +220,55 @@ def multi_corpus(mb, words):
         w = words[rng.randrange(len(words))]
         out[pos:pos + len(w) + 2] = b" " + w + b" "
     return bytes(out)
+
+
+# log text between base64 runs; each piece starts and ends outside the
+# base64 alphabet, and two of them close the run before with "="
+LOG_PIECES = [b"=\n2026-10-16T14:05:28Z INFO api upload id=4127 blob:",
+              b" len=512\n2026-10-16T14:05:29Z WARN retry n=3 body:",
+              b"\n2026-10-16T14:05:30Z INFO cache ok key ",
+              b"==\n2026-10-16T14:05:31Z DEBUG session token "]
+B64 = np.frombuffer(b"ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz"
+                    b"0123456789+/", np.uint8)
+
+
+def base64_corpus(mb, seed=11, block_mb=32):
+    """Log-like text with base64 runs of 50-600 bytes, some ending in
+    "=": one seeded block of block_mb MB, built with vectorised numpy,
+    repeated to mb MB."""
+    rng = np.random.default_rng(seed)
+    n = min(mb, block_mb) << 20
+    nseg = n // 300 + 16
+    runs = rng.integers(50, 601, nseg)
+    kinds = rng.integers(0, len(LOG_PIECES), nseg)
+    plen = np.array([len(p) for p in LOG_PIECES])
+    width = plen.max()
+    pieces = np.zeros((len(LOG_PIECES), width), np.uint8)
+    for i, p in enumerate(LOG_PIECES):
+        pieces[i, :len(p)] = np.frombuffer(p, np.uint8)
+    seg = np.empty(2 * nseg, np.int64)
+    seg[0::2] = runs
+    seg[1::2] = plen[kinds]
+    sid = np.repeat(np.arange(2 * nseg, dtype=np.int32), seg)[:n]
+    start = np.concatenate([[0], np.cumsum(seg)[:-1]])
+    ofs = np.arange(n, dtype=np.int64) - start[sid]
+    is_run = sid % 2 == 0
+    block = np.where(is_run, B64[rng.integers(0, 64, n)],
+                     pieces[kinds[sid // 2], np.minimum(ofs, width - 1)])
+    block = block.astype(np.uint8).tobytes()
+    reps = -(-(mb << 20) // len(block))
+    return (block * reps)[:mb << 20]
+
+
+def dictionary(n, seed=7):
+    """n distinct keywords of 6-12 lowercase letters (an IOC or DLP
+    keyword list's shape)."""
+    rng = np.random.default_rng(seed)
+    words = set()
+    while len(words) < n:
+        words.add(bytes(rng.integers(97, 123, int(rng.integers(6, 13)))
+                        .astype(np.uint8)))
+    return sorted(words)
 
 
 def main():
@@ -156,9 +294,11 @@ def main():
     t0 = time.perf_counter()
     # the native engine is the oracle and the repair path; without it
     # NativeDfa walks the corpus in Python, far past the time limit
-    if sregex_tpu_torch.compile_pattern("a")._native.lib is None:
-        raise RuntimeError("the native host engine (csrc/sre_host.cpp) "
-                           "did not build: g++ is needed")
+    if sregex_tpu_torch.compile_pattern("a", device=None)._native.lib \
+            is None:
+        raise RuntimeError("the native host engine (sregex_tpu_torch/"
+                           "csrc/sre_host.cpp) did not build: g++ is "
+                           "needed")
     say("build", seconds=kernel_s, compiled=_build.build_seconds is not None,
         native_seconds=time.perf_counter() - t0)
     if _build.build_log:
@@ -166,7 +306,8 @@ def main():
 
     # --- 3. kernel vs plain on the card -----------------------------------
     rng = np.random.default_rng(2026)
-    errs = {"narrow": 0, "wide": 0}
+    errs = {"narrow": 0, "wide": 0, "big": 0, "affine": 0}
+    spec = (scan.spec_scan, spec_scan_ref)
     cases = [("narrow", dict(bits=4, rows=1, W=32, count=True)),
              ("narrow", dict(bits=4, rows=1, W=128, count=False)),
              ("narrow", dict(bits=3, rows=1, W=40, count=False)),
@@ -176,7 +317,7 @@ def main():
              ("wide", dict(bits=8, rows=98, W=128, count=False))]
     for tier, case in cases:
         args, kw = random_case(rng, dev, **case)
-        errs[tier] = max(errs[tier], compare(args, kw))
+        errs[tier] = max(errs[tier], compare(*spec, args, kw))
     # the pair tier's own tables on a pair-packed corpus, COUNT and OR
     ast, _ = parse("abc")
     pt = SpecTablesPair(build_dfa(compile_regex(ast)), dev,
@@ -187,32 +328,67 @@ def main():
     s0, j0 = scan._entry_planes(0, pt.warmup // 2, B, dev)
     for count in (True, False):
         errs["narrow"] = max(errs["narrow"], compare(
-            [packed, s0, j0, pt.fused],
+            *spec, [packed, s0, j0, pt.fused],
             dict(W=pt.warmup // 2, CPW=pt.cpw, BITS=pt.bits,
                  COUNT=count)))
-    say("kernel_vs_plain", cases=len(cases) + 2, groups=GROUPS,
-        max_abs_err=max(errs.values()))
+    # big: tables past the shared-memory cap, in-range indices
+    big_cases = [dict(bits=4, rows=600, W=32, count=True, ncls=16),
+                 dict(bits=4, rows=1024, W=32, count=False, ncls=16),
+                 dict(bits=8, rows=821, W=32, count=True, ncls=27),
+                 dict(bits=8, rows=1024, W=64, count=False, ncls=200)]
+    for case in big_cases:
+        assert case["rows"] * 128 > scan.SMEM_TABLE_MAX
+        args, kw = random_case(rng, dev, in_range=True, **case)
+        errs["big"] = max(errs["big"], compare(
+            big.big_scan, big.big_scan_ref, args, kw))
+    # affine: random tables of 1 to 48 pieces, and the tables of a
+    # renumbered (perm) and a plain counted-repetition machine
+    affine_cases = [dict(pieces=1, bits=4, W=32, count=True),
+                    dict(pieces=3, bits=4, W=512, count=False),
+                    dict(pieces=17, bits=8, W=16, count=True),
+                    dict(pieces=48, bits=8, W=64, count=False),
+                    dict(pieces=48, bits=4, W=32, count=True)]
+    for case in affine_cases:
+        args, kw = random_affine_case(rng, dev, **case)
+        errs["affine"] = max(errs["affine"], compare(
+            aff.affine_scan, aff.affine_scan_ref, args, kw))
+    for pat, want_perm in (("(?:ab?c){60,140}z", True),
+                           ("a{400,499}b", False)):
+        at = aff.SpecTablesAffine(build_dfa(compile_regex(parse(pat)[0])),
+                                  dev)
+        assert (at.perm is not None) == want_perm
+        text = (b"." + b"abc" * 100 + b"z" + b"a" * 450 + b"b") * 4000
+        packed, _, _, _, B = prepare_on_device(at, text, 2048)
+        s0, j0 = scan._entry_planes(0, at.warmup, B, dev)
+        for count in (True, False):
+            errs["affine"] = max(errs["affine"], compare(
+                aff.affine_scan, aff.affine_scan_ref,
+                [packed, s0, j0, at.fused, at.bp],
+                dict(W=at.warmup, CPW=at.cpw, BITS=at.bits, NCLS=at.ncls,
+                     OFF=at.off, COUNT=count)))
+    say("kernel_vs_plain", groups=GROUPS, max_abs_err=max(errs.values()),
+        cases=len(cases) + 2 + len(big_cases) + len(affine_cases) + 4)
     del packed, s0, j0
 
+    launches = {}
     # --- 4. headline: the main path, launches counted from here -----------
-    mb = int(os.environ.get("SREGEX_BENCH_MB", "1920"))
+    mb = mb_env("SREGEX_BENCH_MB")
     corpus = headline_corpus(mb)
     n = len(corpus)
     ast, _ = parse(HEADLINE)
     prog = compile_regex(ast)
     dfa = build_dfa(prog)
-    sc = Scanner(prog, device=dev, ast=ast)
+    sc = Scanner(prog, ast=ast)
     t0 = time.perf_counter()
     exp_first, _ = sc._native.scan_first(corpus, 0)
-    k, st = sc._native.count(corpus, 0)
-    exp_count = k + int(dfa.match_eof[st])
+    exp_count = native_count(sc, corpus)
     native_s = time.perf_counter() - t0
     assert exp_first > 0
     tables = scan.SpecTables(dfa, dev)
     assert type(sc._spec) is scan.SpecTables
 
     torch.cuda.reset_peak_memory_stats()
-    scan.spec_scan_launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     prepared = prepare_on_device(tables, corpus, 2048)
     torch.cuda.synchronize()
@@ -245,28 +421,28 @@ def main():
         raise AssertionError("Scanner.match missed the planted match")
     sc_dt = min_rep_seconds(lambda: sc.count(corpus, prepared=sc_prep),
                             check_total)
-    narrow_launches = scan.spec_scan_launches
+    launches["narrow"] = scan.spec_scan_launches
     say("headline", mb=mb, bytes=n, offset=exp_first, count=exp_count,
         dfa_scan_gbps=n / dt / 1e9, scanner_count_gbps=n / sc_dt / 1e9,
         tier=st.tier, repaired=repaired, chunks=chunks,
-        launches=narrow_launches, prep_s=prep_s, native_s=native_s,
+        launches=launches["narrow"], prep_s=prep_s, native_s=native_s,
         peak_mem_bytes=torch.cuda.max_memory_allocated())
     del sc_prep, sc
 
     # --- 5. multi: 90 keywords through Scanner.count ----------------------
-    mmb = int(os.environ.get("SREGEX_BENCH_MULTI_MB", "1920"))
+    mmb = mb_env("SREGEX_BENCH_MULTI_MB")
     pats = [w.encode() for w in MULTI_WORDS]
-    msc = sregex_tpu_torch.compile_pattern(pats, device=dev)
+    msc = sregex_tpu_torch.compile_pattern(pats)
     if type(msc._spec).__name__ != "SpecTablesWide":
         raise AssertionError("multi set served by %s"
                              % type(msc._spec).__name__)
     mcorpus = multi_corpus(mmb, pats)
     mn = len(mcorpus)
     t0 = time.perf_counter()
-    k, st_ = msc._native.count(mcorpus, 0)
-    mexp = k + int(msc.dfa.match_eof[st_])
+    mexp = native_count(msc, mcorpus)
     mnative_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
+    reset_launches()
     mprep = msc.prepare(mcorpus)
     t0 = time.perf_counter()
     if msc.count(mcorpus, prepared=mprep) != mexp:
@@ -280,49 +456,168 @@ def main():
     mdt = min_rep_seconds(lambda: msc.count(mcorpus, prepared=mprep),
                           check_multi)
     mst = msc.stats()
-    total_launches = scan.spec_scan_launches
-    wide_launches = total_launches - narrow_launches
+    launches["wide"] = scan.spec_scan_launches
     say("multi", mb=mmb, bytes=mn, count=mexp,
         multi_dfa_scan_gbps=mn / mdt / 1e9, tier=mst.tier,
         states=msc.dfa.nstates, classes=msc.dfa.nclasses,
         rows=msc._spec.rows, repaired=mst.repaired, chunks=mst.chunks,
-        launches=wide_launches, first_call_s=first_s,
+        launches=launches["wide"], first_call_s=first_s,
         native_s=mnative_s,
         peak_mem_bytes=torch.cuda.max_memory_allocated())
-    if narrow_launches <= 0 or wide_launches <= 0:
-        raise AssertionError("main path skipped the kernel: %d narrow, "
-                             "%d wide launches"
-                             % (narrow_launches, wide_launches))
+    del mcorpus
 
-    # --- 6. kernel vs plain time at the main path's shapes ----------------
+    # --- 6. affine: a base64-blob detector over log-like text ------------
+    amb = mb_env("SREGEX_BENCH_AFFINE_MB")
+    asc = sregex_tpu_torch.compile_pattern(BASE64_BLOB)
+    if type(asc._spec).__name__ != "SpecTablesAffine":
+        raise AssertionError("base64 detector served by %s"
+                             % type(asc._spec).__name__)
+    t0 = time.perf_counter()
+    acorpus = base64_corpus(amb)
+    gen_s = time.perf_counter() - t0
+    an = len(acorpus)
+    t0 = time.perf_counter()
+    aexp = native_count(asc, acorpus)
+    aexp_first, _ = asc._native.scan_first(acorpus, 0)
+    anative_s = time.perf_counter() - t0
+
+    def check_affine(c):
+        if c != aexp:
+            raise AssertionError("affine rep %r != native %r" % (c, aexp))
+
+    def check_affine_scan(r):
+        if r is None or r[1] != aexp_first:
+            raise AssertionError("affine scan %r != native end %r"
+                                 % (r, aexp_first))
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    # let the warmup ladder settle: scan until a scan needs no
+    # escalation, each checked against the native engine
+    ladder = []
+    t0 = time.perf_counter()
+    for _ in range(8):
+        check_affine(asc.count(acorpus))
+        ast_ = asc.stats()
+        ladder.append([asc._spec.warmup, ast_.repaired, ast_.chunks,
+                       ast_.warm_events])
+        if ast_.repaired <= ast_.chunks * asc.CORE_DRIFT_FRAC \
+                and asc._warm_strikes == 0:
+            break
+    settle_s = time.perf_counter() - t0
+    aprep = asc.prepare(acorpus)
+    check_affine(asc.count(acorpus, prepared=aprep))
+    adt = min_rep_seconds(lambda: asc.count(acorpus, prepared=aprep),
+                          check_affine)
+    ast_ = asc.stats()
+    ragged = int(an % 2048 != 0)
+    if ast_.repaired > ragged:
+        raise AssertionError("affine reps repaired %d chunks"
+                             % ast_.repaired)
+    check_affine_scan(asc.scan(acorpus, prepared=aprep))
+    asdt = min_rep_seconds(lambda: asc.scan(acorpus, prepared=aprep),
+                           check_affine_scan)
+    if ast_.tier != "SpecTablesAffine":
+        raise AssertionError("affine phase served by %s" % ast_.tier)
+    launches["affine"] = aff.affine_scan_launches
+    say("affine", mb=amb, bytes=an, pattern=BASE64_BLOB, count=aexp,
+        first_end=aexp_first, count_gbps=an / adt / 1e9,
+        scan_gbps=an / asdt / 1e9, tier=ast_.tier,
+        states=asc.dfa.nstates, classes=asc.dfa.nclasses,
+        pieces=asc._spec.pieces, warmup=asc._spec.warmup,
+        ladder=ladder, warm_events=ast_.warm_events,
+        repaired=ast_.repaired, chunks=ast_.chunks,
+        launches=launches["affine"], corpus_s=gen_s, settle_s=settle_s,
+        native_s=anative_s,
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+    # --- 7. big: a 500-keyword dictionary --------------------------------
+    bmb = mb_env("SREGEX_BENCH_BIG_MB")
+    words = dictionary(500)
+    t0 = time.perf_counter()
+    bsc = sregex_tpu_torch.compile_pattern(words)
+    dfa_s = time.perf_counter() - t0
+    if type(bsc._spec).__name__ != "SpecTablesBig":
+        raise AssertionError("dictionary served by %s"
+                             % type(bsc._spec).__name__)
+    bcorpus = multi_corpus(bmb, words)
+    bn = len(bcorpus)
+    t0 = time.perf_counter()
+    bexp = native_count(bsc, bcorpus)
+    bnative_s = time.perf_counter() - t0
+
+    def check_big(c):
+        if c != bexp:
+            raise AssertionError("big rep %r != native %r" % (c, bexp))
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    bprep = bsc.prepare(bcorpus)
+    check_big(bsc.count(bcorpus, prepared=bprep))
+    bdt = min_rep_seconds(lambda: bsc.count(bcorpus, prepared=bprep),
+                          check_big)
+    bst = bsc.stats()
+    if bst.tier != "SpecTablesBig":
+        raise AssertionError("big phase served by %s" % bst.tier)
+    launches["big"] = big.big_scan_launches
+    say("big", mb=bmb, bytes=bn, keywords=len(words), count=bexp,
+        count_gbps=bn / bdt / 1e9, tier=bst.tier,
+        states=bsc.dfa.nstates, classes=bsc.dfa.nclasses,
+        entries=bsc.dfa.nstates * bsc.dfa.nclasses, rows=bsc._spec.rows,
+        bits=bsc._spec.bits, warmup=bsc._spec.warmup,
+        warm_events=bst.warm_events, repaired=bst.repaired,
+        chunks=bst.chunks, launches=launches["big"], dfa_build_s=dfa_s,
+        native_s=bnative_s,
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+    if min(launches.values()) <= 0:
+        raise AssertionError("a main path skipped its kernel: %r"
+                             % launches)
+
+    # --- 8. kernel vs plain time at the main path's shapes ----------------
     timings = {}
-    shapes = [("narrow", tables, prepared[0], False),
-              ("wide", msc._spec, mprep.for_tables(msc._spec)[0], True)]
-    for tier, t, data, count in shapes:
+    shapes = [("narrow", spec, tables, prepared[0], False, {}),
+              ("wide", spec, msc._spec, mprep.for_tables(msc._spec)[0],
+               True, {}),
+              ("affine", (aff.affine_scan, aff.affine_scan_ref), asc._spec,
+               aprep.for_tables(asc._spec)[0], True,
+               dict(NCLS=asc._spec.ncls, OFF=asc._spec.off)),
+              ("big", (big.big_scan, big.big_scan_ref), bsc._spec,
+               bprep.for_tables(bsc._spec)[0], True, {})]
+    for tier, fns, t, data, count, extra in shapes:
         B = data.shape[0]
         s0, j0 = scan._entry_planes(0, t.warmup, B, dev)
         args = [data, s0, j0, t.fused]
-        kw = dict(W=t.warmup, CPW=t.cpw, BITS=t.bits, COUNT=count)
-        errs[tier] = max(errs[tier], compare(args, kw))
-        ms = time_gpu(lambda: scan.spec_scan(*args, **kw), 20)
-        plain_ms = time_gpu(lambda: scan.spec_scan_ref(*args, **kw), 2)
-        timings[tier] = (ms, plain_ms, tuple(data.shape))
-        say("kernel_time", tier=tier, shape=list(data.shape),
-            count=count, ms=ms, plain_ms=plain_ms,
-            kernel_gbps=(n if tier == "narrow" else mn) / ms / 1e6)
+        if tier == "affine":
+            args.append(t.bp)
+        kw = dict(W=t.warmup, CPW=t.cpw, BITS=t.bits, COUNT=count, **extra)
+        errs[tier] = max(errs[tier], compare(*fns, args, kw))
+        ms = time_gpu(lambda: fns[0](*args, **kw), 20)
+        plain_ms = time_gpu(lambda: fns[1](*args, **kw), 2)
+        steps = s0.numel() * data.shape[1] * t.cpw
+        bms, by = bound_ms(args, steps)
+        timings[tier] = (ms, plain_ms, bms, by, list(data.shape))
+        say("kernel_time", tier=tier, shape=list(data.shape), count=count,
+            ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            corpus_gbps=s0.numel() * (data.shape[1] * t.cpw - t.warmup)
+            / ms / 1e6)
     say("done", seconds=time.perf_counter() - t_start)
 
     print(smi, flush=True)
     kernels = []
-    for tier, line, launches in (("narrow", 267, narrow_launches),
-                                 ("wide", 334, wide_launches)):
-        ms, plain_ms, shape = timings[tier]
+    for tier, src, where in (
+            ("narrow", "spec_scan.cu", "sregex_tpu/ops/pallas_scan.py:267"),
+            ("wide", "spec_scan.cu", "sregex_tpu/ops/pallas_scan.py:334"),
+            ("big", "spec_scan.cu", "sregex_tpu/ops/pallas_big.py:169"),
+            ("affine", "affine_scan.cu",
+             "sregex_tpu/ops/pallas_affine.py:275")):
+        ms, plain_ms, bms, by, shape = timings[tier]
         kernels.append({
-            "name": "spec_scan (%s table, shape %s)" % (tier, list(shape)),
-            "route": "cuda", "source": KERNEL_SRC,
-            "replaces": "sregex_tpu/ops/pallas_scan.py:%d" % line,
-            "launches": launches, "max_abs_err": errs[tier],
-            "ms": ms, "plain_ms": plain_ms})
+            "name": "%s scan (%s table, shape %s)" % (
+                "affine" if tier == "affine" else "spec", tier, shape),
+            "route": "cuda", "source": "sregex_tpu_torch/csrc/" + src,
+            "replaces": where, "launches": launches[tier],
+            "max_abs_err": errs[tier], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

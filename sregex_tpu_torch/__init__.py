@@ -1,19 +1,17 @@
-"""sregex-tpu on PyTorch and CUDA: the device half of sregex_tpu for an
-NVIDIA Hopper card.
+"""sregex-tpu on PyTorch and CUDA: the engine's port to an NVIDIA Hopper
+card, beside the JAX package it was ported from.
 
-The host frontend (parser, compiler, DFA construction, the native C++
-engines) is the JAX package's own, imported from sregex_tpu; none of
-those modules imports jax.  What this package adds is the device path:
-corpus prep in torch, the speculative scan kernel in CUDA C++
-(csrc/spec_scan.cu) with a plain torch version beside it, the on-device
-validation summary and the host folds with native repair.  It never
-imports jax, nor the JAX package's device modules.
+The package carries its own copy of the host frontend (parser,
+compiler, DFA construction, the native C++ engine in
+csrc/sre_host.cpp), so it imports neither jax nor the JAX package.
+The device path is corpus prep in torch, the scan kernels in CUDA C++
+(csrc/*.cu) each with a plain torch version beside it, the on-device
+validation summary and the host folds with native repair.
 """
 
-from sregex_tpu.compiler import compile_regex
-from sregex_tpu.dfa import build_dfa
-from sregex_tpu.parser import ParseError, parse, parse_multi
-
+from .compiler import compile_regex
+from .dfa import build_dfa
+from .parser import ParseError, parse, parse_multi
 from .stream import PreparedCorpus, Scanner, compile_pattern
 
 __all__ = ["parse", "parse_multi", "ParseError", "compile_regex",

@@ -1,19 +1,26 @@
 """Carry the JAX package's device state over to the port.
 
 The fused tables are this system's weights: a JAX tables object holds
-them as [8, 128] (narrow) or [R, 8, 128] (wide, pair) int32 arrays,
-each 128-entry row broadcast over the 8 sublanes.  The port holds the
-same entries as one flat [R*128] int32 tensor.  These functions take
-the JAX arrays as numpy (the caller does ``np.asarray(x).copy()``), so
-nothing here imports jax.
+them as [8, 128] (narrow) or [R, 8, 128] (wide, pair, big, affine)
+int32 arrays, each 128-entry row broadcast over the 8 sublanes.  The
+port holds the same entries as one flat [R*128] int32 tensor.  These
+functions take the JAX arrays as numpy (the caller does
+``np.asarray(x).copy()``), so nothing here imports jax.
 """
 
 import numpy as np
 import torch
 
+from .ops.affine import SpecTablesAffine
+from .ops.big import SpecTablesBig
 from .ops.layout import max_chunk_bytes
 from .ops.pair import SpecTablesPair
 from .ops.spec_scan import SpecTables, SpecTablesWide
+
+# the JAX tables class (its name) -> the port's
+_KINDS = {c.__name__: c for c in (SpecTables, SpecTablesWide,
+                                  SpecTablesPair, SpecTablesBig,
+                                  SpecTablesAffine)}
 
 
 def _flat_rows(a):
@@ -31,19 +38,19 @@ def _flat_rows(a):
 def spec_tables_from_jax(arrays, dfa, device):
     """Build the port's tables from a JAX tables object's arrays.
 
-    ``arrays``: a mapping with ``fused_vec`` ([8,128]) or
-    ``fused_rows`` ([R,8,128]), plus ``cpw``, ``bits``, ``warmup`` and
-    ``rows``; ``bpu`` = 2 (with ``byte_ncls``) marks pair tables.
-    ``dfa`` is the Dfa both were built from.  The tier follows the JAX
-    class: pair, else wide when there are row tiles, else narrow."""
-    pair = arrays.get("bpu", 1) == 2
+    ``arrays``: a mapping with ``kind``, the JAX tables class name
+    (SpecTables, SpecTablesWide, SpecTablesPair, SpecTablesBig or
+    SpecTablesAffine), which picks the port's class of the same name;
+    ``fused_vec`` ([8,128]) or ``fused_rows`` ([R,8,128]); ``cpw``,
+    ``bits``, ``warmup`` and ``rows``; for pair tables ``byte_ncls``;
+    for affine tables ``pieces``, ``bp_premult``, ``off`` and ``perm``
+    (None or the renumbering).  ``dfa`` is the Dfa both were built
+    from."""
+    kind = arrays["kind"]
+    cls = _KINDS.get(kind)
+    if cls is None:
+        raise ValueError("no port tables for the JAX class %r" % kind)
     fused_rows = arrays.get("fused_rows")
-    if pair:
-        cls = SpecTablesPair
-    elif fused_rows is not None:
-        cls = SpecTablesWide
-    else:
-        cls = SpecTables
     fused = _flat_rows(fused_rows if fused_rows is not None
                        else arrays["fused_vec"])
     t = cls.__new__(cls)
@@ -55,6 +62,7 @@ def spec_tables_from_jax(arrays, dfa, device):
     if fused.size != t.rows * 128:
         raise ValueError("fused table holds %d entries, rows=%d"
                          % (fused.size, t.rows))
+    pair = cls is SpecTablesPair
     if pair:
         t.bpu = 2
         t.byte_ncls = int(arrays["byte_ncls"])
@@ -62,8 +70,19 @@ def spec_tables_from_jax(arrays, dfa, device):
         t.wide = t.rows > 1
     else:
         t.ncls = dfa.nclasses
+    if cls is SpecTablesAffine:
+        t.pieces = int(arrays["pieces"])
+        t.bp_premult = tuple(int(b) for b in arrays["bp_premult"])
+        t.off = int(arrays["off"])
+        perm = arrays.get("perm")
+        t.perm = None if perm is None else np.asarray(perm, np.int64)
+        if t.perm is not None:
+            t.inv = np.argsort(t.perm)
     t.max_chunk = max_chunk_bytes(t.cpw, bpu=2 if pair else 1)
     t._finish(dfa, fused, device)
+    if cls is SpecTablesAffine:
+        t.bp = torch.tensor(t.bp_premult, dtype=torch.int32,
+                            device=t.device)
     return t
 
 

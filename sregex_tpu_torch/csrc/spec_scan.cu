@@ -1,9 +1,11 @@
 // Speculative DFA chunk scan for Hopper (sm_90a).
 //
-// Replaces the TPU kernels sregex_tpu/ops/pallas_scan.py::_kernel (the
-// narrow 128-entry table), ::_kernel_wide (tables of R rows of 128) and
-// their launch ::_dispatch_kernel.  It computes what they compute; it
-// does not copy their structure:
+// Replaces the JAX package's TPU kernels ops/pallas_scan.py::_kernel
+// (the narrow 128-entry table), ::_kernel_wide (tables of R rows of 128)
+// and their launch ::_dispatch_kernel, and, with the table left in global
+// memory, ops/pallas_big.py::_kernel_big with its row loop _lookup_rows
+// (tables of up to 2^17 entries).  It computes what they compute; it does
+// not copy their structure:
 //
 //   - one thread owns one chunk stream; a block of 1024 threads is one
 //     (b, g) tile of the [B, Jw, G, 8, 128] layout, so thread t reads
@@ -12,6 +14,11 @@
 //     copied into dynamic shared memory once per block.  On the TPU a
 //     gather reached only one 128-lane row, hence the narrow/wide split
 //     and the row-select chain; here both tiers are one lookup per step;
+//   - the big tier (sre_big_scan) reads its table, up to 512 KB, from
+//     global memory through the read-only path instead: it does not fit
+//     the 227 KB of shared memory, and the 50 MB L2 holds it.  The TPU's
+//     min/max-bounded row loop existed only because a Mosaic gather
+//     reaches one 128-lane row; here it is one load per step;
 //   - warmup: W units from state0, frozen while j < j0; the state after
 //     it is the speculative entry (swarm);
 //   - main loop: one lookup per unit; COUNT adds the match field
@@ -25,7 +32,10 @@
 // two blocks per SM, each issuing its own chain; the input loads of the
 // next word do not depend on the chain and overlap it.  Several streams
 // per thread, TMA staging and table replication against bank conflicts
-// are left for later.
+// are left for later.  The big tier's chain is one of dependent L1/L2
+// loads (a few hundred cycles on an L1 miss) instead: the same
+// occupancy hides it, and a scan's live states touch few table lines,
+// which L1 keeps.
 //
 // Bounds: a table index is (state + class) and is in range for any
 // input the prep produces.  For any other input the kernel stays inside
@@ -48,12 +58,20 @@ template <> struct Packing<3> { static constexpr int kCpw = 10; };
 template <> struct Packing<4> { static constexpr int kCpw = 8; };
 template <> struct Packing<8> { static constexpr int kCpw = 4; };
 
+// SMEM: the table was copied to shared memory; else it is read from
+// global memory through the read-only data cache.
+template <bool SMEM>
 __device__ __forceinline__ int32_t lookup(const int32_t* tab, uint32_t idx,
                                           uint32_t n) {
-  return tab[idx < n ? idx : (idx & 127u)];
+  const uint32_t i = idx < n ? idx : (idx & 127u);
+  if constexpr (SMEM) {
+    return tab[i];
+  } else {
+    return __ldg(tab + i);
+  }
 }
 
-template <int BITS, bool COUNT>
+template <int BITS, bool COUNT, bool SMEM>
 __global__ void __launch_bounds__(kTile)
 spec_scan_kernel(const int32_t* __restrict__ data,
                  const int32_t* __restrict__ state0,
@@ -63,9 +81,14 @@ spec_scan_kernel(const int32_t* __restrict__ data,
                  int32_t* __restrict__ swarm, int Jw, int G, int W_units) {
   constexpr int CPW = Packing<BITS>::kCpw;
   constexpr uint32_t kClassMask = (1u << BITS) - 1u;
-  extern __shared__ int32_t tab[];
-  for (int i = threadIdx.x; i < table_len; i += blockDim.x) tab[i] = table[i];
-  __syncthreads();
+  extern __shared__ int32_t smem_tab[];
+  const int32_t* tab = table;
+  if constexpr (SMEM) {
+    for (int i = threadIdx.x; i < table_len; i += blockDim.x)
+      smem_tab[i] = table[i];
+    __syncthreads();
+    tab = smem_tab;
+  }
 
   const int64_t tile = blockIdx.x;                 // b * G + g
   const int64_t b = tile / G;
@@ -83,7 +106,7 @@ spec_scan_kernel(const int32_t* __restrict__ data,
 #pragma unroll
     for (int k = 0; k < CPW; ++k) {
       const uint32_t cls = (word >> (BITS * k)) & kClassMask;
-      const int32_t e = lookup(tab, static_cast<uint32_t>(s) + cls, n);
+      const int32_t e = lookup<SMEM>(tab, static_cast<uint32_t>(s) + cls, n);
       if (w * CPW + k >= jz) s = e & kStateMask;
     }
   }
@@ -96,7 +119,7 @@ spec_scan_kernel(const int32_t* __restrict__ data,
 #pragma unroll
     for (int k = 0; k < CPW; ++k) {
       const uint32_t cls = (word >> (BITS * k)) & kClassMask;
-      const int32_t e = lookup(tab, static_cast<uint32_t>(s) + cls, n);
+      const int32_t e = lookup<SMEM>(tab, static_cast<uint32_t>(s) + cls, n);
       if (COUNT) {
         acc += static_cast<uint32_t>(e >> kMatchShift);
       } else {
@@ -110,46 +133,30 @@ spec_scan_kernel(const int32_t* __restrict__ data,
                     : (static_cast<int32_t>(acc) >> kMatchShift);
 }
 
-template <int BITS, bool COUNT>
+template <int BITS, bool COUNT, bool SMEM>
 cudaError_t launch(const int32_t* data, const int32_t* state0,
                    const int32_t* j0, const int32_t* table, int table_len,
                    int32_t* phi, int32_t* fm, int32_t* swarm, int B, int Jw,
                    int G, int W_units, cudaStream_t stream) {
-  auto kernel = spec_scan_kernel<BITS, COUNT>;
-  const size_t smem = static_cast<size_t>(table_len) * sizeof(int32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+  auto kernel = spec_scan_kernel<BITS, COUNT, SMEM>;
+  size_t smem = 0;
+  if constexpr (SMEM) {
+    smem = static_cast<size_t>(table_len) * sizeof(int32_t);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
   kernel<<<B * G, kTile, smem, stream>>>(data, state0, j0, table, table_len,
                                          phi, fm, swarm, Jw, G, W_units);
   return cudaGetLastError();
 }
 
-template <int BITS>
-cudaError_t launch_bits(bool count, const int32_t* data,
-                        const int32_t* state0, const int32_t* j0,
-                        const int32_t* table, int table_len, int32_t* phi,
-                        int32_t* fm, int32_t* swarm, int B, int Jw, int G,
-                        int W_units, cudaStream_t stream) {
-  if (count)
-    return launch<BITS, true>(data, state0, j0, table, table_len, phi, fm,
-                              swarm, B, Jw, G, W_units, stream);
-  return launch<BITS, false>(data, state0, j0, table, table_len, phi, fm,
-                             swarm, B, Jw, G, W_units, stream);
-}
-
-}  // namespace
-
-// data int32 [B, Jw, G, 8, 128]; state0, j0, phi, fm, swarm int32
-// [B, G, 8, 128]; table int32 [table_len].  W_units is the warmup length
-// in kernel units (bytes, or byte pairs for the pair tier).  Returns the
-// cudaError_t of the launch (0 on success); the caller checks shapes.
-extern "C" int sre_spec_scan(const void* data, const void* state0,
-                             const void* j0, const void* table,
-                             int table_len, void* phi, void* fm, void* swarm,
-                             int B, int Jw, int G, int W_units, int CPW,
-                             int BITS, int COUNT, void* stream) {
+template <bool SMEM>
+int dispatch(const void* data, const void* state0, const void* j0,
+             const void* table, int table_len, void* phi, void* fm,
+             void* swarm, int B, int Jw, int G, int W_units, int CPW,
+             int BITS, int COUNT, void* stream) {
   const auto* d = static_cast<const int32_t*>(data);
   const auto* s0 = static_cast<const int32_t*>(state0);
   const auto* jz = static_cast<const int32_t*>(j0);
@@ -160,24 +167,45 @@ extern "C" int sre_spec_scan(const void* data, const void* state0,
   auto st = static_cast<cudaStream_t>(stream);
   if (table_len <= 0 || table_len % 128 != 0 || B <= 0 || G <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (BITS) {
-    case 3:
-      if (CPW != Packing<3>::kCpw) break;
-      return static_cast<int>(launch_bits<3>(COUNT != 0, d, s0, jz, t,
-                                             table_len, p, f, sw, B, Jw, G,
-                                             W_units, st));
-    case 4:
-      if (CPW != Packing<4>::kCpw) break;
-      return static_cast<int>(launch_bits<4>(COUNT != 0, d, s0, jz, t,
-                                             table_len, p, f, sw, B, Jw, G,
-                                             W_units, st));
-    case 8:
-      if (CPW != Packing<8>::kCpw) break;
-      return static_cast<int>(launch_bits<8>(COUNT != 0, d, s0, jz, t,
-                                             table_len, p, f, sw, B, Jw, G,
-                                             W_units, st));
-    default:
-      break;
+#define SRE_LAUNCH(bits)                                                    \
+  (COUNT ? launch<bits, true, SMEM>(d, s0, jz, t, table_len, p, f, sw, B,   \
+                                    Jw, G, W_units, st)                     \
+         : launch<bits, false, SMEM>(d, s0, jz, t, table_len, p, f, sw, B,  \
+                                     Jw, G, W_units, st))
+  cudaError_t err = cudaErrorInvalidValue;
+  if (BITS == 3 && CPW == Packing<3>::kCpw) {
+    if constexpr (SMEM) err = SRE_LAUNCH(3);   // the big tier packs 4 or 8
+  } else if (BITS == 4 && CPW == Packing<4>::kCpw) {
+    err = SRE_LAUNCH(4);
+  } else if (BITS == 8 && CPW == Packing<8>::kCpw) {
+    err = SRE_LAUNCH(8);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+#undef SRE_LAUNCH
+  return static_cast<int>(err);
+}
+
+}  // namespace
+
+// data int32 [B, Jw, G, 8, 128]; state0, j0, phi, fm, swarm int32
+// [B, G, 8, 128]; table int32 [table_len].  W_units is the warmup length
+// in kernel units (bytes, or byte pairs for the pair tier).  Returns the
+// cudaError_t of the launch (0 on success); the caller checks shapes.
+// sre_spec_scan copies the table to shared memory (table_len * 4 bytes
+// must fit a block); sre_big_scan reads it from global memory.
+extern "C" int sre_spec_scan(const void* data, const void* state0,
+                             const void* j0, const void* table,
+                             int table_len, void* phi, void* fm, void* swarm,
+                             int B, int Jw, int G, int W_units, int CPW,
+                             int BITS, int COUNT, void* stream) {
+  return dispatch<true>(data, state0, j0, table, table_len, phi, fm, swarm,
+                        B, Jw, G, W_units, CPW, BITS, COUNT, stream);
+}
+
+extern "C" int sre_big_scan(const void* data, const void* state0,
+                            const void* j0, const void* table, int table_len,
+                            void* phi, void* fm, void* swarm, int B, int Jw,
+                            int G, int W_units, int CPW, int BITS, int COUNT,
+                            void* stream) {
+  return dispatch<false>(data, state0, j0, table, table_len, phi, fm, swarm,
+                         B, Jw, G, W_units, CPW, BITS, COUNT, stream);
 }

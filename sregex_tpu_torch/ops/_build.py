@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of the package.
 
 The kernels are CUDA C++ with a plain C interface
-(sregex_tpu_torch/csrc/*.cu).  At first use they are compiled with
-``nvcc`` for sm_90a into a shared library under build/sregex_tpu_torch/
+(sregex_tpu_torch/csrc/*.cu).  At first use every source is compiled
+with ``nvcc`` for sm_90a, one process per source, all at once; the
+objects are linked into one shared library under build/sregex_tpu_torch/
 at the repository root, named after a hash of the sources so an edit
 rebuilds it, and loaded with ctypes.  Nothing here runs at import.
 """
@@ -18,10 +19,11 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-_SOURCES = [_PKG / "csrc" / "spec_scan.cu"]
+_SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
 BUILD_DIR = _PKG.parent / "build" / "sregex_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -58,22 +60,30 @@ def _compile(so):
     global build_log, build_seconds
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     t0 = time.perf_counter()
     try:
-        r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp,
-                            *map(str, _SOURCES)],
-                           capture_output=True, text=True)
+        objs = [tmp / (src.stem + ".o") for src in _SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(_SOURCES, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        log = "".join(outs)
+        if any(p.returncode for p in procs):
+            raise RuntimeError("nvcc failed (%s):\n%s" % (
+                [p.returncode for p in procs], log))
+        link = tmp / so.name
+        r = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(link),
+                            *map(str, objs)], capture_output=True, text=True)
         if r.returncode != 0:
-            raise RuntimeError("nvcc failed (%d):\n%s%s"
+            raise RuntimeError("nvcc link failed (%d):\n%s%s"
                                % (r.returncode, r.stdout, r.stderr))
-        os.replace(tmp, so)       # atomic: concurrent builds agree
+        os.replace(link, so)       # atomic: concurrent builds agree
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
-    build_log = r.stdout + r.stderr
+    build_log = log
 
 
 def load():
@@ -88,8 +98,11 @@ def load():
             _compile(so)
         lib = ctypes.CDLL(str(so))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sre_spec_scan.restype = i
-        lib.sre_spec_scan.argtypes = [p, p, p, p, i, p, p, p,
-                                      i, i, i, i, i, i, i, p]
+        for fn in (lib.sre_spec_scan, lib.sre_big_scan):
+            fn.restype = i
+            fn.argtypes = [p, p, p, p, i, p, p, p, i, i, i, i, i, i, i, p]
+        lib.sre_affine_scan.restype = i
+        lib.sre_affine_scan.argtypes = [p, p, p, p, i, p, p, p, i, i, i, i,
+                                        i, i, i, p, i, i, i, p]
         _lib = lib
         return _lib

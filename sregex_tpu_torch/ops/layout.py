@@ -1,7 +1,7 @@
 """Layout constants and chunk sizing shared by the prep, the scan
 kernel and the host folds.
 
-These mirror sregex_tpu/ops/pallas_scan.py so that both packages cut a
+These mirror the JAX package's ops/pallas_scan.py so that both packages cut a
 corpus into the same chunks and tile them into the same
 [B, Jw, G, 8, 128] int32 words: chunk c = ((b*G + g)*TILE + t), with
 t = sublane*128 + lane.  On the GPU one (b, g) tile is one thread

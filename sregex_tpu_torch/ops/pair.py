@@ -1,6 +1,6 @@
 """Pair-step tables: one lookup advances a stream by two input bytes.
 
-Counterpart of sregex_tpu/ops/pallas_pair.py.  The transition function
+Counterpart of the JAX package's ops/pallas_pair.py.  The transition function
 is composed over byte pairs,
 
     fused2[s*npair + (c1*ncls + c2)] =

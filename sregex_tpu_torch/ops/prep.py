@@ -2,7 +2,7 @@
 and the [B, Jw, G, 8, 128] stream tiling.
 
 Two paths with bit-identical output, as in the JAX package
-(sregex_tpu/ops/pallas_scan.py::_prepare, sregex_tpu/ops/prep.py):
+(its ops/pallas_scan.py::_prepare and ops/prep.py):
 
   - host prep (_prepare): numpy, then one upload of the packed words;
   - device prep (prepare_on_device): the raw bytes go to the device
@@ -79,7 +79,7 @@ def _prepare(tables, data_np, chunk_len, b_multiple=1,
     raw = np.frombuffer(data_np, dtype=np.uint8) \
         if not isinstance(data_np, np.ndarray) else data_np
 
-    from sregex_tpu.native import get_lib, _u8p, _i32p
+    from ..native import get_lib, _u8p, _i32p
     lib = get_lib() if bpu == 1 else None
     if tables.bits == 4 and prev_tail_cls is None and lib is not None \
             and hasattr(lib, "sre_pack_prepare"):

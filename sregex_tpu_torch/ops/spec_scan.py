@@ -1,7 +1,7 @@
 """Speculative chunked DFA scan: tables, the scan kernel's wrapper and
 its plain version, the on-device validation summary and the host folds.
 
-Counterpart of sregex_tpu/ops/pallas_scan.py.  The input is
+Counterpart of the JAX package's ops/pallas_scan.py.  The input is
 class-mapped, cut into C chunks of K bytes with W warmup bytes from
 the preceding chunk, and packed CPW classes per int32 word (ops/prep.py).
 Every chunk but the first speculates from state 0 through its warmup;
@@ -20,15 +20,17 @@ block, the whole table in shared memory, so the narrow and the wide
 tier are the same single lookup per byte.
 """
 
+import copy
 import ctypes
 import os
 
 import numpy as np
 import torch
 
+from ..native import NativeDfa
 from .layout import (_MATCH_SHIFT, _STATE_MASK, DEFAULT_K, GROUPS,
                      SMEM_TABLE_MAX, TILE, WORDS_PER_ITER,
-                     max_chunk_bytes)
+                     effective_chunk, max_chunk_bytes)
 
 # kernel launches since the last reset (the CUDA path only)
 spec_scan_launches = 0
@@ -136,8 +138,13 @@ class SpecTablesWide(_Tables):
         self._finish(dfa, fused_table(dfa, self.rows), device)
 
 
-def _check_scan_args(data, state0, j0, table, W, CPW, BITS):
-    tensors = (data, state0, j0, table)
+def _check_scan_args(data, state0, j0, table, W, CPW, BITS,
+                     max_table=SMEM_TABLE_MAX, extra=()):
+    """The checks every scan wrapper makes before it launches: int32,
+    contiguous, one device, the [B, Jw, G, 8, 128] layout, a table of
+    whole 128-entry rows of at most ``max_table`` entries, a packing
+    and a warmup that fit.  ``extra`` are further tensors to check."""
+    tensors = (data, state0, j0, table, *extra)
     for t in tensors:
         if not isinstance(t, torch.Tensor):
             raise TypeError("spec_scan takes tensors, got %r" % type(t))
@@ -158,9 +165,9 @@ def _check_scan_args(data, state0, j0, table, W, CPW, BITS):
             raise ValueError("%s must be %s, got %s"
                              % (name, (B, G, 8, 128), tuple(t.shape)))
     n = table.numel()
-    if table.dim() != 1 or n == 0 or n % 128 or n > SMEM_TABLE_MAX:
+    if table.dim() != 1 or n == 0 or n % 128 or n > max_table:
         raise ValueError("table must be int32 [R*128] with at most %d "
-                         "entries, got %s" % (SMEM_TABLE_MAX,
+                         "entries, got %s" % (max_table,
                                               tuple(table.shape)))
     if _CPW.get(BITS) != CPW:
         raise ValueError("BITS=%r does not pack CPW=%r classes per word"
@@ -187,23 +194,31 @@ def spec_scan(data, state0, j0, table, *, W, CPW, BITS, COUNT):
     if data.device.type != "cuda":
         raise ValueError("spec_scan runs on cuda or cpu tensors, got %s"
                          % data.device)
+    planes = launch_planes("sre_spec_scan", data, state0, j0, table,
+                           (W, CPW, BITS, int(bool(COUNT))))
+    spec_scan_launches += 1
+    return planes
+
+
+def launch_planes(entry, data, state0, j0, table, extra):
+    """Launch the C entry point ``entry`` of the kernel library
+    (ops/_build.py) on the current stream, without synchronising.
+    Every scan entry takes (data, state0, j0, table, table_len, phi,
+    fm, swarm, B, Jw, G, *extra, stream); the three int32 [B, G, 8, 128]
+    output planes are allocated here and returned.  Raises when the
+    launch fails."""
     from . import _build
-    lib = _build.load()
-    phi = torch.empty_like(state0)
-    fm = torch.empty_like(state0)
-    swarm = torch.empty_like(state0)
+    fn = getattr(_build.load(), entry)
+    phi, fm, swarm = (torch.empty_like(state0) for _ in range(3))
     B, Jw, G = data.shape[:3]
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
-        rc = lib.sre_spec_scan(
-            data.data_ptr(), state0.data_ptr(), j0.data_ptr(),
-            table.data_ptr(), table.numel(), phi.data_ptr(),
-            fm.data_ptr(), swarm.data_ptr(), B, Jw, G, W, CPW, BITS,
-            int(bool(COUNT)), ctypes.c_void_p(stream))
+        rc = fn(data.data_ptr(), state0.data_ptr(), j0.data_ptr(),
+                table.data_ptr(), table.numel(), phi.data_ptr(),
+                fm.data_ptr(), swarm.data_ptr(), B, Jw, G, *extra,
+                ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError("sre_spec_scan launch failed: cudaError %d"
-                           % rc)
-    spec_scan_launches += 1
+        raise RuntimeError("%s launch failed: cudaError %d" % (entry, rc))
     return phi, fm, swarm
 
 
@@ -277,11 +292,17 @@ def _summarize(phi, fm, swarm, state0, C, bad_tail, COUNT):
 
 def _spec_scan(data, state0, j0, table, C, bad_tail, *, W, CPW, BITS,
                COUNT=False, wide=False):
-    """Kernel + summary.  Returns (summary int32 [10], packed): packed
-    is the narrow uint8 [4, ...] planes, or for wide tables (states
-    past 255) the int32 [3, ...] planes (phi, fm, swarm)."""
-    phi, fm, swarm = spec_scan(data, state0, j0, table, W=W, CPW=CPW,
-                               BITS=BITS, COUNT=COUNT)
+    """Kernel + summary.  Returns (summary int32 [10], packed)."""
+    planes = spec_scan(data, state0, j0, table, W=W, CPW=CPW, BITS=BITS,
+                       COUNT=COUNT)
+    return _summary_and_planes(planes, state0, C, bad_tail, COUNT, wide)
+
+
+def _summary_and_planes(planes, state0, C, bad_tail, COUNT, wide):
+    """A scan kernel's (phi, fm, swarm) -> (summary int32 [10], packed):
+    packed is the narrow uint8 [4, ...] planes, or for wide tables
+    (states past 255) the int32 [3, ...] planes (phi, fm, swarm)."""
+    phi, fm, swarm = planes
     summary, packed = _summarize(phi, fm, swarm, state0, C, bad_tail,
                                  COUNT)
     if wide:
@@ -335,6 +356,32 @@ def _launch(tables, data_np, chunk_len, entry_state, prepared, COUNT):
     return summary.cpu().numpy().astype(np.int64), packed, C, K
 
 
+def with_warmup(tables, W):
+    """A copy of ``tables`` with a longer speculation warmup of W bytes,
+    or None when the tables cannot host it (the JAX package's
+    with_warmup, with the same eligibility).
+
+    Bounded-history automata (counted repetitions: the run counter
+    saturates at the bound) converge through a warmup past their
+    history bound on any corpus, so a corpus whose runs defeat the
+    default window scans clean once W exceeds the bound.  The copy
+    shares the table; only the window, and so the prep layout, changes.
+    Byte-unit tiers with 4- or 8-bit packing only.  max_chunk is
+    re-derived for the new window; on the card it does not depend on
+    the window, so K stays 2048."""
+    if getattr(tables, "bpu", 1) != 1 or tables.bits not in (4, 8):
+        return None
+    if W % tables.cpw or not (tables.warmup < W <= 2048):
+        return None
+    t = copy.copy(tables)
+    t.warmup = int(W)
+    t.max_chunk = max_chunk_bytes(tables.cpw)
+    if effective_chunk(t, DEFAULT_K) < t.warmup // 2:
+        return None     # the window would dwarf the chunk: no gain
+    t.last_repair = None
+    return t
+
+
 def _host_bytes(data_np):
     return np.frombuffer(data_np, dtype=np.uint8) \
         if not isinstance(data_np, np.ndarray) else data_np
@@ -348,8 +395,6 @@ def spec_scan_bytes(tables, data_np, chunk_len=DEFAULT_K, entry_state=0,
     boundary.  Exact: speculation misses and the firing chunk are
     re-scanned with the native engine.  ``prepared`` is a prior
     prepare_* result over the same bytes."""
-    from sregex_tpu.native import NativeDfa
-
     n = len(data_np)
     if n == 0:
         return entry_state, -1
@@ -402,8 +447,6 @@ def spec_count_bytes(tables, data_np, chunk_len=DEFAULT_K, entry_state=0,
     """Count every boundary (0..n-1) at which a match ends.  Returns
     (final_state, count); the EOF boundary is the caller's.  Exact:
     chunks whose speculation missed are re-counted natively."""
-    from sregex_tpu.native import NativeDfa
-
     n = len(data_np)
     if n == 0:
         return entry_state, 0

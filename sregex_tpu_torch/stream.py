@@ -1,48 +1,61 @@
 """Whole-corpus scanning API over the device tiers.
 
-Counterpart of the main-path subset of sregex_tpu/stream.py:
-Scanner.match/count/scan/prepare/stats and PreparedCorpus.  The
-device path is ``Scanner(prog, device="cuda")``; ``device=None`` serves
-every call from the native host engine (the JAX package's
-use_device=False) and ``device="cpu"`` runs the device path's plain
-torch versions on the CPU.
+Counterpart of the main-path subset of the JAX package's stream.py:
+Scanner.match/count/scan/prepare/stats, PreparedCorpus and the warmup
+ladder.  The entry points run on the card: ``Scanner(prog)`` and
+``compile_pattern(p)`` take ``device="cuda"`` and raise when there is
+no card; ``device="cpu"`` runs the device path's plain torch versions
+on the CPU; ``device=None``, passed explicitly, serves every call from
+the native host engine (the JAX package's use_device=False).
 
-The tier chain is pair (narrow) -> narrow -> wide.  A machine that none
-of them accepts raises NotImplementedError when a device is asked for;
-the JAX package would serve it with tiers that are not ported yet.
-Unlike the JAX package, no device failure is swallowed: a failed build
-or launch raises.
+The tier chain is the JAX package's static chain: pair (narrow) ->
+narrow -> affine (P <= 6) -> wide -> affine -> big.  A machine that no
+tier accepts raises NotImplementedError when a device is asked for, as
+does the lazy machine.  Where the JAX package sends big machines to its
+adaptive core and fused tiers, the port serves them with the static
+big tier until those are ported; the results are the same.  Unlike the
+JAX package, no device failure is swallowed: a failed build or launch
+raises.
 """
 
 import functools
 import os
 import time
 
-from sregex_tpu.compiler import compile_regex
-from sregex_tpu.dfa import DfaTooLarge, build_dfa
-from sregex_tpu.diag import ScanStats
-from sregex_tpu.native import NativeDfa
-from sregex_tpu.parser import parse, parse_multi
-
+from .compiler import compile_regex
+from .dfa import DfaTooLarge, build_dfa
+from .diag import ScanStats
+from .native import NativeDfa
+from .ops.affine import SpecTablesAffine
+from .ops.big import SpecTablesBig
 from .ops.layout import DEFAULT_K
 from .ops.pair import SpecTablesPair
 from .ops.prep import DEVICE_PREP_MIN, _host_u8, prepare_auto
 from .ops.spec_scan import (SpecTables, SpecTablesWide, resolve_device,
-                            spec_count_bytes, spec_scan_bytes)
+                            spec_count_bytes, spec_scan_bytes, with_warmup)
+from .parser import parse, parse_multi
 
 _NOT_PORTED = (
-    "the JAX package serves it with the big, affine or adaptive core "
-    "tiers (or the phi tier), which are not ported yet (ROADMAP.md, "
-    "Queue 1 items 5, 6, 9 and 13); use device=None for the host engines")
+    "the JAX package serves it with the adaptive core tiers, which are "
+    "not ported yet (ROADMAP.md, Queue 1 items 5 and 6); use device=None "
+    "for the host engines")
 
 
 def _build_spec_tables(dfa, device):
-    """The ported tier chain, fastest first: narrow pair-step, narrow,
-    wide.  Raises NotImplementedError when none accepts the machine."""
+    """The static tier chain, fastest first, as in the JAX package:
+    narrow pair-step (SREGEX_PAIR=0 disables), narrow, piecewise affine
+    with at most 6 pieces, wide, piecewise affine, big
+    (SREGEX_AFFINE=0 drops both affine tiers).  Raises
+    NotImplementedError when none accepts the machine."""
     chain = []
     if os.environ.get("SREGEX_PAIR") != "0":
         chain.append(functools.partial(SpecTablesPair, narrow_only=True))
-    chain += [SpecTables, SpecTablesWide]
+    chain.append(SpecTables)
+    if os.environ.get("SREGEX_AFFINE") != "0":
+        chain += [functools.partial(SpecTablesAffine, max_pieces=6),
+                  SpecTablesWide, SpecTablesAffine, SpecTablesBig]
+    else:
+        chain += [SpecTablesWide, SpecTablesBig]
     for cls in chain:
         try:
             return cls(dfa, device)
@@ -50,15 +63,17 @@ def _build_spec_tables(dfa, device):
             continue
     raise NotImplementedError(
         "no ported device tier accepts this automaton (S*ncls = %d > %d "
-        "entries): %s" % (dfa.nstates * dfa.nclasses,
-                          SpecTablesWide.MAX_ENTRIES, _NOT_PORTED))
+        "entries, not piecewise affine): %s"
+        % (dfa.nstates * dfa.nclasses, SpecTablesBig.MAX_ENTRIES,
+           _NOT_PORTED))
 
 
 class PreparedCorpus:
     """Device-resident packed corpus, reusable across scans: prepare
     once, then every match/count/scan over it skips the pre-pass.
     Obtained from Scanner.prepare(data); passed back via ``prepared=``.
-    Layouts differ per tier, so entries are cached per tables object."""
+    Layouts differ per tier and per warmup, so entries are cached per
+    tables object (a warmup escalation re-preps under the new tables)."""
 
     def __init__(self, data, device, chunk_len=DEFAULT_K):
         self.data = data
@@ -74,16 +89,18 @@ class PreparedCorpus:
         return self._raw_dev
 
     def for_tables(self, tables):
+        # the entry holds its tables, so no later tables object can
+        # reuse the key
         key = id(tables)
-        p = self._by_tables.get(key)
-        if p is None:
+        hit = self._by_tables.get(key)
+        if hit is None:
             knob = os.environ.get("SREGEX_DEVICE_PREP")
             use_dev = (len(self.data) >= DEVICE_PREP_MIN if knob is None
                        else knob == "1")
             src = self._raw() if use_dev else self.data
-            p = prepare_auto(tables, src, self.chunk_len)
-            self._by_tables[key] = p
-        return p
+            hit = (tables, prepare_auto(tables, src, self.chunk_len))
+            self._by_tables[key] = hit
+        return hit[1]
 
 
 class Scanner:
@@ -94,12 +111,23 @@ class Scanner:
     scan(data)   -> (regex_id, end_boundary) of the earliest match end,
                     or None
 
-    Corpora of at least DEVICE_THRESHOLD bytes go to the device tier
-    when a device was given; smaller ones to the native engine."""
+    Corpora of at least DEVICE_THRESHOLD bytes go to the device tier;
+    smaller ones, and every corpus when device=None, to the native
+    engine."""
 
     DEVICE_THRESHOLD = 4 << 20   # below this the host engine wins
+    # Warmup escalation, as in the JAX package: a corpus whose runs
+    # exceed the speculation window repairs natively chunk by chunk;
+    # for bounded-history automata (counted repetitions) a longer
+    # warmup converges on any corpus.  Two consecutive completed scans
+    # with more than CORE_DRIFT_FRAC of their chunks repaired move the
+    # tables one rung up WARM_LADDER.  Past the last rung the JAX
+    # package switches to its phi tier, which is not ported: the port
+    # stays on its static tier (exact, at the repair rate).
+    WARM_LADDER = (128, 512, 2048)
+    CORE_DRIFT_FRAC = 0.25
 
-    def __init__(self, prog, device=None, ast=None):
+    def __init__(self, prog, device="cuda", ast=None):
         self.program = prog
         self.ast = ast
         try:
@@ -114,6 +142,8 @@ class Scanner:
         self._spec = (None if self.device is None
                       else _build_spec_tables(dfa, self.device))
         self.last_stats = None
+        self._warm_escalations = 0
+        self._warm_strikes = 0
 
     def prepare(self, data, chunk_len=DEFAULT_K):
         """Pack ``data`` once for device scanning; pass the handle back
@@ -132,12 +162,41 @@ class Scanner:
         name = type(tier).__name__ if tier is not None else "native"
         self.last_stats = ScanStats(
             api, name, nbytes, chunks=chunks, repaired=nat,
+            warm_events=self._warm_escalations,
             elapsed_ms=(time.perf_counter() - t0) * 1e3)
 
     def stats(self):
         """The last completed match/count/scan call's ScanStats (tier,
-        chunks, natively repaired chunks, wall ms), or None."""
+        chunks, natively repaired chunks, warmup escalations so far,
+        wall ms), or None."""
         return self.last_stats
+
+    def _escalate_warmup(self):
+        """Move the tables one rung up WARM_LADDER.  Returns True on
+        escalation."""
+        sp = self._spec
+        nxt = next((w for w in self.WARM_LADDER if w > sp.warmup), None)
+        t = with_warmup(sp, nxt) if nxt is not None else None
+        if t is None:
+            return False
+        self._spec = t
+        self._warm_escalations += 1
+        return True
+
+    def _spec_note(self):
+        """After a completed device scan: two consecutive repair-heavy
+        scans escalate the warmup."""
+        rep = self._spec.last_repair
+        if rep is None:
+            return
+        nat, C = rep
+        if C >= 16 and nat > C * self.CORE_DRIFT_FRAC:
+            self._warm_strikes += 1
+            if self._warm_strikes >= 2:
+                self._warm_strikes = 0
+                self._escalate_warmup()
+        else:
+            self._warm_strikes = 0
 
     def _scan_first(self, data, prepared):
         t0 = time.perf_counter()
@@ -147,6 +206,7 @@ class Scanner:
                 spec, data, prepared=prepared.for_tables(spec)
                 if prepared else None)
             self._note_stats("scan", spec, len(data), t0)
+            self._spec_note()
             return first, state
         r = self._native.scan_first(data, 0)
         self._note_stats("scan", None, len(data), t0)
@@ -175,6 +235,7 @@ class Scanner:
                 spec, data, prepared=prepared.for_tables(spec)
                 if prepared else None)
             self._note_stats("count", spec, len(data), t0)
+            self._spec_note()
         else:
             c, state = self._native.count(data, 0)
             self._note_stats("count", None, len(data), t0)
@@ -183,9 +244,10 @@ class Scanner:
         return c
 
 
-def compile_pattern(pattern, flags=0, device=None):
-    """Pattern (str/bytes) or list of patterns -> Scanner.  ``device``
-    enables the device tiers for large corpora."""
+def compile_pattern(pattern, flags=0, device="cuda"):
+    """Pattern (str/bytes) or list of patterns -> Scanner on ``device``
+    (the card by default; "cpu" for the plain versions, None for the
+    host engines alone)."""
     if isinstance(pattern, (list, tuple)):
         ast, _ = parse_multi(list(pattern),
                              [flags] * len(pattern)

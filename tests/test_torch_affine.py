@@ -1,0 +1,280 @@
+"""The port's piecewise-affine tier (ops/affine.py) against the JAX
+package's (ops/pallas_affine.py in interpret mode on the CPU mesh, as
+its own tests run it), and the port's warmup ladder against the JAX
+Scanner's.
+
+Planes: on identical seeded inputs, affine_scan_ref (which the wrapper
+takes for CPU tensors) gives the JAX kernel's phi/fm/swarm, and the
+summary and repair planes equal JAX's.  Classes run past the table, so
+the out-of-table rule (entry index & 127) is exercised.  Results:
+spec_scan_bytes / spec_count_bytes equal the JAX package's and the
+native engine, a renumbered (perm) machine included.  B = 1 and
+K = 256 in the plane and result tests; every quantity is an integer,
+so the tolerance is exact equality.
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from sregex_tpu import compile_regex, parse
+from sregex_tpu import stream as jstream
+from sregex_tpu.dfa import build_dfa
+from sregex_tpu.native import NativeDfa
+from sregex_tpu.ops import pallas_affine as jaff
+from sregex_tpu.ops import pallas_scan as jscan
+
+from sregex_tpu_torch import stream as tstream
+from sregex_tpu_torch.ops import affine as taff
+from sregex_tpu_torch.ops import spec_scan as tscan
+from sregex_tpu_torch.ops.layout import GROUPS, TILE
+
+# The tier-1 run puts several test workers on the machine's cores; torch's
+# own intra-op threads would spin against them and make these small ops
+# many times slower.
+torch.set_num_threads(1)
+
+
+CPU = torch.device("cpu")
+CHUNK = 256
+
+# tests/test_pallas_affine.py patterns: (pattern, alphabet, plant)
+CASES = {
+    "counted": (rb"a{400,499}b", b"ab x", b"x" + b"a" * 450 + b"b"),
+    "class-run": (rb"[a-c]{450}x", b"abcx ", b"." + b"abc" * 150 + b"x"),
+    "chained": (rb"a{499}b{499}c{499}", b"abc",
+                b"a" * 499 + b"b" * 499 + b"c" * 499),
+    "digit": (rb"\dA{300,400}z", b"7Az x", b"3" + b"A" * 350 + b"z"),
+    "perm": (rb"(?:ab?c){60,140}z", b"abcz .", b"." + b"abc" * 100 + b"z"),
+}
+
+
+def _dfa(pattern):
+    ast, _ = parse(pattern)
+    return build_dfa(compile_regex(ast), max_states=65536)
+
+
+@pytest.fixture(scope="module")
+def tiers():
+    """name -> (jax tables, port tables, dfa)."""
+    out = {}
+    for name, (pattern, _, _) in CASES.items():
+        d = _dfa(pattern)
+        out[name] = (jaff.SpecTablesAffine(d), taff.SpecTablesAffine(d, CPU),
+                     d)
+    return out
+
+
+def test_tables_equal_the_jax_tables(tiers):
+    for name, (jt, tt, _) in tiers.items():
+        for k in ("pieces", "bp_premult", "off", "rows", "bits", "cpw",
+                  "warmup"):
+            assert getattr(tt, k) == getattr(jt, k), (name, k)
+        rows = np.asarray(jt.fused_rows)[:, 0].reshape(-1)
+        assert np.array_equal(tt.fused.numpy(), rows), name
+        assert tt.bp.tolist() == list(jt.bp_premult)
+        assert (tt.perm is None) == (jt.perm is None), name
+        if tt.perm is not None:
+            assert np.array_equal(tt.perm, jt.perm)
+            for s in (0, 7, tt.nstates - 1):
+                assert tt.to_premult(s) == jt.to_premult(s)
+                p = tt.to_premult(s)
+                assert tt.from_premult(p) == jt.from_premult(p) == s
+            v = np.arange(0, tt.off, tt.ncls)
+            assert np.array_equal(tt.from_premult_vec(v),
+                                  jt.from_premult_vec(v))
+    assert tiers["perm"][1].perm is not None
+    assert tiers["counted"][1].wide
+
+
+def test_detect_pieces_and_periodic_perm_equal_the_jax_ones(tiers):
+    for name, (_, _, d) in tiers.items():
+        try:
+            want = jaff.detect_pieces(d)
+        except ValueError:
+            with pytest.raises(ValueError):
+                taff.detect_pieces(d)
+            want = None
+        if want is not None:
+            got = taff.detect_pieces(d)
+            assert got[0] == want[0]
+            for g, w in zip(got[1:], want[1:]):
+                assert np.array_equal(g, w)
+        jp, tp = jaff.periodic_perm(d), taff.periodic_perm(d)
+        assert (jp is None) == (tp is None), name
+        if jp is not None:
+            assert np.array_equal(jp, tp)
+    d = _dfa(rb"(x|y|z[QW]){1,5}(longish|loquatious)")
+    with pytest.raises(ValueError):
+        taff.SpecTablesAffine(d, CPU, max_pieces=6)
+
+
+def _random_inputs(rng, tables, W):
+    """Packed words of random classes in [0, 2**BITS) (past the table
+    too), valid premultiplied entry states and warmup freezes."""
+    bits, cpw = tables.bits, tables.cpw
+    Jw = (W + CHUNK) // cpw
+    shape = (1, Jw, GROUPS, 8, 128)
+    cls = rng.integers(0, 1 << bits, shape + (cpw,), dtype=np.int64)
+    words = np.zeros(shape, np.int64)
+    for k in range(cpw):
+        words |= cls[..., k] << (bits * k)
+    data = words.astype(np.uint32).view(np.int32)
+    planes = (1, GROUPS, 8, 128)
+    state0 = (rng.integers(0, tables.nstates, planes)
+              * tables.ncls).astype(np.int32)
+    j0 = rng.integers(0, W + 1, planes).astype(np.int32)
+    return data, state0, j0
+
+
+PLANE_CASES = [("counted", True), ("counted", False), ("perm", True),
+               ("perm", False), ("chained", True), ("digit", False)]
+
+
+@pytest.mark.parametrize("name,count", PLANE_CASES)
+def test_planes_and_summary_match_jax(tiers, name, count):
+    jt, tt, _ = tiers[name]
+    W = tt.warmup
+    rng = np.random.default_rng(len(name) + 13 * count)
+    data, state0, j0 = _random_inputs(rng, tt, W)
+    Cp = GROUPS * TILE
+    C, bad_tail = Cp - 5, 99
+    j_sum, j_packed = jt._scan(jnp.asarray(data), jnp.asarray(state0),
+                               jnp.asarray(j0), jnp.int32(C),
+                               jnp.int32(bad_tail), W + CHUNK, W,
+                               COUNT=count)
+    t = [torch.from_numpy(a.copy()) for a in (data, state0, j0)]
+    t_sum, t_packed = tt._scan(t[0], t[1], t[2], C, bad_tail, W,
+                               COUNT=count)
+    assert np.array_equal(np.asarray(j_sum), t_sum.numpy())
+    assert t_packed.dtype == torch.int32
+    assert np.array_equal(np.asarray(j_packed), t_packed.numpy())
+
+    phi, fm, swarm = taff.affine_scan_ref(
+        t[0], t[1], t[2], tt.fused, tt.bp, W=W, CPW=tt.cpw, BITS=tt.bits,
+        NCLS=tt.ncls, OFF=tt.off, COUNT=count)
+    jphi, jfm, jswarm = jscan._unpack(j_packed, Cp)
+    assert np.array_equal(phi.reshape(-1).numpy(), jphi)
+    assert np.array_equal(fm.reshape(-1).numpy(), jfm)
+    assert np.array_equal(swarm.reshape(-1).numpy(), jswarm)
+    assert (j0 == 0).any() and (j0 >= W).any()
+    if count:
+        assert jfm.max() > 1         # counts, not a 0/1 flag
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_results_match_jax_and_native(tiers, name):
+    jt, tt, dfa = tiers[name]
+    _, alphabet, plant = CASES[name]
+    native = NativeDfa(dfa)
+    rng = random.Random(len(name))
+    for trial in range(2):
+        n = rng.choice([6000, 9001])
+        data = bytearray(rng.choice(alphabet) for _ in range(n))
+        if trial == 0:
+            at = rng.randrange(0, n - len(plant) - 1)
+            data[at:at + len(plant)] = plant
+        data = bytes(data)
+        exp_first, exp_state = native.scan_first(data, 0)
+        exp_count, exp_cstate = native.count(data, 0)
+        got = tscan.spec_scan_bytes(tt, data, chunk_len=CHUNK)
+        assert got == jscan.spec_scan_bytes(jt, data, chunk_len=CHUNK)
+        assert got == (exp_state, exp_first)
+        assert tt.last_repair == jt.last_repair
+        got = tscan.spec_count_bytes(tt, data, chunk_len=CHUNK)
+        assert got == jscan.spec_count_bytes(jt, data, chunk_len=CHUNK)
+        assert got == (exp_cstate, exp_count)
+        assert tt.last_repair == jt.last_repair
+        if trial == 0:
+            assert exp_first >= 0
+
+
+def test_tier_choice_matches_the_jax_chain_for_a_counted_rep():
+    dfa = _dfa(rb"[A-Za-z0-9+/]{400,499}=")
+    jt = jstream._build_spec_tables(dfa)
+    tt = tstream._build_spec_tables(dfa, CPU)
+    assert type(jt).__name__ == type(tt).__name__ == "SpecTablesAffine"
+    assert (tt.pieces, tt.bits) == (jt.pieces, jt.bits) == (3, 4)
+
+
+def test_with_warmup_matches_the_jax_eligibility(tiers):
+    _, tt, _ = tiers["counted"]
+    jt = tiers["counted"][0]
+    for W in (16, 36, 128, 512, 2048, 4096):
+        j2, t2 = jscan.with_warmup(jt, W), tscan.with_warmup(tt, W)
+        assert (j2 is None) == (t2 is None), W
+        if t2 is not None:
+            assert t2.warmup == j2.warmup == W
+            assert t2.fused is tt.fused and t2.last_repair is None
+    assert tt.warmup == 32
+    # byte-unit tiers only: the pair tier's tables never escalate
+    from sregex_tpu_torch.ops.pair import SpecTablesPair
+    pair = SpecTablesPair(_dfa(rb"abc"), CPU, narrow_only=True)
+    assert tscan.with_warmup(pair, 128) is None
+
+
+def _long_runs(n, seed):
+    """tests/test_pallas_affine.py::test_affine_warmup_escalation_window's
+    corpus: runs of 300-519 a's, each closed by a b."""
+    rng = random.Random(seed)
+    data = bytearray()
+    while len(data) < n:
+        data += b"a" * rng.randrange(300, 520) + b"b"
+    return bytes(data[:n])
+
+
+def test_ladder_escalates_as_the_jax_scanner_does():
+    ast, _ = parse(rb"a{400,499}b")
+    prog = compile_regex(ast)
+    data = _long_runs(150_000, 9)
+    jsc = jstream.Scanner(prog, use_device=True, ast=ast)
+    tsc = tstream.Scanner(prog, device="cpu", ast=ast)
+    jsc.DEVICE_THRESHOLD = tsc.DEVICE_THRESHOLD = 1 << 12
+    native = NativeDfa(tsc.dfa)
+    k, st = native.count(data, 0)
+    exp = k + int(tsc.dfa.match_eof[st])
+    seen = []
+    for _ in range(5):
+        assert tsc.count(data) == jsc.count(data) == exp
+        ts, js = tsc.stats(), jsc.stats()
+        assert (ts.tier, ts.chunks, ts.repaired, ts.warm_events) == \
+            (js.tier, js.chunks, js.repaired, js.warm_events)
+        assert tsc._spec.warmup == jsc._spec.warmup
+        seen.append(tsc._spec.warmup)
+    assert seen == [32, 128, 128, 512, 512]
+    assert ts.tier == "SpecTablesAffine"
+    assert ts.repaired <= 1 and ts.warm_events == 2
+    # scan and match ride the escalated tables
+    assert tsc.scan(data) == jsc.scan(data)
+    assert tsc.stats().repaired == 0 and tsc.stats().warm_events == 2
+
+
+def test_ladder_stops_at_its_last_rung():
+    sc = tstream.Scanner(compile_regex(parse(rb"a{400,499}b")[0]),
+                         device="cpu")
+    for w in (128, 512, 2048):
+        assert sc._escalate_warmup() and sc._spec.warmup == w
+    assert not sc._escalate_warmup()
+    assert sc._warm_escalations == 3 and sc._spec.warmup == 2048
+
+
+def test_wrapper_checks_and_counts_no_cpu_launch(tiers):
+    _, tt, _ = tiers["counted"]
+    data = torch.zeros((1, (32 + CHUNK) // 8, 1, 8, 128), dtype=torch.int32)
+    s0 = torch.zeros((1, 1, 8, 128), dtype=torch.int32)
+    kw = dict(W=32, CPW=8, BITS=4, NCLS=tt.ncls, OFF=tt.off, COUNT=True)
+    before = taff.affine_scan_launches
+    taff.affine_scan(data, s0, s0, tt.fused, tt.bp, **kw)
+    assert taff.affine_scan_launches == before
+    with pytest.raises(ValueError, match="bp"):
+        taff.affine_scan(data, s0, s0, tt.fused,
+                         torch.zeros(48, dtype=torch.int32), **kw)
+    with pytest.raises(TypeError):
+        taff.affine_scan(data, s0, s0, tt.fused, tt.bp.long(), **kw)
+    meta = [x.to("meta") for x in (data, s0, s0, tt.fused, tt.bp)]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        taff.affine_scan(*meta, **kw)

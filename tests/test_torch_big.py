@@ -1,0 +1,204 @@
+"""The port's big tier (ops/big.py) against the JAX package's
+(ops/pallas_big.py in interpret mode on the CPU mesh, as its own tests
+run it), and the tier chain against the JAX chain.
+
+Planes: on identical seeded inputs, big_scan_ref (which the wrapper
+takes for CPU tensors) gives the JAX kernel's phi/fm/swarm, and the
+summary and repair planes equal JAX's.  The JAX row loop reads
+undefined rows for an index past the table, so the inputs here keep
+every index in range (classes below ncls, valid entry states).
+Results: spec_scan_bytes / spec_count_bytes equal the JAX package's and
+the native engine.  B = 1 and K = 256 throughout; every quantity is an
+integer, so the tolerance is exact equality.
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from sregex_tpu import compile_regex, parse, parse_multi
+from sregex_tpu import stream as jstream
+from sregex_tpu.dfa import build_dfa
+from sregex_tpu.native import NativeDfa
+from sregex_tpu.ops import pallas_scan as jscan
+from sregex_tpu.ops.pallas_big import SpecTablesBig as JaxBig
+
+from sregex_tpu_torch import stream as tstream
+from sregex_tpu_torch.ops import big as tbig
+from sregex_tpu_torch.ops import spec_scan as tscan
+from sregex_tpu_torch.ops.layout import GROUPS, TILE
+
+from chip_smoke import dictionary
+
+# The tier-1 run puts several test workers on the machine's cores; torch's
+# own intra-op threads would spin against them and make these small ops
+# many times slower.
+torch.set_num_threads(1)
+
+
+CPU = torch.device("cpu")
+CHUNK = 256
+
+# tests/test_pallas_big.py CASES: (pattern, alphabet, planted)
+CASES = {
+    "word": (b"word (?:[a-zA-Z0-9]+ ){0,10}otherword",
+             b"word other abc12 ", b"word abc de3 otherword"),
+    "counted": (b"a{60,120}b", b"aab", b"x" + b"a" * 80 + b"b"),
+    "branch": (b"(x|y|z[QW]){1,5}(longish|loquatious)",
+               b"xyzQWlongishloquatious", b"zQxylongish"),
+    "anchored": (b"^.{9}abc.*\n", b"abc\nxyzw", b"123456789abczz\n"),
+    # 27 classes: 8-bit packing
+    "dict20-8bit": (None, b"abcdefghijklmnopqrstuvwxyz ", None),
+}
+
+
+DICT20 = dictionary(20, 5)
+
+
+def _dfa(pattern):
+    if pattern is None:
+        ast, _ = parse_multi(DICT20)
+    else:
+        ast, _ = parse(pattern)
+    return build_dfa(compile_regex(ast), max_states=65536)
+
+
+@pytest.fixture(scope="module")
+def tiers():
+    """name -> (jax tables, port tables, dfa)."""
+    out = {}
+    for name, (pattern, _, _) in CASES.items():
+        d = _dfa(pattern)
+        out[name] = (JaxBig(d), tbig.SpecTablesBig(d, CPU), d)
+    return out
+
+
+def test_tables_equal_the_jax_tables(tiers):
+    for name, (jt, tt, d) in tiers.items():
+        assert (tt.bits, tt.cpw, tt.warmup, tt.rows, tt.wide) == \
+            (jt.bits, jt.cpw, jt.warmup, jt.rows, True), name
+        rows = np.asarray(jt.fused_rows)[:, 0].reshape(-1)
+        assert np.array_equal(tt.fused.numpy(), rows), name
+        assert d.nstates * d.nclasses > 128
+    assert tiers["dict20-8bit"][1].bits == 8
+    assert tiers["word"][1].bits == 4
+
+
+def _in_range_inputs(rng, tables, W):
+    """Packed words of classes below ncls, valid premultiplied entry
+    states and random warmup freezes j0 in [0, W]."""
+    bits, cpw = tables.bits, tables.cpw
+    Jw = (W + CHUNK) // cpw
+    shape = (1, Jw, GROUPS, 8, 128)
+    cls = rng.integers(0, tables.ncls, shape + (cpw,), dtype=np.int64)
+    words = np.zeros(shape, np.int64)
+    for k in range(cpw):
+        words |= cls[..., k] << (bits * k)
+    data = words.astype(np.uint32).view(np.int32)
+    planes = (1, GROUPS, 8, 128)
+    state0 = (rng.integers(0, tables.nstates, planes)
+              * tables.ncls).astype(np.int32)
+    j0 = rng.integers(0, W + 1, planes).astype(np.int32)
+    return data, state0, j0
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("count", [True, False])
+def test_planes_and_summary_match_jax(tiers, name, count):
+    jt, tt, _ = tiers[name]
+    W = tt.warmup
+    rng = np.random.default_rng(len(name) + 11 * count)
+    data, state0, j0 = _in_range_inputs(rng, tt, W)
+    Cp = GROUPS * TILE
+    C, bad_tail = Cp - 21, 777
+    j_sum, j_packed = jt._scan(jnp.asarray(data), jnp.asarray(state0),
+                               jnp.asarray(j0), jnp.int32(C),
+                               jnp.int32(bad_tail), W + CHUNK, W,
+                               COUNT=count)
+    t = [torch.from_numpy(a.copy()) for a in (data, state0, j0)]
+    t_sum, t_packed = tt._scan(t[0], t[1], t[2], C, bad_tail, W,
+                               COUNT=count)
+    assert np.array_equal(np.asarray(j_sum), t_sum.numpy())
+    assert t_packed.dtype == torch.int32
+    assert np.array_equal(np.asarray(j_packed), t_packed.numpy())
+
+    phi, fm, swarm = tbig.big_scan_ref(t[0], t[1], t[2], tt.fused, W=W,
+                                       CPW=tt.cpw, BITS=tt.bits,
+                                       COUNT=count)
+    jphi, jfm, jswarm = jscan._unpack(j_packed, Cp)
+    assert np.array_equal(phi.reshape(-1).numpy(), jphi)
+    assert np.array_equal(fm.reshape(-1).numpy(), jfm)
+    assert np.array_equal(swarm.reshape(-1).numpy(), jswarm)
+    assert (j0 == 0).any() and (j0 >= W).any()
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_results_match_jax_and_native(tiers, name):
+    jt, tt, dfa = tiers[name]
+    _, alphabet, planted = CASES[name]
+    planted = planted or b" " + DICT20[7] + b" "
+    native = NativeDfa(dfa)
+    rng = random.Random(len(name))
+    for trial in range(2):
+        n = rng.choice([900, 2500])
+        data = bytes(rng.choice(alphabet) for _ in range(n))
+        if trial == 0:
+            data = data[:n // 2] + planted + data[n // 2:]
+        exp_first, exp_state = native.scan_first(data, 0)
+        exp_count, exp_cstate = native.count(data, 0)
+        got = tscan.spec_scan_bytes(tt, data, chunk_len=CHUNK)
+        assert got == jscan.spec_scan_bytes(jt, data, chunk_len=CHUNK)
+        assert got == (exp_state, exp_first)
+        assert tt.last_repair == jt.last_repair
+        got = tscan.spec_count_bytes(tt, data, chunk_len=CHUNK)
+        assert got == jscan.spec_count_bytes(jt, data, chunk_len=CHUNK)
+        assert got == (exp_cstate, exp_count)
+        assert tt.last_repair == jt.last_repair
+
+
+def test_big_rejects_oversize():
+    class FakeDfa:
+        nstates = tbig.MAX_ENTRIES
+        nclasses = 2
+    with pytest.raises(ValueError):
+        tbig.SpecTablesBig(FakeDfa(), CPU)
+
+
+def test_wrapper_takes_the_big_table_and_counts_no_cpu_launch():
+    rng = np.random.default_rng(4)
+    n = 600 * 128                     # past the shared-memory cap
+    assert n > tscan.SMEM_TABLE_MAX
+    table = torch.from_numpy((rng.integers(0, n // 16, n) * 16)
+                             .astype(np.int32))
+    data = torch.zeros((1, 36, 1, 8, 128), dtype=torch.int32)
+    s0 = torch.zeros((1, 1, 8, 128), dtype=torch.int32)
+    kw = dict(W=32, CPW=8, BITS=4, COUNT=True)
+    with pytest.raises(ValueError, match="table"):
+        tscan.spec_scan(data, s0, s0, table, **kw)
+    before = tbig.big_scan_launches
+    got = tbig.big_scan(data, s0, s0, table, **kw)
+    assert tbig.big_scan_launches == before
+    for g, w in zip(got, tscan.spec_scan_ref(data, s0, s0, table, **kw)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="4 or 8"):
+        tbig.big_scan(torch.zeros((1, 30, 1, 8, 128), dtype=torch.int32),
+                      s0, s0, table, W=40, CPW=10, BITS=3, COUNT=True)
+    meta = [t.to("meta") for t in (data, s0, s0, table)]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tbig.big_scan(*meta, **kw)
+
+
+def test_tier_choice_matches_the_jax_chain_past_the_wide_cap():
+    """A 100-word dictionary is past the port's wide cap (16384) and the
+    JAX package's CPU wide cap (4096): both chains pick the big tier."""
+    ast, _ = parse_multi(dictionary(100, 3))
+    dfa = build_dfa(compile_regex(ast))
+    assert dfa.nstates * dfa.nclasses > tscan.SpecTablesWide.MAX_ENTRIES
+    jt = jstream._build_spec_tables(dfa)
+    tt = tstream._build_spec_tables(dfa, CPU)
+    assert type(jt).__name__ == type(tt).__name__ == "SpecTablesBig"
+    assert tt.rows == jt.rows and tt.bits == jt.bits == 8

@@ -9,10 +9,14 @@ import torch
 from sregex_tpu import compile_regex, parse, parse_multi
 from sregex_tpu.dfa import build_dfa
 from sregex_tpu.ops import pallas_scan as jscan
+from sregex_tpu.ops.pallas_affine import SpecTablesAffine as JaxAffine
+from sregex_tpu.ops.pallas_big import SpecTablesBig as JaxBig
 from sregex_tpu.ops.pallas_pair import SpecTablesPair as JaxPair
 
 from sregex_tpu_torch.convert import prepared_from_jax, spec_tables_from_jax
 from sregex_tpu_torch.ops import spec_scan as tscan
+from sregex_tpu_torch.ops.affine import SpecTablesAffine
+from sregex_tpu_torch.ops.big import SpecTablesBig
 from sregex_tpu_torch.ops.pair import SpecTablesPair
 
 # The tier-1 run puts several test workers on the machine's cores; torch's
@@ -33,10 +37,13 @@ def _dfa(pattern):
 
 
 def _arrays(jt):
-    """What a caller hands over: every array as a writable numpy copy."""
+    """What a caller hands over: the JAX class name, the scalars, and
+    every array as a writable numpy copy."""
     out = {k: getattr(jt, k) for k in ("cpw", "bits", "warmup", "rows",
-                                       "bpu", "byte_ncls")
+                                       "bpu", "byte_ncls", "pieces",
+                                       "bp_premult", "off", "perm")
            if hasattr(jt, k)}
+    out["kind"] = type(jt).__name__
     for k in ("fused_vec", "fused_rows"):
         v = getattr(jt, k, None)
         if v is not None:
@@ -52,6 +59,9 @@ CASES = {
                   jscan.SpecTablesWide, tscan.SpecTablesWide),
     "pair-narrow": ("abc", JaxPair, SpecTablesPair),
     "pair-wide": ("abcde", JaxPair, SpecTablesPair),
+    "big": ("a{60,120}b", JaxBig, SpecTablesBig),
+    "affine": ("a{400,499}b", JaxAffine, SpecTablesAffine),
+    "affine-perm": ("(?:ab?c){60,140}z", JaxAffine, SpecTablesAffine),
 }
 
 
@@ -72,6 +82,48 @@ def test_tables_from_jax_equal_the_ports_own(case):
     assert np.array_equal(got.class_map, own.class_map)
     if case == "pair-wide":
         assert own.wide and own.rows > 1
+    if isinstance(own, SpecTablesAffine):
+        for k in ("pieces", "bp_premult", "off"):
+            assert getattr(got, k) == getattr(own, k), k
+        assert torch.equal(got.bp, own.bp)
+        assert (got.perm is None) == (own.perm is None)
+        if own.perm is not None:
+            assert np.array_equal(got.perm, own.perm)
+            assert np.array_equal(got.inv, own.inv)
+
+
+def test_big_tables_from_jax_stay_big():
+    """A JAX SpecTablesBig has row tiles like a wide table; it becomes
+    the port's big tier, never a wide table past the shared-memory
+    cap."""
+    dfa = _dfa("a.{11}b")
+    jt = JaxBig(dfa)
+    assert jt.rows * 128 > tscan.SpecTablesWide.MAX_ENTRIES
+    got = spec_tables_from_jax(_arrays(jt), dfa, CPU)
+    assert type(got) is SpecTablesBig and got.warmup == 32
+    rng = np.random.default_rng(2)
+    data = rng.choice(np.frombuffer(b"abab.", np.uint8), 9000).tobytes()
+    want = jscan.spec_count_bytes(jt, data, chunk_len=256)
+    assert tscan.spec_count_bytes(got, data, chunk_len=256) == want
+
+
+def test_affine_tables_from_jax_keep_perm_and_scan_alike():
+    dfa = _dfa("(?:ab?c){60,140}z")
+    jt = JaxAffine(dfa)
+    got = spec_tables_from_jax(_arrays(jt), dfa, CPU)
+    assert got.perm is not None
+    data = (b"." + b"abc" * 100 + b"z" + b"ab.c") * 20
+    want = jscan.spec_count_bytes(jt, data, chunk_len=256)
+    assert tscan.spec_count_bytes(got, data, chunk_len=256) == want
+    assert want[1] > 0
+
+
+def test_tables_from_jax_need_a_known_class():
+    dfa = _dfa("abc")
+    arrays = _arrays(jscan.SpecTables(dfa))
+    arrays["kind"] = "CoreTables"
+    with pytest.raises(ValueError, match="CoreTables"):
+        spec_tables_from_jax(arrays, dfa, CPU)
 
 
 def test_tables_from_jax_rejects_rows_that_are_not_broadcast():

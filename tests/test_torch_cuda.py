@@ -1,4 +1,4 @@
-"""The CUDA scan kernel against its plain torch version, on the card.
+"""The CUDA scan kernels against their plain torch versions, on the card.
 
 Marked ``cuda``: these skip where torch sees no card.  On a machine
 with one, run ``python -m pytest tests/test_torch_cuda.py -m cuda``.
@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+from sregex_tpu_torch.ops import affine as taff
+from sregex_tpu_torch.ops import big as tbig
 from sregex_tpu_torch.ops import spec_scan as tscan
 
 pytestmark = pytest.mark.cuda
@@ -45,3 +47,86 @@ def test_kernel_equals_plain_version(cuda, bits, rows, count, W):
     want = tscan.spec_scan_ref(*args, **kw)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("bits,rows,ncls,count", [
+    (4, 600, 16, True), (4, 1024, 9, False), (8, 821, 27, True),
+    (8, 1024, 200, False)])
+def test_big_kernel_equals_plain_version(cuda, bits, rows, ncls, count):
+    """Tables past the shared-memory cap, classes below ncls (every
+    index inside the table)."""
+    rng = np.random.default_rng(bits * 1000 + rows)
+    cpw = {4: 8, 8: 4}[bits]
+    B, G, W = 2, 8, 32
+    Jw = (W + 480) // cpw
+    cls = rng.integers(0, ncls, (B, Jw, G, 8, 128, cpw), dtype=np.int64)
+    words = np.zeros(cls.shape[:-1], np.int64)
+    for k in range(cpw):
+        words |= cls[..., k] << (bits * k)
+    data = torch.from_numpy(words.astype(np.uint32).view(np.int32))
+    S = rows * 128 // ncls
+    table = torch.from_numpy((rng.integers(0, S, rows * 128) * ncls
+                              | rng.integers(0, 2, rows * 128) << 20)
+                             .astype(np.int32))
+    assert table.numel() > tscan.SMEM_TABLE_MAX
+    s0 = torch.from_numpy(
+        (rng.integers(0, S, (B, G, 8, 128)) * ncls).astype(np.int32))
+    j0 = torch.from_numpy(
+        rng.integers(0, W + 1, (B, G, 8, 128)).astype(np.int32))
+    args = [t.to(cuda) for t in (data, s0, j0, table)]
+    kw = dict(W=W, CPW=cpw, BITS=bits, COUNT=count)
+    before = tbig.big_scan_launches
+    got = tbig.big_scan(*args, **kw)
+    torch.cuda.synchronize()
+    assert tbig.big_scan_launches == before + 1
+    want = tbig.big_scan_ref(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("pieces,bits,count,W", [
+    (1, 4, True, 32), (3, 4, False, 512), (17, 8, True, 16),
+    (48, 8, False, 64), (48, 4, True, 32)])
+def test_affine_kernel_equals_plain_version(cuda, pieces, bits, count, W):
+    """Random tables of 1 to 48 pieces; classes run past the table."""
+    rng = np.random.default_rng(pieces * 10 + bits)
+    cpw = {4: 8, 8: 4}[bits]
+    ncls = int(rng.integers(2, (1 << bits) + 1))
+    S = pieces * 20
+    off = S * ncls
+    B, G = 2, 8
+    Jw = (W + 480) // cpw
+    words = rng.integers(0, 1 << 32, (B, Jw, G, 8, 128), dtype=np.uint64)
+    data = torch.from_numpy(words.astype(np.uint32).view(np.int32))
+    bp = torch.from_numpy(np.sort(rng.choice(
+        np.arange(1, S), pieces - 1, replace=False) * ncls).astype(np.int32))
+    rows = -(-(pieces * ncls) // 128)
+    table = torch.from_numpy(
+        (rng.integers(0, 2 * off, rows * 128)
+         | rng.integers(0, 2, rows * 128) << 28
+         | rng.integers(0, 2, rows * 128) << 30).astype(np.int32))
+    s0 = torch.from_numpy(
+        (rng.integers(0, S, (B, G, 8, 128)) * ncls).astype(np.int32))
+    j0 = torch.from_numpy(
+        rng.integers(0, W + 1, (B, G, 8, 128)).astype(np.int32))
+    args = [t.to(cuda) for t in (data, s0, j0, table, bp)]
+    kw = dict(W=W, CPW=cpw, BITS=bits, NCLS=ncls, OFF=off, COUNT=count)
+    before = taff.affine_scan_launches
+    got = taff.affine_scan(*args, **kw)
+    torch.cuda.synchronize()
+    assert taff.affine_scan_launches == before + 1
+    want = taff.affine_scan_ref(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_entry_points_run_on_the_card_by_default(cuda):
+    import sregex_tpu_torch
+    sc = sregex_tpu_torch.compile_pattern("a{400,499}b")
+    assert sc.device.type == "cuda"
+    assert type(sc._spec).__name__ == "SpecTablesAffine"
+    sc.DEVICE_THRESHOLD = 1
+    data = (b"x" + b"a" * 450 + b"b") * 3000
+    before = taff.affine_scan_launches
+    assert sc.count(data) == 3000
+    assert taff.affine_scan_launches == before + 1

@@ -31,6 +31,9 @@ def test_import_and_cpu_count_load_no_jax():
         "assert sc.count(b'xxab' * 3000) == 3000\n"
         "assert sc.stats().tier == 'SpecTablesPair', sc.stats()\n"
         "assert 'jax' not in sys.modules\n"
+        "ref = [m for m in sys.modules\n"
+        "       if m == 'sregex_tpu' or m.startswith('sregex_tpu.')]\n"
+        "assert not ref, ref\n"
         "print('ok')\n")
     env = dict(os.environ)
     env.pop("JAX_PLATFORMS", None)
@@ -40,15 +43,48 @@ def test_import_and_cpu_count_load_no_jax():
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
 
 
-@pytest.mark.parametrize("path", sorted(
+SOURCES = sorted(
     str(p.relative_to(ROOT))
     for p in [*(ROOT / "sregex_tpu_torch").rglob("*.py"),
-              ROOT / "chip_smoke.py"]))
-def test_sources_never_import_jax_or_the_jax_ops(path):
+              *(ROOT / "sregex_tpu_torch").rglob("*.cu"),
+              *(ROOT / "sregex_tpu_torch").rglob("*.cpp"),
+              ROOT / "chip_smoke.py"])
+
+
+def _text(path):
     text = (ROOT / path).read_text()
+    if path == "chip_smoke.py":
+        # its kernel report names the TPU kernel each CUDA kernel
+        # replaces, as file:line in the JAX package; nothing else may
+        # name that package
+        text = re.sub(r'"sregex_tpu/ops/\w+\.py:\d+"', '""', text)
+    return text
+
+
+@pytest.mark.parametrize("path", SOURCES)
+def test_sources_never_import_jax_or_the_jax_ops(path):
+    text = _text(path)
     assert not re.search(r"^\s*(import|from)\s+jax\b", text, re.M)
     assert not re.search(r"sregex_tpu\.ops|from\s+sregex_tpu\s+import\s+"
                          r"[^\n]*\bops\b", text)
+
+
+@pytest.mark.parametrize("path", SOURCES)
+def test_sources_never_name_the_jax_package_or_bench(path):
+    text = _text(path)
+    assert not re.search(r"\bsregex_tpu\b(?!_torch)", text)
+    assert not re.search(r"^\s*(from|import)\s+bench\b", text, re.M)
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    import sregex_tpu_torch
+    with pytest.raises(RuntimeError, match="cuda"):
+        sregex_tpu_torch.compile_pattern("abc")
+    prog = sregex_tpu_torch.compile_pattern("abc", device=None).program
+    with pytest.raises(RuntimeError, match="cuda"):
+        sregex_tpu_torch.Scanner(prog)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

@@ -128,17 +128,24 @@ def test_small_corpus_and_host_scanner_use_native():
     sc = sregex_tpu_torch.compile_pattern(HEADLINE, device="cpu")
     data = _headline_corpus(5000, 100)
     assert sc.count(data) == 1 and sc.stats().tier == "native"
-    host = sregex_tpu_torch.compile_pattern(HEADLINE)
+    host = sregex_tpu_torch.compile_pattern(HEADLINE, device=None)
     host.DEVICE_THRESHOLD = 1
     assert host.device is None and host._spec is None
     assert host.scan(data) == (0, 109) and host.stats().tier == "native"
 
 
 def test_past_the_wide_cap_raises_on_a_device_path():
+    """Past the wide cap the big tier serves; a machine past the big cap
+    that is not piecewise affine raises on a device path."""
     ast, _ = parse("a.{11}b")
     prog = compile_regex(ast)
-    sc = tstream.Scanner(prog)           # host engines: fine
+    sc = tstream.Scanner(prog, device="cpu")
     assert sc.dfa.nstates * sc.dfa.nclasses > 16384
+    assert type(sc._spec).__name__ == "SpecTablesBig"
+    ast, _ = parse("a.{10}b|cdefghijklmnopqrstuvwxyz")
+    prog = compile_regex(ast)
+    sc = tstream.Scanner(prog, device=None)      # host engines: fine
+    assert sc.dfa.nstates * sc.dfa.nclasses > (1 << 17)
     with pytest.raises(NotImplementedError, match="not ported"):
         tstream.Scanner(prog, device="cpu")
 
