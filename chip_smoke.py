@@ -13,7 +13,14 @@ engine:
     [A-Za-z0-9+/]{400,499}=, over 1920 MB of log-like text with base64
     runs, after the warmup ladder has settled (the affine tier);
   - big: Scanner.count of a 500-keyword dictionary over the multi
-    corpus with dictionary words planted (the big tier).
+    corpus with dictionary words planted (the big tier);
+  - find: Scanner.find of a log-field extractor with two capture
+    groups over 1920 MB of log lines full of near misses, one full
+    match planted near the end (the tagged-DFA kernel, certified in one
+    pass); then a 16 MB corpus whose one match spans 1.5 MB, past the
+    chunk window and the chunk-repair budget, which the multi-pass path
+    serves (the scan kernel forward, spec_scan_last_bytes on the
+    reversed corpus, the Pike engine over the match).
 
 Every phase prints one line; any failure raises, so the script exits
 non-zero without the final line.  The kernel launch counts are set to
@@ -25,8 +32,9 @@ kernel's launches on its main path, its largest difference from the
 plain version, its time beside the plain version's and its bound at
 the main path's shapes, and last {"ok": true, "device": {...}}.
 
-SREGEX_BENCH_MB, SREGEX_BENCH_MULTI_MB, SREGEX_BENCH_AFFINE_MB and
-SREGEX_BENCH_BIG_MB size the four corpora (default 1920 each).
+SREGEX_BENCH_MB, SREGEX_BENCH_MULTI_MB, SREGEX_BENCH_AFFINE_MB,
+SREGEX_BENCH_BIG_MB and SREGEX_BENCH_FIND_MB size the five corpora
+(default 1920 each).
 """
 
 import json
@@ -41,10 +49,13 @@ import torch
 
 import sregex_tpu_torch
 from sregex_tpu_torch import Scanner, build_dfa, compile_regex, parse
+from sregex_tpu_torch.consts import sre_isword
+from sregex_tpu_torch.native_pike import NativePikeCtx
 from sregex_tpu_torch.ops import _build
 from sregex_tpu_torch.ops import affine as aff
 from sregex_tpu_torch.ops import big
 from sregex_tpu_torch.ops import spec_scan as scan
+from sregex_tpu_torch.ops import tdfa_scan as tdfa
 from sregex_tpu_torch.ops.layout import GROUPS
 from sregex_tpu_torch.ops.pair import SpecTablesPair
 from sregex_tpu_torch.ops.prep import prepare_on_device
@@ -63,6 +74,17 @@ topic partition offset consumer producer broker cluster node zone region
 latency throughput quota limit throttle backoff jitter circuit breaker
 fallback primary secondary standby failover recover restore backup archive
 purge""".split()
+# a log-field extractor: the status code and the user of a log line
+FIND_PATTERN = rb"status=([0-9]+) user=([a-z_]+)"
+# log lines, each with a near miss of FIND_PATTERN ("status=" not
+# followed by digits, " user=" and a letter) and ending in a newline, so
+# no line and no suffix of one completes a match
+FIND_LINES = [b"2026-10-16T14:05:28Z INFO api status= user=x id=4127\n",
+              b"2026-10-16T14:05:29Z WARN status=503 usr=bob retry=3\n",
+              b"2026-10-16T14:05:30Z INFO status=200 user= cache=ok\n",
+              b"2026-10-16T14:05:31Z DEBUG user=alice status= token\n",
+              b"2026-10-16T14:05:32Z INFO status=5 user=9 q=GET\n"]
+FIND_PLANT = b"2026-10-16T14:05:33Z ERROR status=404 user=bob_x path=/a\n"
 REPS = 5
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 SCALAR_OPS_PER_S = 67e12      # H100 SXM, non-tensor 32-bit rate
@@ -80,6 +102,7 @@ def reset_launches():
     scan.spec_scan_launches = 0
     big.big_scan_launches = 0
     aff.affine_scan_launches = 0
+    tdfa.tdfa_scan_launches = 0
 
 
 def max_abs_err(got, want):
@@ -152,6 +175,41 @@ def random_affine_case(rng, dev, *, pieces, bits, W, count, B=2, G=8,
     args = [torch.from_numpy(a).to(dev) for a in (data, s0, j0, table, bp)]
     return args, dict(W=W, CPW=cpw, BITS=bits, NCLS=ncls, OFF=off,
                       COUNT=count)
+
+
+def random_tdfa_case(rng, dev, *, bits, rows, code, R, T, B=2, G=8, K=256):
+    """Random words (classes past the table too), valid premultiplied
+    next and entry states, commits on about a third of the entries, and
+    code slots that are register ids (up to two past R) or UNSET, CUR
+    and NEXT."""
+    cpw = 32 // bits
+    W = 4 * cpw
+    Jw = (W + K) // cpw
+    n = rows * 128
+    ncls = 16 if bits == 4 else 40
+    S = max(1, n // ncls)
+    spp = 32 // code
+    top = (1 << code) - 1
+    data = random_words(rng, (B, Jw, G, 8, 128), bits, 1 << bits)
+    t_next = (rng.integers(0, S, n) * ncls).astype(np.int32)
+    t_cmeta = np.where(rng.random(n) < 0.3, 1 | (rng.integers(0, 128, n) << 1),
+                       rng.integers(0, 1 << 20, n) << 1).astype(np.int32)
+
+    def planes(k):
+        P = max(1, -(-k // spp))
+        slots = np.where(rng.random((P, spp, n)) < 0.5,
+                         rng.integers(0, k + 2, (P, spp, n)),
+                         top - rng.integers(0, 3, (P, spp, n)))
+        out = np.zeros((P, n), np.uint64)
+        for sl in range(spp):
+            out |= slots[:, sl].astype(np.uint64) << np.uint64(code * sl)
+        return out.astype(np.uint32).view(np.int32)
+
+    s0 = (rng.integers(0, S, (B, G, 8, 128)) * ncls).astype(np.int32)
+    j0 = rng.integers(0, W + 1, (B, G, 8, 128)).astype(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in
+            (data, s0, j0, t_next, planes(R), planes(T), t_cmeta)]
+    return args, dict(W=W, CPW=cpw, BITS=bits, CODE=code, R=R, T=T)
 
 
 def time_gpu(fn, reps):
@@ -260,6 +318,45 @@ def base64_corpus(mb, seed=11, block_mb=32):
     return (block * reps)[:mb << 20]
 
 
+def log_corpus(mb, seed=17, block_mb=32):
+    """Log lines drawn from FIND_LINES: one seeded block of block_mb MB,
+    repeated to mb MB."""
+    rng = np.random.default_rng(seed)
+    n = min(mb, block_mb) << 20
+    mean = sum(map(len, FIND_LINES)) / len(FIND_LINES)
+    idx = rng.integers(0, len(FIND_LINES), int(n / mean) + 64)
+    block = b"".join(FIND_LINES[i] for i in idx)[:n]
+    reps = -(-(mb << 20) // len(block))
+    return bytearray((block * reps)[:mb << 20])
+
+
+def plant_line(corpus, near, line):
+    """Overwrite the corpus from the first line start at or after
+    ``near`` with ``line``.  Returns that offset."""
+    p = corpus.index(b"\n", near) + 1
+    corpus[p:p + len(line)] = line
+    return p
+
+
+def find_oracle(corpus, p, user):
+    """The planted match's ovector, from the generator: the line at p
+    holds "status=404 user=<user>"."""
+    s = p + FIND_PLANT.index(b"status=")
+    u = s + len(b"status=404 user=")
+    return (0, [s, u + len(user), s + 7, s + 10, u, u + len(user)])
+
+
+def pike_window(prog, corpus, start):
+    """The native Pike engine (exact mode) over corpus[start:], entered
+    with the preceding byte's newline/word carry: (rid, ovector)."""
+    ctx = NativePikeCtx(prog, exact=True)
+    if start > 0:
+        prev = corpus[start - 1]
+        ctx.set_carry(start, prev == 10, sre_isword(prev))
+    rc, _ = ctx.exec(bytes(corpus[start:]), True)
+    return (rc, [int(v) for v in ctx.ovector]) if rc >= 0 else None
+
+
 def dictionary(n, seed=7):
     """n distinct keywords of 6-12 lowercase letters (an IOC or DLP
     keyword list's shape)."""
@@ -366,8 +463,23 @@ def main():
                 [packed, s0, j0, at.fused, at.bp],
                 dict(W=at.warmup, CPW=at.cpw, BITS=at.bits, NCLS=at.ncls,
                      OFF=at.off, COUNT=count)))
+    # tdfa: random code planes, CODE 4/8/16, one and several rows, 4- and
+    # 8-bit words, R and T at the edges of each code width; the last
+    # case's 50 planes of 2048 entries take the global-memory variant
+    errs["tdfa"] = 0
+    tdfa_cases = [dict(bits=4, rows=1, code=4, R=13, T=13),
+                  dict(bits=8, rows=3, code=4, R=1, T=13),
+                  dict(bits=4, rows=2, code=8, R=24, T=24),
+                  dict(bits=8, rows=1, code=8, R=14, T=2),
+                  dict(bits=4, rows=4, code=16, R=48, T=48),
+                  dict(bits=8, rows=16, code=16, R=48, T=48)]
+    for case in tdfa_cases:
+        args, kw = random_tdfa_case(rng, dev, **case)
+        errs["tdfa"] = max(errs["tdfa"], compare(
+            tdfa.tdfa_scan, tdfa.tdfa_scan_ref, args, kw))
     say("kernel_vs_plain", groups=GROUPS, max_abs_err=max(errs.values()),
-        cases=len(cases) + 2 + len(big_cases) + len(affine_cases) + 4)
+        cases=len(cases) + 2 + len(big_cases) + len(affine_cases) + 4
+        + len(tdfa_cases))
     del packed, s0, j0
 
     launches = {}
@@ -569,11 +681,100 @@ def main():
         chunks=bst.chunks, launches=launches["big"], dfa_build_s=dfa_s,
         native_s=bnative_s,
         peak_mem_bytes=torch.cuda.max_memory_allocated())
+    del bcorpus
+
+    # --- 8. find: a log-field extractor, certified in one pass -----------
+    fmb = mb_env("SREGEX_BENCH_FIND_MB")
+    fsc = sregex_tpu_torch.compile_pattern(FIND_PATTERN)
+    ft = fsc._tdfa_spec
+    if ft is None:
+        raise AssertionError("no tagged tables for %r" % FIND_PATTERN)
+    t0 = time.perf_counter()
+    fcorpus = log_corpus(fmb)
+    fp = plant_line(fcorpus, len(fcorpus) - 8192, FIND_PLANT)
+    fcorpus = bytes(fcorpus)
+    fgen_s = time.perf_counter() - t0
+    fn = len(fcorpus)
+    fexp = find_oracle(fcorpus, fp, b"bob_x")
+    t0 = time.perf_counter()
+    # independent checks of the generator's span: the native DFA's first
+    # match end is the boundary after the user's first letter, and the
+    # native Pike engine over a window that begins 64 KB before the line
+    # agrees
+    ffirst, _ = fsc._native.scan_first(fcorpus, 0)
+    if ffirst != fexp[1][4] + 1:
+        raise AssertionError("first match end %d, planted user at %d"
+                             % (ffirst, fexp[1][4]))
+    if pike_window(fsc.program, fcorpus, fp - 65536) != fexp:
+        raise AssertionError("Pike window != the planted match %r" % (fexp,))
+    foracle_s = time.perf_counter() - t0
+
+    def check_find(r):
+        if r != fexp:
+            raise AssertionError("find %r != the planted match %r"
+                                 % (r, fexp))
+        st_ = fsc.stats()
+        if (st_.tier, st_.certified, st_.repaired) != (
+                "TdfaSpecTables", True, 0):
+            raise AssertionError("find not certified in one pass: %r"
+                                 % st_)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    fprep = fsc.prepare(fcorpus)
+    t0 = time.perf_counter()
+    check_find(fsc.find(fcorpus, prepared=fprep))
+    ffirst_s = time.perf_counter() - t0
+    fdt = min_rep_seconds(lambda: fsc.find(fcorpus, prepared=fprep),
+                          check_find)
+    fst = fsc.stats()
+    launches["tdfa"] = tdfa.tdfa_scan_launches
+    say("find", mb=fmb, bytes=fn, pattern=FIND_PATTERN.decode(),
+        match=fexp, find_gbps=fn / fdt / 1e9, tier=fst.tier,
+        certified=fst.certified, repaired=fst.repaired, chunks=fst.chunks,
+        S=ft.nstates, ncls=ft.ncls, R=ft.nregs, T=ft.ntags,
+        CODE=ft.code_bits, rows=ft.rows, bits=ft.bits,
+        launches=launches["tdfa"], first_call_s=ffirst_s,
+        corpus_s=fgen_s, oracle_s=foracle_s,
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+    # a 16 MB corpus whose one match spans 1.5 MB: past the window and
+    # the chunk-repair budget (1/16 of the chunks), so the one-pass
+    # result falls back to the multi-pass path
+    gcorpus = log_corpus(16)
+    user = b"a" * (3 << 19)
+    gp = plant_line(gcorpus, 8 << 20,
+                    FIND_PLANT.replace(b"bob_x", user))
+    gcorpus = bytes(gcorpus)
+    gexp = find_oracle(gcorpus, gp, user)
+    if pike_window(fsc.program, gcorpus, gp - 65536) != gexp:
+        raise AssertionError("Pike window != the planted long match")
+    gsc = sregex_tpu_torch.compile_pattern(FIND_PATTERN)
+    reset_launches()
+    t0 = time.perf_counter()
+    got = gsc.find(gcorpus)
+    fallback_s = time.perf_counter() - t0
+    gst = gsc.stats()
+    glaunch = dict(tdfa=tdfa.tdfa_scan_launches,
+                   spec=scan.spec_scan_launches)
+    if got != gexp:
+        raise AssertionError("fallback find %r != the planted match"
+                             % (got[:1],))
+    if gst.certified is not False or glaunch["tdfa"] < 1 \
+            or glaunch["spec"] < 2 or gsc._rev_spec is None:
+        raise AssertionError("the long match did not take the multi-pass "
+                             "path on the card: %r %r" % (gst, glaunch))
+    say("find_fallback", mb=16, bytes=len(gcorpus), span=len(user) + 23,
+        served_by="multi-pass", prefilter_tier=gst.tier,
+        reverse_tier=type(gsc._rev_spec).__name__,
+        certified=gst.certified, launches=glaunch, seconds=fallback_s)
+    del gcorpus
+
     if min(launches.values()) <= 0:
         raise AssertionError("a main path skipped its kernel: %r"
                              % launches)
 
-    # --- 8. kernel vs plain time at the main path's shapes ----------------
+    # --- 9. kernel vs plain time at the main path's shapes ----------------
     timings = {}
     shapes = [("narrow", spec, tables, prepared[0], False, {}),
               ("wide", spec, msc._spec, mprep.for_tables(msc._spec)[0],
@@ -600,6 +801,32 @@ def main():
             ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
             corpus_gbps=s0.numel() * (data.shape[1] * t.cpw - t.warmup)
             / ms / 1e6)
+    # the tagged kernel at the find phase's shape, entered as tdfa_spec_find
+    # enters it (every stream at the seed, the true entry frozen below W)
+    fdata = fprep.for_tables(ft)[0]
+    s0 = torch.full((fdata.shape[0], GROUPS, 8, 128), ft.seed_premult,
+                    dtype=torch.int32, device=dev)
+    j0 = torch.zeros_like(s0)
+    j0[0, 0, 0, 0] = ft.warmup
+    tabs, kw = ft.planes()
+    args = [fdata, s0, j0, *tabs]
+    errs["tdfa"] = max(errs["tdfa"], compare(tdfa.tdfa_scan,
+                                             tdfa.tdfa_scan_ref, args, kw))
+    ms = time_gpu(lambda: tdfa.tdfa_scan(*args, **kw), 20)
+    plain_ms = time_gpu(lambda: tdfa.tdfa_scan_ref(*args, **kw), 1)
+    # bytes: the inputs once and the T+R+3 output planes once; operations:
+    # one per byte step and one per register rebuilt at each step
+    moved = sum(a.numel() * a.element_size() for a in args) \
+        + (ft.ntags + ft.nregs + 3) * s0.numel() * 4
+    steps = s0.numel() * fdata.shape[1] * ft.cpw * (1 + ft.nregs)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = steps / SCALAR_OPS_PER_S * 1e3
+    bms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    timings["tdfa"] = (ms, plain_ms, bms, by, list(fdata.shape))
+    say("kernel_time", tier="tdfa", shape=list(fdata.shape), ms=ms,
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        corpus_gbps=s0.numel() * (fdata.shape[1] * ft.cpw - ft.warmup)
+        / ms / 1e6)
     say("done", seconds=time.perf_counter() - t_start)
 
     print(smi, flush=True)
@@ -609,11 +836,14 @@ def main():
             ("wide", "spec_scan.cu", "sregex_tpu/ops/pallas_scan.py:334"),
             ("big", "spec_scan.cu", "sregex_tpu/ops/pallas_big.py:169"),
             ("affine", "affine_scan.cu",
-             "sregex_tpu/ops/pallas_affine.py:275")):
+             "sregex_tpu/ops/pallas_affine.py:275"),
+            ("tdfa", "tdfa_scan.cu", "sregex_tpu/ops/tdfa_scan.py:450")):
         ms, plain_ms, bms, by, shape = timings[tier]
         kernels.append({
-            "name": "%s scan (%s table, shape %s)" % (
-                "affine" if tier == "affine" else "spec", tier, shape),
+            "name": ("tagged-DFA scan (shape %s)" % shape if tier == "tdfa"
+                     else "%s scan (%s table, shape %s)" % (
+                         "affine" if tier == "affine" else "spec", tier,
+                         shape)),
             "route": "cuda", "source": "sregex_tpu_torch/csrc/" + src,
             "replaces": where, "launches": launches[tier],
             "max_abs_err": errs[tier], "ms": ms, "plain_ms": plain_ms,

@@ -16,6 +16,7 @@ from .ops.big import SpecTablesBig
 from .ops.layout import max_chunk_bytes
 from .ops.pair import SpecTablesPair
 from .ops.spec_scan import SpecTables, SpecTablesWide
+from .ops.tdfa_scan import TdfaSpecTables
 
 # the JAX tables class (its name) -> the port's
 _KINDS = {c.__name__: c for c in (SpecTables, SpecTablesWide,
@@ -83,6 +84,37 @@ def spec_tables_from_jax(arrays, dfa, device):
     if cls is SpecTablesAffine:
         t.bp = torch.tensor(t.bp_premult, dtype=torch.int32,
                             device=t.device)
+    return t
+
+
+# what a JAX TdfaSpecTables and the port's must agree on
+_TDFA_FIELDS = ("nstates", "nregs", "ntags", "ncls", "code_bits", "rows",
+                "bits", "cpw", "warmup", "seed_premult", "dead_premult")
+
+
+def tdfa_tables_from_jax(arrays, prog, device):
+    """The port's TdfaSpecTables carrying a JAX TdfaSpecTables's code
+    planes.
+
+    ``arrays``: ``t_next`` and ``t_cmeta`` ([rows, 8, 128]), ``t_regsrc``
+    and ``t_csrc`` ([P, rows, 8, 128]), ``tags`` and the scalar fields
+    of _TDFA_FIELDS.  The port builds its own tagged DFA from ``prog``
+    (the host folds walk it; the BFS numbers its states as the JAX
+    package's does), checks that the scalar fields agree, and takes the
+    JAX planes, flattened to [rows*128], in place of its own."""
+    t = TdfaSpecTables(prog, device, tags=tuple(arrays["tags"]))
+    for key in _TDFA_FIELDS:
+        if int(arrays[key]) != getattr(t, key):
+            raise ValueError("%s: JAX %s, port %s"
+                             % (key, arrays[key], getattr(t, key)))
+
+    def dev(a):
+        return torch.from_numpy(a).to(t.device)
+
+    t.t_next = dev(_flat_rows(arrays["t_next"]))
+    t.t_cmeta = dev(_flat_rows(arrays["t_cmeta"]))
+    t.t_regsrc = dev(np.stack([_flat_rows(p) for p in arrays["t_regsrc"]]))
+    t.t_csrc = dev(np.stack([_flat_rows(p) for p in arrays["t_csrc"]]))
     return t
 
 

@@ -14,7 +14,8 @@ Two facilities:
   (Scanner.match/count/scan/*_stream), exposed via
   ``Scanner.stats()``.  Fields: the API called, the tier that served
   it, corpus bytes, kernel chunk count, natively repaired chunks,
-  cumulative re-core events, and wall-clock ms.
+  cumulative re-core events, wall-clock ms and, for find, whether
+  the one-pass tagged result was certified.
 
 - ``degraded(key, msg)``: called where the scan API deliberately
   swallows a device failure and falls back to the host engines.
@@ -32,10 +33,12 @@ class ScanStats:
     """One completed scan's record (see module docstring)."""
 
     __slots__ = ("api", "tier", "nbytes", "chunks", "repaired",
-                 "recore_events", "warm_events", "elapsed_ms")
+                 "recore_events", "warm_events", "elapsed_ms",
+                 "certified")
 
     def __init__(self, api, tier, nbytes, chunks=0, repaired=0,
-                 recore_events=0, warm_events=0, elapsed_ms=0.0):
+                 recore_events=0, warm_events=0, elapsed_ms=0.0,
+                 certified=None):
         self.api = api
         self.tier = tier
         self.nbytes = nbytes
@@ -44,6 +47,7 @@ class ScanStats:
         self.recore_events = recore_events
         self.warm_events = warm_events
         self.elapsed_ms = elapsed_ms
+        self.certified = certified
 
     def as_dict(self):
         return {k: getattr(self, k) for k in self.__slots__}

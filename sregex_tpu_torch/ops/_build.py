@@ -104,5 +104,8 @@ def load():
         lib.sre_affine_scan.restype = i
         lib.sre_affine_scan.argtypes = [p, p, p, p, i, p, p, p, i, i, i, i,
                                         i, i, i, p, i, i, i, p]
+        lib.sre_tdfa_scan.restype = i
+        lib.sre_tdfa_scan.argtypes = [p, p, p, p, p, p, p, i, i, i, p, p, p,
+                                      p, i, i, i, i, i, i, i, i, i, p]
         _lib = lib
         return _lib

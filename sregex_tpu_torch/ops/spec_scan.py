@@ -488,3 +488,53 @@ def spec_count_bytes(tables, data_np, chunk_len=DEFAULT_K, entry_state=0,
         c += 1
     tables.last_repair = (nat, C)
     return frpm(e), total
+
+
+def spec_scan_last_bytes(tables, data_np, chunk_len=DEFAULT_K,
+                         entry_state=0, prepared=None):
+    """Find the LAST boundary (0..n-1) at which a match ends (the
+    reverse-scan start locator of Scanner.find).  Returns (final_state,
+    last_boundary or -1).  One COUNT-mode scan: the summary's last
+    firing chunk of the validated prefix ([8], entered at [9]) is
+    re-scanned natively; chunks past a speculation miss are walked as
+    in spec_count_bytes.  Exact."""
+    n = len(data_np)
+    if n == 0:
+        return entry_state, -1
+    summ, packed, C, K = _launch(tables, data_np, chunk_len, entry_state,
+                                 prepared, COUNT=True)
+    ncls = tables.ncls
+    topm = getattr(tables, "to_premult", None) or (lambda v: v * ncls)
+    frpm = getattr(tables, "from_premult", None) or (lambda v: v // ncls)
+    raw = _host_bytes(data_np)
+    native = NativeDfa(tables.dfa)
+
+    best = -1
+    if int(summ[8]) >= 0:
+        lo = int(summ[8]) * K
+        r, _ = native.scan_last(raw[lo:lo + K].tobytes(),
+                                frpm(int(summ[9])))
+        best = lo + r
+    if bool(summ[0]):
+        return frpm(int(summ[6])), best
+
+    # repair path: walk from the first discrepancy, tracking the last
+    # fire exactly; the summary covered the validated prefix
+    phi, cnt, swarm = _unpack(packed, C)
+    e = int(summ[2])
+    c = int(summ[1])
+    while c < C:
+        lo = c * K
+        hi = min(lo + K, n)
+        if swarm[c] == e and hi - lo == K:
+            if cnt[c]:
+                r, _ = native.scan_last(raw[lo:hi].tobytes(), frpm(e))
+                best = lo + r
+            e = int(phi[c])
+        else:
+            r, st = native.scan_last(raw[lo:hi].tobytes(), frpm(e))
+            if r >= 0:
+                best = lo + r
+            e = topm(st)
+        c += 1
+    return frpm(e), best

@@ -2,7 +2,7 @@
 
 Marked ``cuda``: these skip where torch sees no card.  On a machine
 with one, run ``python -m pytest tests/test_torch_cuda.py -m cuda``.
-The tolerance is exact equality of all three planes."""
+The tolerance is exact equality of every output plane."""
 
 import numpy as np
 import pytest
@@ -11,6 +11,7 @@ import torch
 from sregex_tpu_torch.ops import affine as taff
 from sregex_tpu_torch.ops import big as tbig
 from sregex_tpu_torch.ops import spec_scan as tscan
+from sregex_tpu_torch.ops import tdfa_scan as ttdfa
 
 pytestmark = pytest.mark.cuda
 
@@ -130,3 +131,64 @@ def test_entry_points_run_on_the_card_by_default(cuda):
     before = taff.affine_scan_launches
     assert sc.count(data) == 3000
     assert taff.affine_scan_launches == before + 1
+
+
+@pytest.mark.parametrize("bits,rows,code,R,T", [
+    (4, 1, 4, 13, 13), (4, 3, 4, 5, 6), (8, 2, 8, 24, 24),
+    (8, 1, 8, 14, 1), (4, 4, 16, 48, 48), (8, 16, 16, 48, 48)])
+def test_tdfa_kernel_equals_plain_version(cuda, bits, rows, code, R, T):
+    """Random code planes with R and T at the edges of their code width;
+    classes run past the table.  The last case's 50 planes of 2048
+    entries (400 KB) exceed shared memory: the global-memory variant."""
+    rng = np.random.default_rng(bits * 100 + rows * 10 + code)
+    cpw = 32 // bits
+    B, G, W = 2, 8, 4 * cpw
+    Jw = (W + 256) // cpw
+    n = rows * 128
+    ncls = 16 if bits == 4 else 40
+    spp = 32 // code
+    words = rng.integers(0, 1 << 32, (B, Jw, G, 8, 128), dtype=np.uint64)
+    data = torch.from_numpy(words.astype(np.uint32).view(np.int32))
+    t_next = (rng.integers(0, max(1, n // ncls), n) * ncls).astype(np.int32)
+    t_cmeta = np.where(rng.random(n) < 0.3,
+                       1 | (rng.integers(0, 128, n) << 1),
+                       rng.integers(0, 1 << 20, n) << 1).astype(np.int32)
+    top = (1 << code) - 1
+
+    def planes(k):
+        P = max(1, -(-k // spp))
+        slots = np.where(rng.random((P, spp, n)) < 0.5,
+                         rng.integers(0, k + 2, (P, spp, n)),
+                         top - rng.integers(0, 3, (P, spp, n)))
+        out = np.zeros((P, n), np.uint64)
+        for sl in range(spp):
+            out |= slots[:, sl].astype(np.uint64) << np.uint64(code * sl)
+        return out.astype(np.uint32).view(np.int32)
+
+    s0 = (rng.integers(0, max(1, n // ncls), (B, G, 8, 128)) * ncls) \
+        .astype(np.int32)
+    j0 = rng.integers(0, W + 1, (B, G, 8, 128)).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda) for a in
+            (data.numpy(), s0, j0, t_next, planes(R), planes(T), t_cmeta)]
+    kw = dict(W=W, CPW=cpw, BITS=bits, CODE=code, R=R, T=T)
+    before = ttdfa.tdfa_scan_launches
+    got = ttdfa.tdfa_scan(*args, **kw)
+    torch.cuda.synchronize()
+    assert ttdfa.tdfa_scan_launches == before + 1
+    want = ttdfa.tdfa_scan_ref(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_find_runs_on_the_card(cuda):
+    import sregex_tpu_torch
+    sc = sregex_tpu_torch.compile_pattern(rb"status=([0-9]+) user=([a-z_]+)")
+    assert sc._tdfa_spec.t_next.device.type == "cuda"
+    sc.DEVICE_THRESHOLD = 1
+    data = b"status= user=x " * 20000 + b"status=404 user=bob_x "
+    host = sregex_tpu_torch.compile_pattern(
+        rb"status=([0-9]+) user=([a-z_]+)", device=None)
+    before = ttdfa.tdfa_scan_launches
+    assert sc.find(data) == host.find(data)
+    assert ttdfa.tdfa_scan_launches == before + 1
+    assert sc.stats().certified is True

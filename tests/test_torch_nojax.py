@@ -30,6 +30,11 @@ def test_import_and_cpu_count_load_no_jax():
         "sc.DEVICE_THRESHOLD = 1\n"
         "assert sc.count(b'xxab' * 3000) == 3000\n"
         "assert sc.stats().tier == 'SpecTablesPair', sc.stats()\n"
+        "fs = sregex_tpu_torch.compile_pattern('(a+)(b+)', device='cpu')\n"
+        "fs.DEVICE_THRESHOLD = 1\n"
+        "assert fs.find(b'xx' * 1500 + b'aab') == (0, [3000, 3003, 3000, "
+        "3002, 3002, 3003])\n"
+        "assert fs.stats().tier == 'TdfaSpecTables', fs.stats()\n"
         "assert 'jax' not in sys.modules\n"
         "ref = [m for m in sys.modules\n"
         "       if m == 'sregex_tpu' or m.startswith('sregex_tpu.')]\n"
