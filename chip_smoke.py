@@ -20,7 +20,15 @@ engine:
     pass); then a 16 MB corpus whose one match spans 1.5 MB, past the
     chunk window and the chunk-repair budget, which the multi-pass path
     serves (the scan kernel forward, spec_scan_last_bytes on the
-    reversed corpus, the Pike engine over the match).
+    reversed corpus, the Pike engine over the match);
+  - phi: Scanner.count and Scanner.scan of the run-parity machine
+    b(?:aa)*b over 1920 MB of a-runs, after two repair-heavy scans of a
+    64 MB corpus have switched it from the pair tier to the exact
+    transfer-composition tier (the lane-packed phi kernel);
+  - phi_big: the same for b(?:a{499})*b, a residue mod 499 (501 states),
+    after eight scans have climbed the warmup ladder 32 -> 128 -> 512 ->
+    2048 and switched it from the affine tier (the sublane-group phi
+    kernel).
 
 Every phase prints one line; any failure raises, so the script exits
 non-zero without the final line.  The kernel launch counts are set to
@@ -33,8 +41,8 @@ plain version, its time beside the plain version's and its bound at
 the main path's shapes, and last {"ok": true, "device": {...}}.
 
 SREGEX_BENCH_MB, SREGEX_BENCH_MULTI_MB, SREGEX_BENCH_AFFINE_MB,
-SREGEX_BENCH_BIG_MB and SREGEX_BENCH_FIND_MB size the five corpora
-(default 1920 each).
+SREGEX_BENCH_BIG_MB, SREGEX_BENCH_FIND_MB, SREGEX_BENCH_PHI_MB and
+SREGEX_BENCH_PHI_BIG_MB size the seven corpora (default 1920 each).
 """
 
 import json
@@ -54,6 +62,7 @@ from sregex_tpu_torch.native_pike import NativePikeCtx
 from sregex_tpu_torch.ops import _build
 from sregex_tpu_torch.ops import affine as aff
 from sregex_tpu_torch.ops import big
+from sregex_tpu_torch.ops import phi as tphi
 from sregex_tpu_torch.ops import spec_scan as scan
 from sregex_tpu_torch.ops import tdfa_scan as tdfa
 from sregex_tpu_torch.ops.layout import GROUPS
@@ -85,6 +94,10 @@ FIND_LINES = [b"2026-10-16T14:05:28Z INFO api status= user=x id=4127\n",
               b"2026-10-16T14:05:31Z DEBUG user=alice status= token\n",
               b"2026-10-16T14:05:32Z INFO status=5 user=9 q=GET\n"]
 FIND_PLANT = b"2026-10-16T14:05:33Z ERROR status=404 user=bob_x path=/a\n"
+# never-converging machines: the parity of an a-run, a residue mod 499
+PHI_PATTERN = rb"b(?:aa)*b"
+PHI_BIG_PATTERN = rb"b(?:a{499})*b"
+PHI_BIG_PLAIN_MB = 64         # the big-phi plain version's slice
 REPS = 5
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 SCALAR_OPS_PER_S = 67e12      # H100 SXM, non-tensor 32-bit rate
@@ -103,6 +116,8 @@ def reset_launches():
     big.big_scan_launches = 0
     aff.affine_scan_launches = 0
     tdfa.tdfa_scan_launches = 0
+    tphi.phi_scan_launches = 0
+    tphi.phi_big_scan_launches = 0
 
 
 def max_abs_err(got, want):
@@ -210,6 +225,133 @@ def random_tdfa_case(rng, dev, *, bits, rows, code, R, T, B=2, G=8, K=256):
     args = [torch.from_numpy(a).to(dev) for a in
             (data, s0, j0, t_next, planes(R), planes(T), t_cmeta)]
     return args, dict(W=W, CPW=cpw, BITS=bits, CODE=code, R=R, T=T)
+
+
+def random_phi_case(rng, dev, *, S, bits, ncls, big, B=2, G=8, K=512):
+    """Random words (classes up to 2**bits, past the table too), a random
+    fused table of ceil(S*ncls/128) rows with valid next states, and the
+    kernel's keywords (COUNT excepted)."""
+    cpw = 32 // bits
+    Kw = K // cpw
+    rows = -(-(S * ncls) // 128)
+    table = (rng.integers(0, S, rows * 128) * ncls
+             | rng.integers(0, 2, rows * 128) << 20).astype(np.int32)
+    kw = dict(Kw=Kw, CPW=cpw, BITS=bits, S=S, NCLS=ncls)
+    if big:
+        kw["SB"] = 1 << (-(-S // 128) - 1).bit_length()
+        P = -(-Kw // 128)
+    else:
+        kw["NSEG"] = max(1, 128 // S)
+        kw["WL"] = 128 // kw["NSEG"]
+        P = -(-Kw // kw["WL"])
+    data = random_words(rng, (B, P, G, 8, 128), bits, 1 << bits)
+    return [torch.from_numpy(a).to(dev) for a in (data, table)], kw
+
+
+def phi_valid(kw, dev):
+    """[8, 128] bool: the slots that hold a chunk's entry state (the
+    rest are padding, which the comparisons leave out)."""
+    sub = torch.arange(8, device=dev)[:, None]
+    lane = torch.arange(128, device=dev)[None, :]
+    if "SB" in kw:
+        return ((sub % kw["SB"]) * 128 + lane < kw["S"]).expand(8, 128)
+    return (lane < kw["NSEG"] * kw["S"]).expand(8, 128)
+
+
+def compare_phi(kernel, plain, args, kw):
+    """A phi kernel vs its plain version on the same inputs: bit-exact
+    planes on the valid slots."""
+    got = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    valid = phi_valid(kw, args[0].device)
+    err = max_abs_err([g[..., valid] for g in got],
+                      [w[..., valid] for w in want])
+    if err:
+        raise AssertionError("%s differs from its plain version by %d (%r)"
+                             % (kernel.__name__, err, kw))
+    return err
+
+
+def phi_kw(t, prepared, count):
+    """The phi kernel's keywords for tables t over a prepared corpus."""
+    _, _, K, WL, _, _ = prepared
+    kw = dict(Kw=K // t.cpw, CPW=t.cpw, BITS=t.bits, S=t.nstates,
+              NCLS=t.ncls, COUNT=count)
+    if isinstance(t, tphi.PhiTablesBig):
+        kw["SB"] = t.SB
+    else:
+        kw.update(WL=WL, NSEG=t.nseg)
+    return kw
+
+
+def run_corpus(mb, lo, hi, seed, odd=False, avoid=None, plant=None):
+    """mb MB of a-runs of lo..hi-1 bytes, each closed by "b" (the
+    JAX package's bench/ab_phi.py corpus), built with numpy.  ``odd``
+    makes every run odd, ``avoid`` lengthens runs that are a multiple
+    of it by one; ``plant`` = (back, length) sets the first run that
+    starts at or after n - back to ``length``."""
+    rng = np.random.default_rng(seed)
+    n = mb << 20
+    runs = rng.integers(lo, hi, n // lo + 2)
+    if odd:
+        runs |= 1
+    if avoid:
+        runs += runs % avoid == 0
+    if plant is not None:
+        starts = np.cumsum(runs + 1) - (runs + 1)
+        runs[np.searchsorted(starts, n - plant[0])] = plant[1]
+    ends = np.cumsum(runs + 1) - 1
+    out = np.full(n, ord("a"), np.uint8)
+    out[ends[ends < n]] = ord("b")
+    return out.tobytes()
+
+
+def activate_phi(sc, corpus, max_scans):
+    """Count ``corpus`` until the Scanner switches to its phi tier,
+    each count checked against the native engine.  Returns the ladder:
+    [warmup, repaired, chunks, tier] per scan."""
+    exp = native_count(sc, corpus)
+    ladder = []
+    for _ in range(max_scans):
+        if sc.count(corpus) != exp:
+            raise AssertionError("activation count != native %d" % exp)
+        st = sc.stats()
+        ladder.append([sc._spec.warmup, st.repaired, st.chunks, st.tier])
+        if sc._phi_active:
+            return ladder
+    raise AssertionError("the phi tier never switched on: %r" % ladder)
+
+
+def time_phi(sc, api, corpus, prep, want):
+    """Scanner.count (api "count": the count) or Scanner.scan ("scan":
+    the first match end) over a prepared corpus on the phi tier: a first
+    call, then the min of REPS reps, each equal to the native engine's
+    ``want`` and served by the phi tables with no repair.  Returns
+    (min seconds, first call seconds, the last ScanStats)."""
+    tier = type(sc._phi).__name__
+
+    def call():
+        r = getattr(sc, api)(corpus, prepared=prep)
+        return r if api == "count" or r is None else r[1]
+
+    def check(r):
+        if r != want:
+            raise AssertionError("%s %s %r != native %r"
+                                 % (tier, api, r, want))
+        # a scan that matched records no chunk count, in every tier
+        st = sc.stats()
+        if (st.tier, st.repaired) != (tier, 0) \
+                or (api == "count" and st.chunks <= 0) \
+                or tier not in ("PhiTables", "PhiTablesBig"):
+            raise AssertionError("%s not served by the phi tier: %r"
+                                 % (api, st))
+
+    t0 = time.perf_counter()
+    check(call())
+    first_s = time.perf_counter() - t0
+    return min_rep_seconds(call, check), first_s, sc.stats()
 
 
 def time_gpu(fn, reps):
@@ -477,9 +619,31 @@ def main():
         args, kw = random_tdfa_case(rng, dev, **case)
         errs["tdfa"] = max(errs["tdfa"], compare(
             tdfa.tdfa_scan, tdfa.tdfa_scan_ref, args, kw))
+    # phi: lane-packed S in {3, 4, 50, 128} and sublane-group S in {139,
+    # 501, 1000} up to the card's 64 rows, 4- and 8-bit words, COUNT and
+    # scan; the padding slots are left out
+    errs["phi"] = errs["phi_big"] = 0
+    phi_cases = [("phi", dict(S=3, bits=4, ncls=16), True),
+                 ("phi", dict(S=4, bits=4, ncls=3), False),
+                 ("phi", dict(S=50, bits=8, ncls=20), True),
+                 ("phi", dict(S=128, bits=4, ncls=8), False),
+                 ("phi", dict(S=3, bits=8, ncls=256), False),
+                 ("phi", dict(S=128, bits=8, ncls=8), True),
+                 ("phi_big", dict(S=139, bits=4, ncls=16), True),
+                 ("phi_big", dict(S=501, bits=4, ncls=16), False),
+                 ("phi_big", dict(S=1000, bits=4, ncls=8), True),
+                 ("phi_big", dict(S=1000, bits=8, ncls=8), False),
+                 ("phi_big", dict(S=139, bits=8, ncls=58), False)]
+    for tier, case, count in phi_cases:
+        big_ = tier == "phi_big"
+        args, kw = random_phi_case(rng, dev, big=big_, **case)
+        fns = ((tphi.phi_big_scan, tphi.phi_big_scan_ref) if big_
+               else (tphi.phi_scan, tphi.phi_scan_ref))
+        errs[tier] = max(errs[tier], compare_phi(*fns, args,
+                                                 dict(kw, COUNT=count)))
     say("kernel_vs_plain", groups=GROUPS, max_abs_err=max(errs.values()),
         cases=len(cases) + 2 + len(big_cases) + len(affine_cases) + 4
-        + len(tdfa_cases))
+        + len(tdfa_cases) + len(phi_cases))
     del packed, s0, j0
 
     launches = {}
@@ -770,11 +934,103 @@ def main():
         certified=gst.certified, launches=glaunch, seconds=fallback_s)
     del gcorpus
 
+    # --- 9. phi: the run-parity machine on the exact tier ----------------
+    pmb = mb_env("SREGEX_BENCH_PHI_MB")
+    psc = sregex_tpu_torch.compile_pattern(PHI_PATTERN)
+    if type(psc._spec).__name__ != "SpecTablesPair":
+        raise AssertionError("b(?:aa)*b served by %s"
+                             % type(psc._spec).__name__)
+    t0 = time.perf_counter()
+    act = run_corpus(min(64, pmb), 60, 300, 0)
+    pcorpus = run_corpus(pmb, 60, 300, 0)
+    # every run odd but one, 8 KB before the end: one match, near the end
+    scorpus = run_corpus(pmb, 60, 300, 1, odd=True, plant=(8192, 100))
+    pgen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pexp = native_count(psc, pcorpus)
+    pexp_first, _ = psc._native.scan_first(scorpus, 0)
+    pnative_s = time.perf_counter() - t0
+    if not len(scorpus) - 8192 <= pexp_first < len(scorpus):
+        raise AssertionError("the planted run ends at %d" % pexp_first)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    pladder = activate_phi(psc, act, 4)
+    pact_s = time.perf_counter() - t0
+    del act
+    pt = psc._phi_tables()
+    phi_stats = {}
+    pprep = psc.prepare(pcorpus)
+    pdt, pfirst_s, pst = time_phi(psc, "count", pcorpus, pprep, pexp)
+    sprep = psc.prepare(scorpus)
+    psdt, psfirst_s, _ = time_phi(psc, "scan", scorpus, sprep, pexp_first)
+    del sprep, scorpus
+    launches["phi"] = tphi.phi_scan_launches
+    pn = len(pcorpus)
+    say("phi", mb=pmb, bytes=pn, pattern=PHI_PATTERN.decode(), count=pexp,
+        first_end=pexp_first, phi_count_gbps=pn / pdt / 1e9,
+        phi_scan_gbps=pn / psdt / 1e9, tier=pst.tier,
+        static_tier=type(psc._spec).__name__, states=pt.nstates,
+        classes=pt.ncls, nseg=pt.nseg, bits=pt.bits, ladder=pladder,
+        warm_events=pst.warm_events, repaired=pst.repaired,
+        chunks=pst.chunks, launches=launches["phi"], activate_s=pact_s,
+        first_count_s=pfirst_s, first_scan_s=psfirst_s, corpus_s=pgen_s,
+        native_s=pnative_s, peak_mem_bytes=torch.cuda.max_memory_allocated())
+    phi_stats["phi"] = (pt, pprep.for_tables(pt))
+    del pcorpus
+
+    # --- 10. phi_big: a residue mod 499 on the sublane-group tier ---------
+    qmb = mb_env("SREGEX_BENCH_PHI_BIG_MB")
+    qsc = sregex_tpu_torch.compile_pattern(PHI_BIG_PATTERN)
+    if type(qsc._spec).__name__ != "SpecTablesAffine":
+        raise AssertionError("b(?:a{499})*b served by %s"
+                             % type(qsc._spec).__name__)
+    t0 = time.perf_counter()
+    # runs of 4096-16384: at the ladder's last window (2048) ~80% of the
+    # chunks still miss, past the 25% strike threshold
+    act = run_corpus(min(64, qmb), 4096, 16384, 2)
+    qcorpus = run_corpus(qmb, 4096, 16384, 2)
+    # no run a multiple of 499 but one of 4990, near the end
+    scorpus = run_corpus(qmb, 4096, 16384, 3, avoid=499,
+                         plant=(40000, 4990))
+    qgen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qexp = native_count(qsc, qcorpus)
+    qexp_first, _ = qsc._native.scan_first(scorpus, 0)
+    qnative_s = time.perf_counter() - t0
+    if not len(scorpus) - 40000 <= qexp_first < len(scorpus):
+        raise AssertionError("the planted run ends at %d" % qexp_first)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    qladder = activate_phi(qsc, act, 10)
+    qact_s = time.perf_counter() - t0
+    del act
+    qt = qsc._phi_tables()
+    qprep = qsc.prepare(qcorpus)
+    qdt, qfirst_s, qst = time_phi(qsc, "count", qcorpus, qprep, qexp)
+    sprep = qsc.prepare(scorpus)
+    qsdt, qsfirst_s, _ = time_phi(qsc, "scan", scorpus, sprep, qexp_first)
+    del sprep, scorpus
+    launches["phi_big"] = tphi.phi_big_scan_launches
+    qn = len(qcorpus)
+    say("phi_big", mb=qmb, bytes=qn, pattern=PHI_BIG_PATTERN.decode(),
+        count=qexp, first_end=qexp_first, phi_count_gbps=qn / qdt / 1e9,
+        phi_scan_gbps=qn / qsdt / 1e9, tier=qst.tier,
+        static_tier=type(qsc._spec).__name__, states=qt.nstates,
+        classes=qt.ncls, rows=qt.rows, SB=qt.SB, CPT=qt.CPT, bits=qt.bits,
+        ladder=qladder, warm_events=qst.warm_events, repaired=qst.repaired,
+        chunks=qst.chunks, launches=launches["phi_big"], activate_s=qact_s,
+        first_count_s=qfirst_s, first_scan_s=qsfirst_s, corpus_s=qgen_s,
+        native_s=qnative_s, peak_mem_bytes=torch.cuda.max_memory_allocated())
+    phi_stats["phi_big"] = (qt, qprep.for_tables(qt))
+    del qcorpus
+
     if min(launches.values()) <= 0:
         raise AssertionError("a main path skipped its kernel: %r"
                              % launches)
 
-    # --- 9. kernel vs plain time at the main path's shapes ----------------
+    # --- 11. kernel vs plain time at the main path's shapes ---------------
     timings = {}
     shapes = [("narrow", spec, tables, prepared[0], False, {}),
               ("wide", spec, msc._spec, mprep.for_tables(msc._spec)[0],
@@ -827,6 +1083,40 @@ def main():
         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
         corpus_gbps=s0.numel() * (fdata.shape[1] * ft.cpw - ft.warmup)
         / ms / 1e6)
+    # the phi kernels in COUNT mode at their main path's shapes; the big
+    # one's plain version on the first PHI_BIG_PLAIN_MB MB of the corpus
+    for tier, fns in (("phi", (tphi.phi_scan, tphi.phi_scan_ref)),
+                      ("phi_big", (tphi.phi_big_scan,
+                                   tphi.phi_big_scan_ref))):
+        t, prep = phi_stats[tier]
+        data, C, K = prep[0], prep[1], prep[2]
+        kw = phi_kw(t, prep, True)
+        pdata = data
+        if tier == "phi_big":
+            chunks_per_block = GROUPS * t.CPT
+            plain_mb = min(PHI_BIG_PLAIN_MB, qmb)
+            pdata = data[:-(-(plain_mb << 20) // K // chunks_per_block)]
+        errs[tier] = max(errs[tier], compare_phi(
+            *fns, [pdata, t.fused], kw))
+        ms = time_gpu(lambda: fns[0](data, t.fused, **kw), 20)
+        plain_ms = time_gpu(lambda: fns[1](pdata, t.fused, **kw), 1)
+        plain_kernel_ms = (ms if pdata is data else
+                           time_gpu(lambda: fns[0](pdata, t.fused, **kw), 5))
+        # bytes: the words and the table once, the two planes once;
+        # operations: one per step of each live slot (C chunks, S entry
+        # states, K bytes), the least work of a dense transfer
+        moved = (data.numel() + t.fused.numel()
+                 + 2 * data.shape[0] * GROUPS * 1024) * 4
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        t_ops = C * t.nstates * K / SCALAR_OPS_PER_S * 1e3
+        bms, by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                   else (t_ops, "operations"))
+        timings[tier] = (ms, plain_ms, bms, by, list(data.shape),
+                         list(pdata.shape))
+        say("kernel_time", tier=tier, shape=list(data.shape), count=True,
+            ms=ms, plain_ms=plain_ms, plain_shape=list(pdata.shape),
+            kernel_ms_at_plain_shape=plain_kernel_ms, bound_ms=bms,
+            bound_by=by, corpus_gbps=C * K / ms / 1e6)
     say("done", seconds=time.perf_counter() - t_start)
 
     print(smi, flush=True)
@@ -837,13 +1127,22 @@ def main():
             ("big", "spec_scan.cu", "sregex_tpu/ops/pallas_big.py:169"),
             ("affine", "affine_scan.cu",
              "sregex_tpu/ops/pallas_affine.py:275"),
-            ("tdfa", "tdfa_scan.cu", "sregex_tpu/ops/tdfa_scan.py:450")):
-        ms, plain_ms, bms, by, shape = timings[tier]
+            ("tdfa", "tdfa_scan.cu", "sregex_tpu/ops/tdfa_scan.py:450"),
+            ("phi", "phi_scan.cu", "sregex_tpu/ops/pallas_phi.py:410"),
+            ("phi_big", "phi_scan.cu", "sregex_tpu/ops/pallas_phi.py:206")):
+        ms, plain_ms, bms, by, shape = timings[tier][:5]
+        if tier == "tdfa":
+            name = "tagged-DFA scan (shape %s)" % shape
+        elif tier == "phi":
+            name = "lane-packed phi scan (shape %s)" % shape
+        elif tier == "phi_big":
+            name = ("sublane-group phi scan (shape %s; plain_ms at %s, the "
+                    "first %d MB)" % (shape, timings[tier][5], plain_mb))
+        else:
+            name = "%s scan (%s table, shape %s)" % (
+                "affine" if tier == "affine" else "spec", tier, shape)
         kernels.append({
-            "name": ("tagged-DFA scan (shape %s)" % shape if tier == "tdfa"
-                     else "%s scan (%s table, shape %s)" % (
-                         "affine" if tier == "affine" else "spec", tier,
-                         shape)),
+            "name": name,
             "route": "cuda", "source": "sregex_tpu_torch/csrc/" + src,
             "replaces": where, "launches": launches[tier],
             "max_abs_err": errs[tier], "ms": ms, "plain_ms": plain_ms,

@@ -15,6 +15,7 @@ from .ops.affine import SpecTablesAffine
 from .ops.big import SpecTablesBig
 from .ops.layout import max_chunk_bytes
 from .ops.pair import SpecTablesPair
+from .ops.phi import PhiTables, PhiTablesBig
 from .ops.spec_scan import SpecTables, SpecTablesWide
 from .ops.tdfa_scan import TdfaSpecTables
 
@@ -115,6 +116,39 @@ def tdfa_tables_from_jax(arrays, prog, device):
     t.t_cmeta = dev(_flat_rows(arrays["t_cmeta"]))
     t.t_regsrc = dev(np.stack([_flat_rows(p) for p in arrays["t_regsrc"]]))
     t.t_csrc = dev(np.stack([_flat_rows(p) for p in arrays["t_csrc"]]))
+    return t
+
+
+# what a JAX phi tables object and the port's must agree on, per layout
+_PHI_FIELDS = {"PhiTables": ("nstates", "ncls", "rows", "bits", "nseg"),
+               "PhiTablesBig": ("nstates", "ncls", "rows", "bits", "SB")}
+
+
+def phi_tables_from_jax(arrays, dfa, device):
+    """The port's PhiTables or PhiTablesBig carrying a JAX phi tables
+    object's fused table.
+
+    ``arrays``: ``kind``, the JAX class name (PhiTables or PhiTablesBig),
+    which picks the port's class of the same name; ``fused_rows``
+    ([rows, 8, 128]); and the scalar fields ``nstates``, ``ncls``,
+    ``rows``, ``bits`` and ``nseg`` (PhiTables) or ``SB``
+    (PhiTablesBig).  The port builds its own tables from ``dfa``, checks
+    that those fields agree, and takes the JAX table, flattened to
+    [rows*128], in place of its own."""
+    kind = arrays["kind"]
+    cls = {"PhiTables": PhiTables, "PhiTablesBig": PhiTablesBig}.get(kind)
+    if cls is None:
+        raise ValueError("no port phi tables for the JAX class %r" % kind)
+    t = cls(dfa, device)
+    for key in _PHI_FIELDS[kind]:
+        if int(arrays[key]) != getattr(t, key):
+            raise ValueError("%s: JAX %s, port %s"
+                             % (key, arrays[key], getattr(t, key)))
+    fused = _flat_rows(arrays["fused_rows"])
+    if fused.size != t.rows * 128:
+        raise ValueError("fused table holds %d entries, rows=%d"
+                         % (fused.size, t.rows))
+    t.fused = torch.from_numpy(fused).to(t.device)
     return t
 
 

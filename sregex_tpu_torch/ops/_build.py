@@ -107,5 +107,11 @@ def load():
         lib.sre_tdfa_scan.restype = i
         lib.sre_tdfa_scan.argtypes = [p, p, p, p, p, p, p, i, i, i, p, p, p,
                                       p, i, i, i, i, i, i, i, i, i, p]
+        lib.sre_phi_scan.restype = i
+        lib.sre_phi_scan.argtypes = [p, p, i, p, p, i, i, i, i, i, i, i, i,
+                                     i, i, p]
+        lib.sre_phi_big_scan.restype = i
+        lib.sre_phi_big_scan.argtypes = [p, p, i, p, p, i, i, i, i, i, i, i,
+                                         i, i, p]
         _lib = lib
         return _lib

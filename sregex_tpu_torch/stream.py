@@ -17,6 +17,13 @@ big tier until those are ported; the results are the same.  Unlike the
 JAX package, no device failure is swallowed: a failed build or launch
 raises.
 
+A machine whose state depends on history with no bound (run parity,
+a residue mod n) defeats every speculation window: once two
+repair-heavy scans find the warmup ladder exhausted, the Scanner
+switches it to the exact transfer-composition tier (ops/phi.py:
+PhiTables for S <= 128, PhiTablesBig up to 1024 states), which counts
+and scans with no speculation and no host repair.
+
 find() takes the JAX package's dense-DFA paths: the one-pass tagged-DFA
 kernel (ops/tdfa_scan.py) where it can certify its result, else the
 exact multi-pass path (the DFA prefilter, the reverse-DFA start
@@ -38,6 +45,8 @@ from .ops.affine import SpecTablesAffine
 from .ops.big import SpecTablesBig
 from .ops.layout import DEFAULT_K
 from .ops.pair import SpecTablesPair
+from .ops.phi import (PhiTables, PhiTablesBig, phi_count_bytes,
+                      phi_prepare, phi_scan_bytes)
 from .ops.prep import DEVICE_PREP_MIN, _host_u8, prepare_auto
 from .ops.spec_scan import (SpecTables, SpecTablesWide, resolve_device,
                             spec_count_bytes, spec_scan_bytes,
@@ -110,7 +119,10 @@ class PreparedCorpus:
             use_dev = (len(self.data) >= DEVICE_PREP_MIN if knob is None
                        else knob == "1")
             src = self._raw() if use_dev else self.data
-            hit = (tables, prepare_auto(tables, src, self.chunk_len))
+            prep = (phi_prepare if isinstance(tables, (PhiTables,
+                                                       PhiTablesBig))
+                    else prepare_auto)
+            hit = (tables, prep(tables, src, self.chunk_len))
             self._by_tables[key] = hit
         return hit[1]
 
@@ -135,9 +147,10 @@ class Scanner:
     # for bounded-history automata (counted repetitions) a longer
     # warmup converges on any corpus.  Two consecutive completed scans
     # with more than CORE_DRIFT_FRAC of their chunks repaired move the
-    # tables one rung up WARM_LADDER.  Past the last rung the JAX
-    # package switches to its phi tier, which is not ported: the port
-    # stays on its static tier (exact, at the repair rate).
+    # tables one rung up WARM_LADDER.  Past the last rung (or at once,
+    # for tables that cannot host a longer window, such as the pair
+    # tier's) such a pair of scans switches the machine to the phi tier,
+    # where it has one (_phi_tables): no speculation, no repair.
     WARM_LADDER = (128, 512, 2048)
     CORE_DRIFT_FRAC = 0.25
 
@@ -173,6 +186,8 @@ class Scanner:
         self.last_stats = None
         self._warm_escalations = 0
         self._warm_strikes = 0
+        self._phi = None           # phi tables: None untried, False none
+        self._phi_active = False
 
     def prepare(self, data, chunk_len=DEFAULT_K):
         """Pack ``data`` once for device scanning; pass the handle back
@@ -218,7 +233,8 @@ class Scanner:
 
     def _spec_note(self):
         """After a completed device scan: two consecutive repair-heavy
-        scans escalate the warmup."""
+        scans escalate the warmup; past the ladder they switch to the
+        phi tier, which counts as one more warmup event."""
         rep = self._spec.last_repair
         if rep is None:
             return
@@ -227,12 +243,35 @@ class Scanner:
             self._warm_strikes += 1
             if self._warm_strikes >= 2:
                 self._warm_strikes = 0
-                self._escalate_warmup()
+                if not self._escalate_warmup() \
+                        and self._phi_tables() is not None:
+                    self._phi_active = True
+                    self._warm_escalations += 1
         else:
             self._warm_strikes = 0
 
+    def _phi_tables(self):
+        """The exact phi tier's tables (PhiTables, else PhiTablesBig),
+        built at first use; None when the machine fits neither."""
+        if self._phi is None:
+            self._phi = False
+            for cls in (PhiTables, PhiTablesBig):
+                try:
+                    self._phi = cls(self.dfa, self.device)
+                    break
+                except ValueError:
+                    continue
+        return self._phi or None
+
     def _scan_first(self, data, prepared):
         t0 = time.perf_counter()
+        if self._phi_active and self._on_device(data):
+            pt = self._phi
+            state, first = phi_scan_bytes(
+                pt, data, prepared=prepared.for_tables(pt)
+                if prepared else None)
+            self._note_stats("scan", pt, len(data), t0)
+            return first, state
         if self._on_device(data):
             spec = self._spec
             state, first = spec_scan_bytes(
@@ -370,7 +409,8 @@ class Scanner:
                 return (rc, ov) if rc >= 0 else None
             certified = False
         # DFA prefilter: no match end anywhere => no match at all
-        tier = self._spec if on_device else None
+        tier = ((self._phi if self._phi_active else self._spec)
+                if on_device else None)
         first, state = self._scan_first(data, prepared)
         result = None
         if first >= 0 or self.dfa.match_eof[state]:
@@ -391,7 +431,13 @@ class Scanner:
     def count(self, data, prepared=None):
         """Number of match-ending boundaries (including EOF)."""
         t0 = time.perf_counter()
-        if self._on_device(data):
+        if self._phi_active and self._on_device(data):
+            pt = self._phi
+            state, c = phi_count_bytes(
+                pt, data, prepared=prepared.for_tables(pt)
+                if prepared else None)
+            self._note_stats("count", pt, len(data), t0)
+        elif self._on_device(data):
             spec = self._spec
             state, c = spec_count_bytes(
                 spec, data, prepared=prepared.for_tables(spec)

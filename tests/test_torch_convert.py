@@ -13,7 +13,11 @@ from sregex_tpu.ops.pallas_affine import SpecTablesAffine as JaxAffine
 from sregex_tpu.ops.pallas_big import SpecTablesBig as JaxBig
 from sregex_tpu.ops.pallas_pair import SpecTablesPair as JaxPair
 
-from sregex_tpu_torch.convert import prepared_from_jax, spec_tables_from_jax
+from sregex_tpu.ops import pallas_phi as jphi
+
+from sregex_tpu_torch.convert import (phi_tables_from_jax, prepared_from_jax,
+                                      spec_tables_from_jax)
+from sregex_tpu_torch.ops import phi as tphi
 from sregex_tpu_torch.ops import spec_scan as tscan
 from sregex_tpu_torch.ops.affine import SpecTablesAffine
 from sregex_tpu_torch.ops.big import SpecTablesBig
@@ -148,3 +152,27 @@ def test_prepared_from_jax_scans_to_the_jax_result():
     assert got == jscan.spec_count_bytes(jt, data, chunk_len=240,
                                          prepared=jp)
     assert got[1] == data.count(b"ab")
+
+
+@pytest.mark.parametrize("pattern,kind", [("b(?:aa)*b", "PhiTables"),
+                                          ("b(?:a{137})*b", "PhiTablesBig")])
+def test_phi_tables_from_jax_count_as_jax_does(pattern, kind):
+    dfa = _dfa(pattern)
+    jt = getattr(jphi, kind)(dfa)
+    arrays = {k: getattr(jt, k) for k in ("nstates", "ncls", "rows", "bits",
+                                          "nseg", "SB") if hasattr(jt, k)}
+    arrays["kind"] = kind
+    arrays["fused_rows"] = np.asarray(jt.fused_rows).copy()
+    got = phi_tables_from_jax(arrays, dfa, CPU)
+    assert type(got) is getattr(tphi, kind)
+    assert torch.equal(got.fused, getattr(tphi, kind)(dfa, CPU).fused)
+    rng = np.random.default_rng(4)
+    data = rng.choice(np.frombuffer(b"aaaaab", np.uint8), 7000).tobytes()
+    want = jphi.phi_count_bytes(jt, data, chunk_len=512)
+    assert tphi.phi_count_bytes(got, data, chunk_len=512) == want
+    assert want[1] > 0
+    bad = dict(arrays, rows=arrays["rows"] + 1)
+    with pytest.raises(ValueError, match="rows"):
+        phi_tables_from_jax(bad, dfa, CPU)
+    with pytest.raises(ValueError, match="SpecTables"):
+        phi_tables_from_jax(dict(arrays, kind="SpecTables"), dfa, CPU)

@@ -10,6 +10,7 @@ import torch
 
 from sregex_tpu_torch.ops import affine as taff
 from sregex_tpu_torch.ops import big as tbig
+from sregex_tpu_torch.ops import phi as tphi
 from sregex_tpu_torch.ops import spec_scan as tscan
 from sregex_tpu_torch.ops import tdfa_scan as ttdfa
 
@@ -192,3 +193,89 @@ def test_find_runs_on_the_card(cuda):
     assert sc.find(data) == host.find(data)
     assert ttdfa.tdfa_scan_launches == before + 1
     assert sc.stats().certified is True
+
+
+def _phi_case(rng, S, bits, ncls, big, B=2, G=8, K=512):
+    """Random words (classes up to 2**bits, past the table too), a random
+    fused table of ceil(S*ncls/128) rows, and the kernel's keywords."""
+    cpw = 32 // bits
+    Kw = K // cpw
+    rows = -(-(S * ncls) // 128)
+    table = (rng.integers(0, S, rows * 128) * ncls
+             | rng.integers(0, 2, rows * 128) << 20).astype(np.int32)
+    kw = dict(Kw=Kw, CPW=cpw, BITS=bits, S=S, NCLS=ncls)
+    if big:
+        sb = -(-S // 128)
+        kw["SB"] = 1 << (sb - 1).bit_length()
+        P = -(-Kw // 128)
+    else:
+        kw["NSEG"] = max(1, 128 // S)
+        kw["WL"] = 128 // kw["NSEG"]
+        P = -(-Kw // kw["WL"])
+    words = rng.integers(0, 1 << 32, (B, P, G, 8, 128), dtype=np.uint64)
+    data = words.astype(np.uint32).view(np.int32)
+    return data, table, kw
+
+
+def _phi_valid(kw):
+    """[8, 128] bool: the slots the TPU kernel computes for a chunk and
+    entry state (the others are padding)."""
+    sub = torch.arange(8)[:, None]
+    lane = torch.arange(128)[None, :]
+    if "SB" in kw:
+        return ((sub % kw["SB"]) * 128 + lane < kw["S"]).expand(8, 128)
+    return (lane < kw["NSEG"] * kw["S"]).expand(8, 128)
+
+
+@pytest.mark.parametrize("S,bits,ncls,count", [
+    (3, 4, 16, True), (4, 4, 3, False), (50, 8, 20, True),
+    (128, 4, 8, False), (128, 8, 8, True), (3, 8, 256, False)])
+def test_phi_kernel_equals_plain_version(cuda, S, bits, ncls, count):
+    rng = np.random.default_rng(S * 10 + bits)
+    data, table, kw = _phi_case(rng, S, bits, ncls, big=False)
+    args = [torch.from_numpy(a).to(cuda) for a in (data, table)]
+    before = tphi.phi_scan_launches
+    got = tphi.phi_scan(*args, COUNT=count, **kw)
+    torch.cuda.synchronize()
+    assert tphi.phi_scan_launches == before + 1
+    want = tphi.phi_scan_ref(*args, COUNT=count, **kw)
+    valid = _phi_valid(kw).to(cuda)
+    for g, w in zip(got, want):
+        assert torch.equal(g[..., valid], w[..., valid])
+
+
+@pytest.mark.parametrize("S,bits,ncls,count", [
+    (139, 4, 16, True), (501, 4, 16, False), (1000, 4, 8, True),
+    (139, 8, 58, False)])
+def test_phi_big_kernel_equals_plain_version(cuda, S, bits, ncls, count):
+    """Up to 64 rows (8192 entries), the card's row cap."""
+    rng = np.random.default_rng(S + bits)
+    data, table, kw = _phi_case(rng, S, bits, ncls, big=True)
+    assert table.size <= 64 * 128
+    args = [torch.from_numpy(a).to(cuda) for a in (data, table)]
+    before = tphi.phi_big_scan_launches
+    got = tphi.phi_big_scan(*args, COUNT=count, **kw)
+    torch.cuda.synchronize()
+    assert tphi.phi_big_scan_launches == before + 1
+    want = tphi.phi_big_scan_ref(*args, COUNT=count, **kw)
+    valid = _phi_valid(kw).to(cuda)
+    for g, w in zip(got, want):
+        assert torch.equal(g[..., valid], w[..., valid])
+
+
+def test_phi_tier_runs_on_the_card(cuda):
+    import sregex_tpu_torch
+    sc = sregex_tpu_torch.compile_pattern(rb"b(?:aa)*b")
+    host = sregex_tpu_torch.compile_pattern(rb"b(?:aa)*b", device=None)
+    sc.DEVICE_THRESHOLD = 1 << 12
+    rng = np.random.default_rng(0)
+    runs = rng.integers(60, 300, 4000)
+    data = b"".join(b"a" * int(r) + b"b" for r in runs)
+    for _ in range(2):
+        assert sc.count(data) == host.count(data)
+    assert sc._phi_active and sc._phi.fused.device.type == "cuda"
+    before = tphi.phi_scan_launches
+    assert sc.count(data) == host.count(data)
+    assert sc.scan(data) == host.scan(data)
+    assert tphi.phi_scan_launches == before + 2
+    assert sc.stats().tier == "PhiTables" and sc.stats().repaired == 0
