@@ -8,12 +8,25 @@ engine:
   - headline: a first-match scan of one pattern over 1920 MB (the
     narrow tier);
   - multi: Scanner.count of 90 keywords over a 1920 MB text corpus
-    (the wide tier);
+    (the wide tier); beside it the same count by a Scanner with
+    SREGEX_FUSED=1, the fused two-phase core tier, the TPU's route for
+    this set (phase 2 on the gated kernel with the table in shared
+    memory);
   - affine: Scanner.count and Scanner.scan of a base64-blob detector,
     [A-Za-z0-9+/]{400,499}=, over 1920 MB of log-like text with base64
     runs, after the warmup ladder has settled (the affine tier);
   - big: Scanner.count of a 500-keyword dictionary over the multi
-    corpus with dictionary words planted (the big tier);
+    corpus with dictionary words planted (the static big tier, where the
+    card's band keeps it);
+  - core: Scanner.count and Scanner.scan of the same dictionary over the
+    same corpus by a Scanner with SREGEX_FUSED=1, served by the fused
+    two-phase core tier (phase 1 on a sampled core, phase 2 on the gated
+    big kernel), with its phase split; then the same with the device
+    cap under the corpus's escapes, where the first count overflows and
+    hands the machine to the static big tier; then Scanner.count of a
+    machine with no static tier, a.{10}b|cdefghijklmnopqrstuvwxyz, over
+    the same corpus (the legacy core, or the native engine where no
+    core fits);
   - find: Scanner.find of a log-field extractor with two capture
     groups over 1920 MB of log lines full of near misses, one full
     match planted near the end (the tagged-DFA kernel, certified in one
@@ -41,10 +54,12 @@ plain version, its time beside the plain version's and its bound at
 the main path's shapes, and last {"ok": true, "device": {...}}.
 
 SREGEX_BENCH_MB, SREGEX_BENCH_MULTI_MB, SREGEX_BENCH_AFFINE_MB,
-SREGEX_BENCH_BIG_MB, SREGEX_BENCH_FIND_MB, SREGEX_BENCH_PHI_MB and
-SREGEX_BENCH_PHI_BIG_MB size the seven corpora (default 1920 each).
+SREGEX_BENCH_BIG_MB (the big and core phases), SREGEX_BENCH_FIND_MB,
+SREGEX_BENCH_PHI_MB and SREGEX_BENCH_PHI_BIG_MB size the seven corpora
+(default 1920 each).
 """
 
+import contextlib
 import json
 import os
 import random
@@ -62,6 +77,7 @@ from sregex_tpu_torch.native_pike import NativePikeCtx
 from sregex_tpu_torch.ops import _build
 from sregex_tpu_torch.ops import affine as aff
 from sregex_tpu_torch.ops import big
+from sregex_tpu_torch.ops import core as tcore
 from sregex_tpu_torch.ops import phi as tphi
 from sregex_tpu_torch.ops import spec_scan as scan
 from sregex_tpu_torch.ops import tdfa_scan as tdfa
@@ -98,6 +114,9 @@ FIND_PLANT = b"2026-10-16T14:05:33Z ERROR status=404 user=bob_x path=/a\n"
 PHI_PATTERN = rb"b(?:aa)*b"
 PHI_BIG_PATTERN = rb"b(?:a{499})*b"
 PHI_BIG_PLAIN_MB = 64         # the big-phi plain version's slice
+# past the big tier's 2**17 entries and not piecewise affine: no static
+# tier accepts it
+NO_TIER_PATTERN = "a.{10}b|cdefghijklmnopqrstuvwxyz"
 REPS = 5
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 SCALAR_OPS_PER_S = 67e12      # H100 SXM, non-tensor 32-bit rate
@@ -111,6 +130,29 @@ def mb_env(name):
     return int(os.environ.get(name, "1920"))
 
 
+@contextlib.contextmanager
+def env(name, value):
+    """The environment variable ``name`` set to ``value`` inside the
+    block, as it was after it."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
+
+
+def drop_preps(prepared, *tables):
+    """Free a prepared corpus's preps for ``tables``, at every chunk
+    length."""
+    ids = {id(t) for t in tables}
+    for key in [k for k in prepared._by_tables if k[0] in ids]:
+        del prepared._by_tables[key]
+
+
 def reset_launches():
     scan.spec_scan_launches = 0
     big.big_scan_launches = 0
@@ -118,6 +160,7 @@ def reset_launches():
     tdfa.tdfa_scan_launches = 0
     tphi.phi_scan_launches = 0
     tphi.phi_big_scan_launches = 0
+    tcore.gated_scan_launches = 0
 
 
 def max_abs_err(got, want):
@@ -167,6 +210,26 @@ def random_case(rng, dev, *, bits, rows, W, count, B=2, G=8, K=512,
     j0 = rng.integers(0, W + 1, (B, G, 8, 128)).astype(np.int32)
     args = [torch.from_numpy(a).to(dev) for a in (data, s0, j0, table)]
     return args, dict(W=W, CPW=cpw, BITS=bits, COUNT=count)
+
+
+def compare_gated(args, kw, n_esc, big_):
+    """The gated kernel vs its plain version: bit-exact planes in the
+    active block rows, and the rows gated off still hold the sentinel
+    the output planes were filled with."""
+    ne = torch.tensor([n_esc], dtype=torch.int32, device=args[0].device)
+    out = tuple(torch.full_like(args[1], -7) for _ in range(3))
+    got = tcore.gated_scan(*args, ne, big=big_, out=out, **kw)
+    torch.cuda.synchronize()
+    want = tcore.gated_scan_ref(*args, ne, **kw)
+    torch.cuda.synchronize()
+    nblk = tcore._active_rows(ne, args[0])
+    err = max_abs_err([g[:nblk] for g in got],
+                      [w[:nblk] for w in want]) if nblk else 0
+    if err or not all(bool((g[nblk:] == -7).all()) for g in got):
+        raise AssertionError("the gated kernel differs from its plain "
+                             "version by %d or wrote a gated row (n_esc %d, "
+                             "%r)" % (err, n_esc, kw))
+    return err
 
 
 def random_affine_case(rng, dev, *, pieces, bits, W, count, B=2, G=8,
@@ -641,12 +704,28 @@ def main():
                else (tphi.phi_scan, tphi.phi_scan_ref))
         errs[tier] = max(errs[tier], compare_phi(*fns, args,
                                                  dict(kw, COUNT=count)))
+    # gated: the phase-2 scan at CAP 32768 (4 block rows of G tiles) over
+    # narrow, wide and big tables, gated at the edges of a block row
+    errs["gated"] = 0
+    cap_rows = 32768 // (GROUPS * 1024)
+    gated_cases = []
+    for bits, rows, ncls, big_ in ((4, 1, 16, False), (8, 98, 27, False),
+                                   (8, 821, 27, True)):
+        args, kw = random_case(rng, dev, bits=bits, rows=rows, W=32,
+                               count=True, B=cap_rows, K=256, ncls=ncls,
+                               in_range=True)
+        kw.pop("COUNT")
+        for n_esc in (0, 1, GROUPS * 1024, GROUPS * 1024 + 1, 32768):
+            errs["gated"] = max(errs["gated"],
+                                compare_gated(args, kw, n_esc, big_))
+            gated_cases.append((rows, n_esc))
     say("kernel_vs_plain", groups=GROUPS, max_abs_err=max(errs.values()),
         cases=len(cases) + 2 + len(big_cases) + len(affine_cases) + 4
-        + len(tdfa_cases) + len(phi_cases))
+        + len(tdfa_cases) + len(phi_cases) + len(gated_cases))
     del packed, s0, j0
 
     launches = {}
+    timings = {}
     # --- 4. headline: the main path, launches counted from here -----------
     mb = mb_env("SREGEX_BENCH_MB")
     corpus = headline_corpus(mb)
@@ -740,7 +819,35 @@ def main():
         launches=launches["wide"], first_call_s=first_s,
         native_s=mnative_s,
         peak_mem_bytes=torch.cuda.max_memory_allocated())
-    del mcorpus
+
+    # the TPU's route for this set: the fused two-phase tier, which
+    # SREGEX_FUSED=1 lets in over a long-chain wide tier
+    with env("SREGEX_FUSED", "1"):
+        fsc = sregex_tpu_torch.compile_pattern(pats)
+        g0 = tcore.gated_scan_launches
+        t0 = time.perf_counter()
+        check_multi(fsc.count(mcorpus, prepared=mprep))
+        ffirst_s = time.perf_counter() - t0
+        fmdt = min_rep_seconds(lambda: fsc.count(mcorpus, prepared=mprep),
+                               check_multi)
+    mct, fmst = fsc._fusedct, fsc.stats()
+    if fmst.tier != "CoreTables" or not isinstance(mct, tcore.CoreTables):
+        raise AssertionError("the multi set is not on the fused tier: %r"
+                             % fmst)
+    say("multi_fused", mb=mmb, count=mexp, fused_multi_gbps=mn / fmdt / 1e9,
+        multi_dfa_scan_gbps=mn / mdt / 1e9,
+        K=tcore.fused_chunk(mct.inner, fsc._spec),
+        n_esc=mct.last_escapes[0], overflow=mct.last_escapes[1],
+        cause=mct.last_fused_cause, repaired=fmst.repaired,
+        chunks=fmst.chunks, H=mct.H, inner=type(mct.inner).__name__,
+        inner_ncls=mct.inner.ncls, inner_rows=mct.inner.rows,
+        gated_launches=tcore.gated_scan_launches - g0,
+        first_call_s=ffirst_s,
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+    # mprep stays for the wide kernel's timing; the fused Scanner's preps
+    # go
+    drop_preps(mprep, mct.inner, fsc._spec)
+    del mct, fsc, mcorpus
 
     # --- 6. affine: a base64-blob detector over log-like text ------------
     amb = mb_env("SREGEX_BENCH_AFFINE_MB")
@@ -820,11 +927,19 @@ def main():
     bn = len(bcorpus)
     t0 = time.perf_counter()
     bexp = native_count(bsc, bcorpus)
+    bexp_first, _ = bsc._native.scan_first(bcorpus, 0)
     bnative_s = time.perf_counter() - t0
+    if bexp_first < 0:
+        raise AssertionError("no dictionary word in the big corpus")
 
     def check_big(c):
         if c != bexp:
             raise AssertionError("big rep %r != native %r" % (c, bexp))
+
+    def check_big_scan(r):
+        if r is None or r[1] != bexp_first:
+            raise AssertionError("big scan %r != native end %r"
+                                 % (r, bexp_first))
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -833,7 +948,9 @@ def main():
     bdt = min_rep_seconds(lambda: bsc.count(bcorpus, prepared=bprep),
                           check_big)
     bst = bsc.stats()
-    if bst.tier != "SpecTablesBig":
+    # the card's band: no core tier is built over the big tier
+    if bst.tier != "SpecTablesBig" or bsc._coret is not False \
+            or bsc._fusedct is not False:
         raise AssertionError("big phase served by %s" % bst.tier)
     launches["big"] = big.big_scan_launches
     say("big", mb=bmb, bytes=bn, keywords=len(words), count=bexp,
@@ -845,9 +962,161 @@ def main():
         chunks=bst.chunks, launches=launches["big"], dfa_build_s=dfa_s,
         native_s=bnative_s,
         peak_mem_bytes=torch.cuda.max_memory_allocated())
-    del bcorpus
 
-    # --- 8. find: a log-field extractor, certified in one pass -----------
+    # --- 8. core: the dictionary on the fused two-phase core tier ---------
+    # SREGEX_FUSED=1 lets the fused tier in over the big tier
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with env("SREGEX_FUSED", "1"):
+        csc = sregex_tpu_torch.compile_pattern(words)
+        cprep = csc.prepare(bcorpus)
+        t0 = time.perf_counter()
+        check_big(csc.count(bcorpus, prepared=cprep))
+        cfirst_s = time.perf_counter() - t0
+        cdt = min_rep_seconds(lambda: csc.count(bcorpus, prepared=cprep),
+                              check_big)
+        cst = csc.stats()
+        fct = csc._fusedct
+        if cst.tier != "CoreTables" \
+                or not isinstance(fct, tcore.CoreTables):
+            raise AssertionError("the dictionary is not on the fused "
+                                 "tier: %r" % cst)
+        cesc, ccause = fct.last_escapes, fct.last_fused_cause
+        check_big_scan(csc.scan(bcorpus, prepared=cprep))
+        csdt = min_rep_seconds(lambda: csc.scan(bcorpus, prepared=cprep),
+                               check_big_scan)
+        if csc.stats().tier != "CoreTables":
+            raise AssertionError("core scan served by %s"
+                                 % csc.stats().tier)
+    launches["gated"] = tcore.gated_scan_launches
+    claunch = dict(gated=launches["gated"], spec=scan.spec_scan_launches,
+                   big=big.big_scan_launches)
+
+    # the phase split by CUDA events, and the gated kernel at this
+    # phase-2 shape with this corpus's escapes
+    inner, full = fct.inner, csc._spec
+    ck = tcore.fused_chunk(inner, full)
+    cdata, C, K, _, B1 = cprep.for_tables(inner, ck)
+    fdata = cprep.for_tables(full, ck)[0]
+    Cfull = C - 1 if C * K > bn and bn - (C - 1) * K != K else C
+    cap = tcore._fused_cap(B1)
+    Cp = B1 * GROUPS * 1024
+    s01, j01 = scan._entry_planes(fct.to_core_premult(0), inner.warmup, B1,
+                                  dev)
+
+    def phase1():
+        return scan.spec_scan(cdata, s01, j01, inner.fused, W=inner.warmup,
+                              CPW=inner.cpw, BITS=inner.bits, COUNT=True)
+
+    p1_ms = time_gpu(phase1, 20)
+    live = torch.arange(Cp, device=dev) < Cfull
+    n_esc, _, sel_g, _ = tcore._compact_escapes(
+        phase1()[0].reshape(Cp), live, fct.esc_premult, cap)
+    gblk = tcore._gather_windows(fdata, sel_g, cap)
+    z2 = torch.zeros((gblk.shape[0], GROUPS, 8, 128), dtype=torch.int32,
+                     device=dev)
+    gargs = [gblk, z2, z2, full.fused]
+    gkw = dict(W=full.warmup, CPW=full.cpw, BITS=full.bits)
+    nesc = int(n_esc)
+    errs["gated"] = max(errs["gated"], compare_gated(gargs, gkw, nesc, True))
+    ne = n_esc.reshape(1)
+    g_ms = time_gpu(lambda: tcore.gated_scan(*gargs, ne, big=True, **gkw),
+                    20)
+    g_plain_ms = time_gpu(lambda: tcore.gated_scan_ref(*gargs, ne, **gkw),
+                          2)
+    fused_ms = time_gpu(lambda: tcore._fused_count(
+        cdata, fdata, inner, full, fct._h2f_dev, Cfull,
+        fct.to_core_premult(0), 0, CAP=cap, ESC=fct.esc_premult), 5)
+    # bytes: the active rows' words, the table and three planes of the
+    # active rows; operations: one per step of each escaped chunk
+    nblk = min(gblk.shape[0], -(-nesc // (GROUPS * 1024)))
+    slots = nblk * GROUPS * 1024
+    t_bytes = (slots * gblk.shape[1] + full.fused.numel() + 3 * slots) * 4 \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = min(nesc, cap) * (full.warmup + K) / SCALAR_OPS_PER_S * 1e3
+    bms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                           "operations")
+    timings["gated"] = (g_ms, g_plain_ms, bms, by, list(gblk.shape))
+    say("kernel_time", tier="gated", shape=list(gblk.shape), n_esc=nesc,
+        active_rows=nblk, ms=g_ms, plain_ms=g_plain_ms, bound_ms=bms,
+        bound_by=by, phase1_ms=p1_ms, phase1_shape=list(cdata.shape),
+        fused_device_ms=fused_ms)
+    del gblk, gargs, z2, sel_g, live, cdata, fdata
+
+    # past the device cap (one phase-2 block row): the first count
+    # repairs its escapes on the host and hands the machine to the
+    # static big tier, which serves from then on
+    ocap = GROUPS * 1024
+    cap0, tcore.FUSED_CAP = tcore.FUSED_CAP, ocap
+    try:
+        with env("SREGEX_FUSED", "1"):
+            osc = sregex_tpu_torch.compile_pattern(words)
+            t0 = time.perf_counter()
+            check_big(osc.count(bcorpus, prepared=cprep))
+            o_first_s = time.perf_counter() - t0
+    finally:
+        tcore.FUSED_CAP = cap0
+    ost = osc.stats()
+    # a corpus cut below ~1 GB has fewer escapes than one block row
+    overflows = cesc[0] > ocap
+    if overflows and (ost.tier != "CoreTables"
+                      or osc._fusedct is not False):
+        raise AssertionError("the overflowing fused count did not hand "
+                             "the machine back: %r" % ost)
+    osdt = min_rep_seconds(lambda: osc.count(bcorpus, prepared=cprep),
+                           check_big)
+    overflow = dict(cap=ocap, overflows=overflows, first_tier=ost.tier,
+                    first_repaired=ost.repaired, first_chunks=ost.chunks,
+                    first_count_s=o_first_s,
+                    settled_tier=osc.stats().tier,
+                    settled_count_gbps=bn / osdt / 1e9)
+    if overflow["settled_tier"] != ("SpecTablesBig" if overflows
+                                    else "CoreTables"):
+        raise AssertionError("after the overflow arm: %r" % overflow)
+    del osc
+
+    # a machine with no static tier: the legacy core, or the native
+    # engine where CoreTables finds no core
+    nsc = sregex_tpu_torch.compile_pattern(NO_TIER_PATTERN)
+    if nsc._spec is not None:
+        raise AssertionError("%s has a static tier" % NO_TIER_PATTERN)
+    t0 = time.perf_counter()
+    nexp = native_count(nsc, bcorpus)
+    no_tier = dict(pattern=NO_TIER_PATTERN, count=nexp,
+                   states=nsc.dfa.nstates, classes=nsc.dfa.nclasses,
+                   native_s=time.perf_counter() - t0, scans=[])
+    for _ in range(2):
+        t0 = time.perf_counter()
+        c_ = nsc.count(bcorpus, prepared=cprep)
+        dt_ = time.perf_counter() - t0
+        if c_ != nexp:
+            raise AssertionError("no-tier count %r != native %r"
+                                 % (c_, nexp))
+        st_ = nsc.stats()
+        no_tier["scans"].append(dict(
+            tier=st_.tier, repaired=st_.repaired, chunks=st_.chunks,
+            recore_events=st_.recore_events, count_gbps=bn / dt_ / 1e9))
+    ct_ = nsc._coret
+    if ct_:
+        no_tier.update(H=ct_.H, inner=type(ct_.inner).__name__,
+                       inner_ncls=ct_.inner.ncls)
+    del nsc, ct_
+    say("core", mb=bmb, bytes=bn, keywords=len(words), count=bexp,
+        first_end=bexp_first, fused_count_gbps=bn / cdt / 1e9,
+        fused_scan_gbps=bn / csdt / 1e9, static_big_count_gbps=bn / bdt / 1e9,
+        tier=cst.tier, n_esc=cesc[0], overflow=cesc[1], cause=ccause,
+        repaired=cst.repaired, chunks=cst.chunks,
+        recore_events=cst.recore_events, H=fct.H,
+        inner=type(inner).__name__, inner_ncls=inner.ncls,
+        inner_rows=inner.rows, K=ck, cap=cap, rep_ms=cdt * 1e3,
+        phase1_ms=p1_ms, phase2_ms=g_ms, fused_device_ms=fused_ms,
+        host_timing=fct.last_timing, launches=claunch,
+        overflow_arm=overflow, no_static_tier=no_tier,
+        first_count_s=cfirst_s,
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+    del cprep, bcorpus, csc, fct
+
+    # --- 9. find: a log-field extractor, certified in one pass -----------
     fmb = mb_env("SREGEX_BENCH_FIND_MB")
     fsc = sregex_tpu_torch.compile_pattern(FIND_PATTERN)
     ft = fsc._tdfa_spec
@@ -934,7 +1203,7 @@ def main():
         certified=gst.certified, launches=glaunch, seconds=fallback_s)
     del gcorpus
 
-    # --- 9. phi: the run-parity machine on the exact tier ----------------
+    # --- 10. phi: the run-parity machine on the exact tier ----------------
     pmb = mb_env("SREGEX_BENCH_PHI_MB")
     psc = sregex_tpu_torch.compile_pattern(PHI_PATTERN)
     if type(psc._spec).__name__ != "SpecTablesPair":
@@ -979,7 +1248,7 @@ def main():
     phi_stats["phi"] = (pt, pprep.for_tables(pt))
     del pcorpus
 
-    # --- 10. phi_big: a residue mod 499 on the sublane-group tier ---------
+    # --- 11. phi_big: a residue mod 499 on the sublane-group tier ---------
     qmb = mb_env("SREGEX_BENCH_PHI_BIG_MB")
     qsc = sregex_tpu_torch.compile_pattern(PHI_BIG_PATTERN)
     if type(qsc._spec).__name__ != "SpecTablesAffine":
@@ -1030,8 +1299,7 @@ def main():
         raise AssertionError("a main path skipped its kernel: %r"
                              % launches)
 
-    # --- 11. kernel vs plain time at the main path's shapes ---------------
-    timings = {}
+    # --- 12. kernel vs plain time at the main path's shapes ---------------
     shapes = [("narrow", spec, tables, prepared[0], False, {}),
               ("wide", spec, msc._spec, mprep.for_tables(msc._spec)[0],
                True, {}),
@@ -1129,7 +1397,9 @@ def main():
              "sregex_tpu/ops/pallas_affine.py:275"),
             ("tdfa", "tdfa_scan.cu", "sregex_tpu/ops/tdfa_scan.py:450"),
             ("phi", "phi_scan.cu", "sregex_tpu/ops/pallas_phi.py:410"),
-            ("phi_big", "phi_scan.cu", "sregex_tpu/ops/pallas_phi.py:206")):
+            ("phi_big", "phi_scan.cu", "sregex_tpu/ops/pallas_phi.py:206"),
+            ("gated", "spec_scan.cu",
+             "sregex_tpu/ops/pallas_core.py:623")):
         ms, plain_ms, bms, by, shape = timings[tier][:5]
         if tier == "tdfa":
             name = "tagged-DFA scan (shape %s)" % shape
@@ -1138,6 +1408,9 @@ def main():
         elif tier == "phi_big":
             name = ("sublane-group phi scan (shape %s; plain_ms at %s, the "
                     "first %d MB)" % (shape, timings[tier][5], plain_mb))
+        elif tier == "gated":
+            name = ("gated phase-2 scan (big table, shape %s, %d escaped "
+                    "chunks)" % (shape, nesc))
         else:
             name = "%s scan (%s table, shape %s)" % (
                 "affine" if tier == "affine" else "spec", tier, shape)

@@ -5,18 +5,21 @@ them as [8, 128] (narrow) or [R, 8, 128] (wide, pair, big, affine)
 int32 arrays, each 128-entry row broadcast over the 8 sublanes.  The
 port holds the same entries as one flat [R*128] int32 tensor.  These
 functions take the JAX arrays as numpy (the caller does
-``np.asarray(x).copy()``), so nothing here imports jax.
+``np.asarray(x).copy()``; core_tables_from_jax takes the JAX object and
+does it itself), so nothing here imports jax.
 """
 
 import numpy as np
 import torch
 
+from .native import NativeDfa
 from .ops.affine import SpecTablesAffine
 from .ops.big import SpecTablesBig
+from .ops.core import CoreTables
 from .ops.layout import max_chunk_bytes
 from .ops.pair import SpecTablesPair
 from .ops.phi import PhiTables, PhiTablesBig
-from .ops.spec_scan import SpecTables, SpecTablesWide
+from .ops.spec_scan import SpecTables, SpecTablesWide, resolve_device
 from .ops.tdfa_scan import TdfaSpecTables
 
 # the JAX tables class (its name) -> the port's
@@ -85,6 +88,34 @@ def spec_tables_from_jax(arrays, dfa, device):
     if cls is SpecTablesAffine:
         t.bp = torch.tensor(t.bp_premult, dtype=torch.int32,
                             device=t.device)
+    return t
+
+
+def core_tables_from_jax(jax_ct, device):
+    """The port's CoreTables carrying a JAX CoreTables across: the same
+    full and core machines (``jax_ct.dfa`` and ``jax_ct.core``, which the
+    port's engines read as they read its own Dfa), the same hot set
+    (``hot2full``, ``full2core``, ``H``), the JAX inner tables through
+    spec_tables_from_jax, and ``esc_premult``, which must equal H times
+    the inner alphabet as the port derives it."""
+    inner = jax_ct.inner
+    arrays = {k: getattr(inner, k) for k in ("cpw", "bits", "warmup",
+                                             "rows", "byte_ncls")
+              if hasattr(inner, k)}
+    arrays["kind"] = type(inner).__name__
+    for k in ("fused_vec", "fused_rows"):
+        v = getattr(inner, k, None)
+        if v is not None:
+            arrays[k] = np.asarray(v).copy()
+    t = CoreTables.__new__(CoreTables)
+    t._adopt(jax_ct.dfa, NativeDfa(jax_ct.dfa), resolve_device(device),
+             spec_tables_from_jax(arrays, jax_ct.core, device), jax_ct.core,
+             np.asarray(jax_ct.hot2full, dtype=np.int64).copy(),
+             np.asarray(jax_ct.full2core, dtype=np.int32).copy())
+    if t.H != int(jax_ct.H) or t.esc_premult != int(jax_ct.esc_premult):
+        raise ValueError("core of %d states, esc %d; JAX %s, %s"
+                         % (t.H, t.esc_premult, jax_ct.H,
+                            jax_ct.esc_premult))
     return t
 
 

@@ -37,6 +37,17 @@
 // occupancy hides it, and a scan's live states touch few table lines,
 // which L1 keeps.
 //
+// The gated variants (sre_spec_scan_gated, sre_big_scan_gated) replace
+// ops/pallas_core.py::_dispatch_kernel_gated, the phase-2 launch of the
+// fused two-phase core tier: the full machine redoes the chunks that
+// escaped the core, compacted into a prefix of a static number of chunk
+// slots.  Every block reads the escape count from device memory and a
+// block past ceil(n_esc / (G*1024)) slots, counted by block row b as the
+// TPU's scalar-prefetch gate counts its grid steps, returns before it
+// stages the table: its outputs are left unwritten, and no host sync
+// sizes the grid.  What holds phase 2 back is occupancy, not the gate:
+// at most CAP / 1024 blocks (32 at CAP 32768), a partial wave on 132 SMs.
+//
 // Bounds: a table index is (state + class) and is in range for any
 // input the prep produces.  For any other input the kernel stays inside
 // the table: an index outside [0, table_len) reads entry (index & 127),
@@ -71,16 +82,24 @@ __device__ __forceinline__ int32_t lookup(const int32_t* tab, uint32_t idx,
   }
 }
 
-template <int BITS, bool COUNT, bool SMEM>
+// GATED: n_esc points at the escape count; block rows past
+// ceil(n_esc / (G * kTile)) return at once (see the head of the file).
+template <int BITS, bool COUNT, bool SMEM, bool GATED>
 __global__ void __launch_bounds__(kTile)
 spec_scan_kernel(const int32_t* __restrict__ data,
                  const int32_t* __restrict__ state0,
                  const int32_t* __restrict__ j0,
                  const int32_t* __restrict__ table, int table_len,
                  int32_t* __restrict__ phi, int32_t* __restrict__ fm,
-                 int32_t* __restrict__ swarm, int Jw, int G, int W_units) {
+                 int32_t* __restrict__ swarm, int Jw, int G, int W_units,
+                 const int32_t* __restrict__ n_esc) {
   constexpr int CPW = Packing<BITS>::kCpw;
   constexpr uint32_t kClassMask = (1u << BITS) - 1u;
+  if constexpr (GATED) {
+    const int64_t slots = static_cast<int64_t>(G) * kTile;
+    const int64_t nblk = (static_cast<int64_t>(*n_esc) + slots - 1) / slots;
+    if (static_cast<int64_t>(blockIdx.x / G) >= nblk) return;
+  }
   extern __shared__ int32_t smem_tab[];
   const int32_t* tab = table;
   if constexpr (SMEM) {
@@ -133,12 +152,13 @@ spec_scan_kernel(const int32_t* __restrict__ data,
                     : (static_cast<int32_t>(acc) >> kMatchShift);
 }
 
-template <int BITS, bool COUNT, bool SMEM>
+template <int BITS, bool COUNT, bool SMEM, bool GATED>
 cudaError_t launch(const int32_t* data, const int32_t* state0,
                    const int32_t* j0, const int32_t* table, int table_len,
                    int32_t* phi, int32_t* fm, int32_t* swarm, int B, int Jw,
-                   int G, int W_units, cudaStream_t stream) {
-  auto kernel = spec_scan_kernel<BITS, COUNT, SMEM>;
+                   int G, int W_units, const int32_t* n_esc,
+                   cudaStream_t stream) {
+  auto kernel = spec_scan_kernel<BITS, COUNT, SMEM, GATED>;
   size_t smem = 0;
   if constexpr (SMEM) {
     smem = static_cast<size_t>(table_len) * sizeof(int32_t);
@@ -148,15 +168,17 @@ cudaError_t launch(const int32_t* data, const int32_t* state0,
     if (err != cudaSuccess) return err;
   }
   kernel<<<B * G, kTile, smem, stream>>>(data, state0, j0, table, table_len,
-                                         phi, fm, swarm, Jw, G, W_units);
+                                         phi, fm, swarm, Jw, G, W_units,
+                                         n_esc);
   return cudaGetLastError();
 }
 
-template <bool SMEM>
+// GATED launches only the COUNT kernel: phase 2 counts.
+template <bool SMEM, bool GATED>
 int dispatch(const void* data, const void* state0, const void* j0,
              const void* table, int table_len, void* phi, void* fm,
              void* swarm, int B, int Jw, int G, int W_units, int CPW,
-             int BITS, int COUNT, void* stream) {
+             int BITS, int COUNT, const void* n_esc, void* stream) {
   const auto* d = static_cast<const int32_t*>(data);
   const auto* s0 = static_cast<const int32_t*>(state0);
   const auto* jz = static_cast<const int32_t*>(j0);
@@ -164,14 +186,17 @@ int dispatch(const void* data, const void* state0, const void* j0,
   auto* p = static_cast<int32_t*>(phi);
   auto* f = static_cast<int32_t*>(fm);
   auto* sw = static_cast<int32_t*>(swarm);
+  const auto* ne = static_cast<const int32_t*>(n_esc);
   auto st = static_cast<cudaStream_t>(stream);
   if (table_len <= 0 || table_len % 128 != 0 || B <= 0 || G <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (GATED && (!COUNT || ne == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
 #define SRE_LAUNCH(bits)                                                    \
-  (COUNT ? launch<bits, true, SMEM>(d, s0, jz, t, table_len, p, f, sw, B,   \
-                                    Jw, G, W_units, st)                     \
-         : launch<bits, false, SMEM>(d, s0, jz, t, table_len, p, f, sw, B,  \
-                                     Jw, G, W_units, st))
+  (COUNT ? launch<bits, true, SMEM, GATED>(d, s0, jz, t, table_len, p, f,   \
+                                           sw, B, Jw, G, W_units, ne, st)   \
+         : launch<bits, false, SMEM, false>(d, s0, jz, t, table_len, p, f,  \
+                                            sw, B, Jw, G, W_units, ne, st))
   cudaError_t err = cudaErrorInvalidValue;
   if (BITS == 3 && CPW == Packing<3>::kCpw) {
     if constexpr (SMEM) err = SRE_LAUNCH(3);   // the big tier packs 4 or 8
@@ -197,8 +222,9 @@ extern "C" int sre_spec_scan(const void* data, const void* state0,
                              int table_len, void* phi, void* fm, void* swarm,
                              int B, int Jw, int G, int W_units, int CPW,
                              int BITS, int COUNT, void* stream) {
-  return dispatch<true>(data, state0, j0, table, table_len, phi, fm, swarm,
-                        B, Jw, G, W_units, CPW, BITS, COUNT, stream);
+  return dispatch<true, false>(data, state0, j0, table, table_len, phi, fm,
+                               swarm, B, Jw, G, W_units, CPW, BITS, COUNT,
+                               nullptr, stream);
 }
 
 extern "C" int sre_big_scan(const void* data, const void* state0,
@@ -206,6 +232,32 @@ extern "C" int sre_big_scan(const void* data, const void* state0,
                             void* phi, void* fm, void* swarm, int B, int Jw,
                             int G, int W_units, int CPW, int BITS, int COUNT,
                             void* stream) {
-  return dispatch<false>(data, state0, j0, table, table_len, phi, fm, swarm,
-                         B, Jw, G, W_units, CPW, BITS, COUNT, stream);
+  return dispatch<false, false>(data, state0, j0, table, table_len, phi, fm,
+                                swarm, B, Jw, G, W_units, CPW, BITS, COUNT,
+                                nullptr, stream);
+}
+
+// The gated phase-2 launches: COUNT must be 1, n_esc is a device pointer
+// to one int32.  Block rows past ceil(*n_esc / (G*1024)) leave phi, fm and
+// swarm unwritten.
+extern "C" int sre_spec_scan_gated(const void* data, const void* state0,
+                                   const void* j0, const void* table,
+                                   int table_len, void* phi, void* fm,
+                                   void* swarm, int B, int Jw, int G,
+                                   int W_units, int CPW, int BITS, int COUNT,
+                                   const void* n_esc, void* stream) {
+  return dispatch<true, true>(data, state0, j0, table, table_len, phi, fm,
+                              swarm, B, Jw, G, W_units, CPW, BITS, COUNT,
+                              n_esc, stream);
+}
+
+extern "C" int sre_big_scan_gated(const void* data, const void* state0,
+                                  const void* j0, const void* table,
+                                  int table_len, void* phi, void* fm,
+                                  void* swarm, int B, int Jw, int G,
+                                  int W_units, int CPW, int BITS, int COUNT,
+                                  const void* n_esc, void* stream) {
+  return dispatch<false, true>(data, state0, j0, table, table_len, phi, fm,
+                               swarm, B, Jw, G, W_units, CPW, BITS, COUNT,
+                               n_esc, stream);
 }

@@ -101,6 +101,10 @@ def load():
         for fn in (lib.sre_spec_scan, lib.sre_big_scan):
             fn.restype = i
             fn.argtypes = [p, p, p, p, i, p, p, p, i, i, i, i, i, i, i, p]
+        for fn in (lib.sre_spec_scan_gated, lib.sre_big_scan_gated):
+            fn.restype = i
+            fn.argtypes = [p, p, p, p, i, p, p, p, i, i, i, i, i, i, i, p,
+                           p]
         lib.sre_affine_scan.restype = i
         lib.sre_affine_scan.argtypes = [p, p, p, p, i, p, p, p, i, i, i, i,
                                         i, i, i, p, i, i, i, p]

@@ -48,11 +48,12 @@ class SpecTablesBig(_Tables):
         self.max_chunk = max_chunk_bytes(self.cpw)
         self._finish(dfa, fused_table(dfa, self.rows), device)
 
-    def _scan(self, data, state0, j0, C, bad_tail, W, COUNT=False):
+    def _scan(self, data, state0, j0, C, bad_tail, W, COUNT=False,
+              esc=None):
         planes = big_scan(data, state0, j0, self.fused, W=W, CPW=self.cpw,
                           BITS=self.bits, COUNT=COUNT)
         return _summary_and_planes(planes, state0, C, bad_tail, COUNT,
-                                   wide=True)
+                                   wide=True, ESC=esc)
 
 
 def big_scan(data, state0, j0, table, *, W, CPW, BITS, COUNT):

@@ -54,8 +54,9 @@ class SpecTablesPair(_Tables):
         self.max_chunk = max_chunk_bytes(self.cpw, bpu=2)
         self._finish(dfa, fused, device)
 
-    def _scan(self, data, state0, j0, C, bad_tail, W, COUNT=False):
+    def _scan(self, data, state0, j0, C, bad_tail, W, COUNT=False,
+              esc=None):
         # W and j0 arrive in bytes; the kernel steps in pairs
         return _spec_scan(data, state0, j0 // 2, self.fused, C, bad_tail,
                           W=W // 2, CPW=self.cpw, BITS=self.bits,
-                          COUNT=COUNT, wide=self.wide)
+                          COUNT=COUNT, wide=self.wide, ESC=esc)

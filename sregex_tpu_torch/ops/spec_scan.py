@@ -82,10 +82,11 @@ class _Tables:
         self.class_map = dfa.class_map.astype(np.uint8)
         self.match_eof = dfa.match_eof
 
-    def _scan(self, data, state0, j0, C, bad_tail, W, COUNT=False):
+    def _scan(self, data, state0, j0, C, bad_tail, W, COUNT=False,
+              esc=None):
         return _spec_scan(data, state0, j0, self.fused, C, bad_tail,
                           W=W, CPW=self.cpw, BITS=self.bits,
-                          COUNT=COUNT, wide=self.wide)
+                          COUNT=COUNT, wide=self.wide, ESC=esc)
 
 
 class SpecTables(_Tables):
@@ -200,16 +201,17 @@ def spec_scan(data, state0, j0, table, *, W, CPW, BITS, COUNT):
     return planes
 
 
-def launch_planes(entry, data, state0, j0, table, extra):
+def launch_planes(entry, data, state0, j0, table, extra, out=None):
     """Launch the C entry point ``entry`` of the kernel library
     (ops/_build.py) on the current stream, without synchronising.
     Every scan entry takes (data, state0, j0, table, table_len, phi,
     fm, swarm, B, Jw, G, *extra, stream); the three int32 [B, G, 8, 128]
-    output planes are allocated here and returned.  Raises when the
-    launch fails."""
+    output planes are ``out`` or allocated here, and returned.  Raises
+    when the launch fails."""
     from . import _build
     fn = getattr(_build.load(), entry)
-    phi, fm, swarm = (torch.empty_like(state0) for _ in range(3))
+    phi, fm, swarm = out if out is not None else (
+        torch.empty_like(state0) for _ in range(3))
     B, Jw, G = data.shape[:3]
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
@@ -251,7 +253,7 @@ def spec_scan_ref(data, state0, j0, table, *, W, CPW, BITS, COUNT):
     return s, (acc if COUNT else acc >> _MATCH_SHIFT), swarm
 
 
-def _summarize(phi, fm, swarm, state0, C, bad_tail, COUNT):
+def _summarize(phi, fm, swarm, state0, C, bad_tail, COUNT, ESC=None):
     """The on-device validation of the speculation chain: int32 [10]
       [0] all_ok  [1] first_bad  [2] entry@first_bad  [3] phi@first_bad
       [4] swarm@first_bad  [5] fm@first_bad  [6] phi@C-1
@@ -260,12 +262,19 @@ def _summarize(phi, fm, swarm, state0, C, bad_tail, COUNT):
       [9] entry @ that chunk
     and the narrow repair planes, uint8 [4, B, G, 8, 128]
     (phi, fm & 0xFF, swarm, fm >> 8 & 0xFF).  first_bad is 0 when
-    every chunk validated, as in the JAX package."""
+    every chunk validated, as in the JAX package.
+
+    ESC (the core tiers, ops/core.py): the premultiplied id of the core
+    machine's sticky escape state.  A chunk that left the core exits in
+    ESC, and its counts past that byte are the core's, not the full
+    machine's, so it fails validation and the host repairs it."""
     Cp = phi.numel()
     phi_f, fm_f, swarm_f = (t.reshape(Cp) for t in (phi, fm, swarm))
     entries = torch.cat([state0.reshape(Cp)[:1], phi_f[:-1]])
     idx = torch.arange(Cp, dtype=torch.int32, device=phi.device)
     okv = swarm_f == entries
+    if ESC is not None:
+        okv &= phi_f != ESC
     if not COUNT:
         okv &= fm_f == 0
     okv = (okv | (idx >= C)) & (idx != bad_tail)
@@ -291,20 +300,22 @@ def _summarize(phi, fm, swarm, state0, C, bad_tail, COUNT):
 
 
 def _spec_scan(data, state0, j0, table, C, bad_tail, *, W, CPW, BITS,
-               COUNT=False, wide=False):
+               COUNT=False, wide=False, ESC=None):
     """Kernel + summary.  Returns (summary int32 [10], packed)."""
     planes = spec_scan(data, state0, j0, table, W=W, CPW=CPW, BITS=BITS,
                        COUNT=COUNT)
-    return _summary_and_planes(planes, state0, C, bad_tail, COUNT, wide)
+    return _summary_and_planes(planes, state0, C, bad_tail, COUNT, wide,
+                               ESC)
 
 
-def _summary_and_planes(planes, state0, C, bad_tail, COUNT, wide):
+def _summary_and_planes(planes, state0, C, bad_tail, COUNT, wide,
+                        ESC=None):
     """A scan kernel's (phi, fm, swarm) -> (summary int32 [10], packed):
     packed is the narrow uint8 [4, ...] planes, or for wide tables
     (states past 255) the int32 [3, ...] planes (phi, fm, swarm)."""
     phi, fm, swarm = planes
     summary, packed = _summarize(phi, fm, swarm, state0, C, bad_tail,
-                                 COUNT)
+                                 COUNT, ESC)
     if wide:
         packed = torch.stack([phi, fm, swarm])
     return summary, packed

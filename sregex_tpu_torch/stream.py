@@ -8,13 +8,23 @@ no card; ``device="cpu"`` runs the device path's plain torch versions
 on the CPU; ``device=None``, passed explicitly, serves every call from
 the native host engine (the JAX package's use_device=False).
 
-The tier chain is the JAX package's static chain: pair (narrow) ->
-narrow -> affine (P <= 6) -> wide -> affine -> big.  A machine that no
-tier accepts raises NotImplementedError when a device is asked for, as
-does the lazy machine.  Where the JAX package sends big machines to its
-adaptive core and fused tiers, the port serves them with the static
-big tier until those are ported; the results are the same.  Unlike the
-JAX package, no device failure is swallowed: a failed build or launch
+The static tier chain is the JAX package's: pair (narrow) -> narrow ->
+affine (P <= 6) -> wide -> affine -> big.  Above it sit the adaptive
+hot-core tiers (ops/core.py), tried first, in the JAX order: the fused
+two-phase tier, then the legacy core.  Which machines they serve is the
+decision band _core_band, measured on the card and narrower than the
+JAX package's: only a machine no static tier accepts gets the legacy
+core (escapes repaired natively), or the native engine where no core
+fits (CoreTables declines), as stats().tier then says.  Every static
+tier, wide and big included, serves its machines itself.  The fused
+tier (a core sampled from the corpus, escapes redone on the card by the
+static tier's kernel) is the TPU's route for long-chain wide and big
+machines; on the card it is slower than the static tier it would
+replace, so it serves only when SREGEX_FUSED=1 asks for it, and a scan
+that overflows its device cap hands the machine back to the static
+tier.  SREGEX_CORE=0 keeps every core tier out.  The lazy machine
+raises NotImplementedError when a device is asked for.  Unlike the JAX
+package, no device failure is swallowed: a failed build or launch
 raises.
 
 A machine whose state depends on history with no bound (run parity,
@@ -27,8 +37,8 @@ and scans with no speculation and no host repair.
 find() takes the JAX package's dense-DFA paths: the one-pass tagged-DFA
 kernel (ops/tdfa_scan.py) where it can certify its result, else the
 exact multi-pass path (the DFA prefilter, the reverse-DFA start
-locator, a Pike pass over the match region).  The hot-core tagged and
-reverse tiers wait for the core tiers; the results do not differ.
+locator, a Pike pass over the match region).  find's hot-core tagged
+and reverse tiers are not ported yet; the results do not differ.
 """
 
 import functools
@@ -43,6 +53,9 @@ from .native import NativeDfa
 from .native_pike import NativePikeCtx, NativeProgram
 from .ops.affine import SpecTablesAffine
 from .ops.big import SpecTablesBig
+from .ops.core import (FUSED_ESCAPE_FRAC, CoreTables, core_count_bytes,
+                       core_count_fused, core_scan_bytes, core_scan_fused,
+                       fused_chunk)
 from .ops.layout import DEFAULT_K
 from .ops.pair import SpecTablesPair
 from .ops.phi import (PhiTables, PhiTablesBig, phi_count_bytes,
@@ -56,18 +69,12 @@ from .parser import parse, parse_multi
 from .pike_vm import PikeCtx
 from .reverse import reverse_wrapped_ast
 
-_NOT_PORTED = (
-    "the JAX package serves it with the adaptive core tiers, which are "
-    "not ported yet (ROADMAP.md, Queue 1 items 5 and 6); use device=None "
-    "for the host engines")
-
-
 def _build_spec_tables(dfa, device):
     """The static tier chain, fastest first, as in the JAX package:
     narrow pair-step (SREGEX_PAIR=0 disables), narrow, piecewise affine
     with at most 6 pieces, wide, piecewise affine, big
-    (SREGEX_AFFINE=0 drops both affine tiers).  Raises
-    NotImplementedError when none accepts the machine."""
+    (SREGEX_AFFINE=0 drops both affine tiers).  None when none accepts
+    the machine."""
     chain = []
     if os.environ.get("SREGEX_PAIR") != "0":
         chain.append(functools.partial(SpecTablesPair, narrow_only=True))
@@ -82,11 +89,60 @@ def _build_spec_tables(dfa, device):
             return cls(dfa, device)
         except ValueError:
             continue
-    raise NotImplementedError(
-        "no ported device tier accepts this automaton (S*ncls = %d > %d "
-        "entries, not piecewise affine): %s"
-        % (dfa.nstates * dfa.nclasses, SpecTablesBig.MAX_ENTRIES,
-           _NOT_PORTED))
+    return None
+
+
+def _core_band(spec):
+    """The core-vs-static decision band of a static tier: "core" = the
+    legacy core is tried first, "static" = the static tier serves.
+
+    The JAX package's bands (its stream.py:101-117) were measured on the
+    TPU: static up to 2 wide rows, "ab" (a first-scan A/B) up to 16,
+    core past that and for the big tier or none.  On the card every
+    static tier is "static", and there is no "ab" band:
+
+      - a wide table sits whole in shared memory and costs one lookup a
+        byte whatever its rows, so the TPU's reason to leave a
+        long-chain wide tier, its row-select chain, does not exist (the
+        90-keyword set: wide 1221.01 GB/s, the fused tier 795.33);
+      - the big tier reads its table through L1/L2 at about 800 GB/s on
+        the 500-keyword dictionary, where the fused tier measured 755.74
+        and the legacy core, which re-scans every escaped chunk on the
+        host, 1.97 GB/s (chip_smoke.py on an H100 at 700 W; PERF.md).
+
+    Only a machine with no static tier is "core"."""
+    return "core" if spec is None else "static"
+
+
+def _core_requirement(spec):
+    """The legacy core's eligibility over a static tier: None = it stays
+    out (the band is "static", or SREGEX_CORE=0), else the require_fast
+    flag for CoreTables (False: with no static tier any core helps)."""
+    if os.environ.get("SREGEX_CORE") == "0" or _core_band(spec) != "core":
+        return None
+    return False
+
+
+def _fused_eligible(spec):
+    """Whether the fused tier may serve over static tables ``spec``: only
+    when SREGEX_FUSED=1 asks for it (the card's band keeps every static
+    tier, _core_band) and SREGEX_CORE=0 does not keep the core tiers
+    out, over the tables the JAX package builds it for, whose kernel
+    phase 2 reruns: a long-chain wide tier or the big tier."""
+    if os.environ.get("SREGEX_FUSED") != "1" \
+            or os.environ.get("SREGEX_CORE") == "0":
+        return False
+    return (isinstance(spec, SpecTablesWide) and spec.rows > 4) \
+        or isinstance(spec, SpecTablesBig)
+
+
+# per api: the fused, legacy core, phi and static tiers' entry points
+_TIER_CALLS = {
+    "count": (core_count_fused, core_count_bytes, phi_count_bytes,
+              spec_count_bytes),
+    "scan": (core_scan_fused, core_scan_bytes, phi_scan_bytes,
+             spec_scan_bytes),
+}
 
 
 class PreparedCorpus:
@@ -109,10 +165,14 @@ class PreparedCorpus:
             self._raw_dev = _host_u8(self.data).to(self.device)
         return self._raw_dev
 
-    def for_tables(self, tables):
+    def for_tables(self, tables, chunk_len=None):
+        """The prep for one tables object.  ``chunk_len`` overrides the
+        corpus default: the fused tier aligns its two preps (the core's
+        and the full machine's) on one chunk length (core.fused_chunk)."""
+        ck = self.chunk_len if chunk_len is None else chunk_len
         # the entry holds its tables, so no later tables object can
         # reuse the key
-        key = id(tables)
+        key = (id(tables), ck)
         hit = self._by_tables.get(key)
         if hit is None:
             knob = os.environ.get("SREGEX_DEVICE_PREP")
@@ -122,7 +182,7 @@ class PreparedCorpus:
             prep = (phi_prepare if isinstance(tables, (PhiTables,
                                                        PhiTablesBig))
                     else prepare_auto)
-            hit = (tables, prep(tables, src, self.chunk_len))
+            hit = (tables, prep(tables, src, ck))
             self._by_tables[key] = hit
         return hit[1]
 
@@ -137,11 +197,12 @@ class Scanner:
     find(data)   -> (regex_id, ovector) of the leftmost-first match per
                     full Pike semantics, or None
 
-    Corpora of at least DEVICE_THRESHOLD bytes go to the device tier;
+    Corpora of at least DEVICE_THRESHOLD bytes go to the device tiers;
     smaller ones, and every corpus when device=None, to the native
     engine."""
 
     DEVICE_THRESHOLD = 4 << 20   # below this the host engine wins
+    CORE_SAMPLE = 256 << 10      # bytes per hot-core sample slice
     # Warmup escalation, as in the JAX package: a corpus whose runs
     # exceed the speculation window repairs natively chunk by chunk;
     # for bounded-history automata (counted repetitions) a longer
@@ -153,6 +214,13 @@ class Scanner:
     # where it has one (_phi_tables): no speculation, no repair.
     WARM_LADDER = (128, 512, 2048)
     CORE_DRIFT_FRAC = 0.25
+    # Re-core on drift, as in the JAX package: a core sampled from one
+    # corpus turns repair-heavy on a corpus of another distribution.
+    # Two consecutive completed core scans with more than
+    # CORE_DRIFT_FRAC of their chunks repaired rebuild it from the next
+    # corpus; past MAX_RECORE rebuilds the tier declines for the
+    # Scanner's life.  Only speed is at stake.
+    MAX_RECORE = 2
 
     def __init__(self, prog, device="cuda", ast=None):
         self.program = prog
@@ -168,6 +236,12 @@ class Scanner:
         self.device = None if device is None else resolve_device(device)
         self._spec = (None if self.device is None
                       else _build_spec_tables(dfa, self.device))
+        # the core tiers (ops/core.py), built from a corpus sample at
+        # first use: None untried, False declined
+        self._coret = None
+        self._fusedct = None
+        self._core_strikes = 0     # the legacy core's drifted scans
+        self._core_rebuilds = 0    # its re-cores
         self._tdfa_spec = None
         if self.device is not None:
             try:
@@ -186,6 +260,7 @@ class Scanner:
         self.last_stats = None
         self._warm_escalations = 0
         self._warm_strikes = 0
+        self._fused_warm_strikes = 0
         self._phi = None           # phi tables: None untried, False none
         self._phi_active = False
 
@@ -195,7 +270,7 @@ class Scanner:
         return PreparedCorpus(data, self.device, chunk_len)
 
     def _on_device(self, data):
-        return self._spec is not None \
+        return self.device is not None \
             and len(data) >= self.DEVICE_THRESHOLD
 
     def _note_stats(self, api, tier, nbytes, t0, certified=None):
@@ -208,21 +283,128 @@ class Scanner:
         name = type(tier).__name__ if tier is not None else "native"
         self.last_stats = ScanStats(
             api, name, nbytes, chunks=chunks, repaired=nat,
+            recore_events=self._core_rebuilds,
             warm_events=self._warm_escalations,
             elapsed_ms=(time.perf_counter() - t0) * 1e3,
             certified=certified)
 
     def stats(self):
         """The last completed match/count/scan/find call's ScanStats
-        (tier, chunks, natively repaired chunks, warmup escalations so
-        far, wall ms; for find whether the one-pass result certified),
-        or None."""
+        (tier, chunks, natively repaired chunks, re-cores and warmup
+        escalations so far, wall ms; for find whether the one-pass
+        result certified), or None."""
         return self.last_stats
+
+    def _core_sample(self, data):
+        """Four slices spread over the corpus, so the hot-core sample
+        sees more than the head's byte distribution."""
+        n = len(data)
+        w = self.CORE_SAMPLE
+        cuts = sorted({0, max(0, n // 3), max(0, 2 * n // 3),
+                       max(0, n - w)})
+        return b"".join(bytes(data[c:c + w]) for c in cuts)
+
+    def _core_tables(self, data):
+        """The legacy core tier: where the static chain finds no tier at
+        all, sample the corpus once and build a core the pair/narrow/wide
+        kernels run.  Escapes repair natively, so a poor core only costs
+        speed.  Cached (False = declined: CoreTables found no core that
+        covers the sample)."""
+        if self._coret is None:
+            self._coret = False
+            req = _core_requirement(self._spec)
+            if req is not None:
+                try:
+                    self._coret = CoreTables(
+                        self.dfa, self._core_sample(data),
+                        require_fast=req, device=self.device)
+                except ValueError:
+                    self._coret = False
+        return self._coret or None
+
+    def _fused_core_tables(self, data):
+        """The core of the fused two-phase tier: escaped chunks are
+        redone on the device by the static tier's kernel, so a wide
+        core and a loose escape budget are fine.  Built only where
+        _fused_eligible allows it (SREGEX_FUSED=1).  Cached (False =
+        declined: the static tier serves)."""
+        if self._fusedct is None:
+            self._fusedct = False
+            if not _fused_eligible(self._spec):
+                return None
+            try:
+                self._fusedct = CoreTables(
+                    self.dfa, self._core_sample(data),
+                    max_escape_frac=FUSED_ESCAPE_FRAC, require_fast=False,
+                    no_pair=True, prefer_small=True, device=self.device)
+            except ValueError:
+                self._fusedct = False
+        return self._fusedct or None
+
+    def _core_note(self, ct):
+        """After a completed legacy core scan: re-core (back to None,
+        rebuilt from the next corpus) after two drifted scans in a row,
+        or decline (False) past MAX_RECORE rebuilds."""
+        rep = ct.last_repair
+        if rep is None:
+            return
+        nat, C = rep
+        if C >= 16 and nat > C * self.CORE_DRIFT_FRAC:
+            self._core_strikes += 1
+            if self._core_strikes >= 2:
+                self._core_strikes = 0
+                self._core_rebuilds += 1
+                self._coret = (None if self._core_rebuilds <= self.MAX_RECORE
+                               else False)
+        else:
+            self._core_strikes = 0
+
+    def _fused_note(self, fct):
+        """After a completed fused scan.  Its host repairs have two
+        causes (core.core_count_fused).  "overflow", more escapes than
+        the device cap: the host re-scans every escaped chunk, hundreds
+        of times slower than the static tier, which is exact on the
+        device at about the fused tier's rate, so one such scan declines
+        the fused tier and the static tier serves from then on (the JAX
+        package re-cores instead: its static big tier was slower than
+        its host fold).  "miss", a merged chain that broke because a
+        speculation window did not converge over a long excursion, in
+        phase 2 or in phase 1: two repair-heavy misses in a row escalate
+        the warmup ladder on both machines in lockstep, the static
+        tables (phase 2) through _escalate_warmup and the core's inner
+        tables (phase 1) through with_warmup; a core that cannot host
+        the window declines the fused tier.  A scan with neither cause
+        repaired nothing."""
+        if fct.last_fused_cause == "overflow":
+            self._fusedct = False
+            return
+        if fct.last_fused_cause != "miss":
+            return
+        rep = fct.last_repair
+        if rep is None:
+            return
+        nat, C = rep
+        if C >= 16 and nat > C * self.CORE_DRIFT_FRAC:
+            self._fused_warm_strikes += 1
+            if self._fused_warm_strikes >= 2:
+                self._fused_warm_strikes = 0
+                self._escalate_warmup()
+                sp = self._spec
+                if sp.warmup > fct.inner.warmup:
+                    inner2 = with_warmup(fct.inner, sp.warmup)
+                    if inner2 is not None:
+                        fct.inner = inner2
+                    else:
+                        self._fusedct = False
+        else:
+            self._fused_warm_strikes = 0
 
     def _escalate_warmup(self):
         """Move the tables one rung up WARM_LADDER.  Returns True on
         escalation."""
         sp = self._spec
+        if sp is None:
+            return False
         nxt = next((w for w in self.WARM_LADDER if w > sp.warmup), None)
         t = with_warmup(sp, nxt) if nxt is not None else None
         if t is None:
@@ -263,36 +445,73 @@ class Scanner:
                     continue
         return self._phi or None
 
-    def _scan_first(self, data, prepared):
-        t0 = time.perf_counter()
-        if self._phi_active and self._on_device(data):
-            pt = self._phi
-            state, first = phi_scan_bytes(
-                pt, data, prepared=prepared.for_tables(pt)
-                if prepared else None)
-            self._note_stats("scan", pt, len(data), t0)
-            return first, state
-        if self._on_device(data):
+    def _device_scan(self, api, data, prepared, t0):
+        """One device count (api "count") or first-match scan ("scan")
+        through the tiers in the JAX order: fused, legacy core, phi,
+        static.  Returns (tables, (state, value)), value the count or
+        the first match boundary, or (None, None) when no device tier
+        serves the corpus (the caller asks the native engine).  Records
+        the stats and makes the serving tier's post-scan note."""
+        if not self._on_device(data):
+            return None, None
+        fused_fn, core_fn, phi_fn, spec_fn = _TIER_CALLS[api]
+
+        def prep(tables, ck=None):
+            return prepared.for_tables(tables, ck) if prepared else None
+
+        fct = self._fused_core_tables(data)
+        if fct is not None:
             spec = self._spec
-            state, first = spec_scan_bytes(
-                spec, data, prepared=prepared.for_tables(spec)
-                if prepared else None)
-            self._note_stats("scan", spec, len(data), t0)
-            self._spec_note()
-            return first, state
-        r = self._native.scan_first(data, 0)
+            ck = fused_chunk(fct.inner, spec)
+            r = None if ck is None else fused_fn(
+                fct, spec, data, prepared_core=prep(fct.inner, ck),
+                prepared_full=prep(spec, ck))
+            if r is None:
+                self._fusedct = False     # the shapes disqualify it
+            else:
+                self._fused_note(fct)
+                self._note_stats(api, fct, len(data), t0)
+                return fct, r
+        ct = self._core_tables(data)
+        if ct is not None:
+            r = core_fn(ct, data, prepared=prep(ct.inner))
+            self._core_note(ct)
+            self._note_stats(api, ct, len(data), t0)
+            return ct, r
+        if self._phi_active:
+            pt = self._phi
+            r = phi_fn(pt, data, prepared=prep(pt))
+            self._note_stats(api, pt, len(data), t0)
+            return pt, r
+        spec = self._spec
+        if spec is None:
+            return None, None
+        r = spec_fn(spec, data, prepared=prep(spec))
+        self._note_stats(api, spec, len(data), t0)
+        self._spec_note()
+        return spec, r
+
+    def _scan_first(self, data, prepared):
+        """(first match boundary or -1, state there or at the end, the
+        tables that served the scan or None for the native engine)."""
+        t0 = time.perf_counter()
+        tier, r = self._device_scan("scan", data, prepared, t0)
+        if r is not None:
+            state, first = r
+            return first, state, tier
+        first, state = self._native.scan_first(data, 0)
         self._note_stats("scan", None, len(data), t0)
-        return r
+        return first, state, None
 
     def match(self, data, prepared=None):
-        first, state = self._scan_first(data, prepared)
+        first, state, _ = self._scan_first(data, prepared)
         return first >= 0 or bool(self.dfa.match_eof[state])
 
     def scan(self, data, prepared=None):
         """Earliest match END with the matched regex id: (regex_id,
         end_boundary) or None; end_boundary == len(data) means the
         match ends at EOF."""
-        first, state = self._scan_first(data, prepared)
+        first, state, _ = self._scan_first(data, prepared)
         if first >= 0:
             return self.dfa.id_at(state, data[first]), first
         rid = int(self.dfa.match_eof_id[state])
@@ -333,11 +552,7 @@ class Scanner:
                     return None
                 self._rev = NativeDfa(rdfa)
                 if self.device is not None:
-                    try:
-                        self._rev_spec = _build_spec_tables(rdfa,
-                                                            self.device)
-                    except NotImplementedError:
-                        self._rev_spec = None
+                    self._rev_spec = _build_spec_tables(rdfa, self.device)
         return self._rev
 
     def _tdfa_find(self, data, prepared=None):
@@ -409,9 +624,7 @@ class Scanner:
                 return (rc, ov) if rc >= 0 else None
             certified = False
         # DFA prefilter: no match end anywhere => no match at all
-        tier = ((self._phi if self._phi_active else self._spec)
-                if on_device else None)
-        first, state = self._scan_first(data, prepared)
+        first, state, tier = self._scan_first(data, prepared)
         result = None
         if first >= 0 or self.dfa.match_eof[state]:
             start = 0
@@ -431,19 +644,9 @@ class Scanner:
     def count(self, data, prepared=None):
         """Number of match-ending boundaries (including EOF)."""
         t0 = time.perf_counter()
-        if self._phi_active and self._on_device(data):
-            pt = self._phi
-            state, c = phi_count_bytes(
-                pt, data, prepared=prepared.for_tables(pt)
-                if prepared else None)
-            self._note_stats("count", pt, len(data), t0)
-        elif self._on_device(data):
-            spec = self._spec
-            state, c = spec_count_bytes(
-                spec, data, prepared=prepared.for_tables(spec)
-                if prepared else None)
-            self._note_stats("count", spec, len(data), t0)
-            self._spec_note()
+        _, r = self._device_scan("count", data, prepared, t0)
+        if r is not None:
+            state, c = r
         else:
             c, state = self._native.count(data, 0)
             self._note_stats("count", None, len(data), t0)

@@ -176,3 +176,33 @@ def test_phi_tables_from_jax_count_as_jax_does(pattern, kind):
         phi_tables_from_jax(bad, dfa, CPU)
     with pytest.raises(ValueError, match="SpecTables"):
         phi_tables_from_jax(dict(arrays, kind="SpecTables"), dfa, CPU)
+
+
+def test_core_tables_from_jax_hold_the_jax_core_and_count_alike():
+    """core_tables_from_jax carries a JAX CoreTables across: the same
+    hot set, core machine, inner tables and ESC id, and the legacy
+    core's count and first-match scan (with their repairs) equal the
+    JAX package's and the native engine's on a corpus that escapes."""
+    import random
+    from sregex_tpu.native import NativeDfa
+    from sregex_tpu.ops import pallas_core as jcore
+    from test_torch_core import assert_same_core
+    from sregex_tpu_torch.convert import core_tables_from_jax
+    from sregex_tpu_torch.ops import core as tcore
+    dfa = build_dfa(compile_regex(parse(b"a{60,120}b")[0]),
+                    max_states=65536)
+    rng = random.Random(5)
+    sample = bytes(rng.choice(b"ab xx") for _ in range(20000))
+    jct = jcore.CoreTables(dfa, sample)
+    tct = core_tables_from_jax(jct, CPU)
+    assert_same_core(tct, jct)
+    assert isinstance(tct, tcore.CoreTables) and tct.device == CPU
+    data = sample[:5000] + b"c" + b"a" * 90 + b"b" + sample[5000:9000]
+    native = NativeDfa(dfa)
+    got = tcore.core_count_bytes(tct, data, chunk_len=256)
+    assert got == jcore.core_count_bytes(jct, data, chunk_len=256)
+    assert got == native.count(data, 0)[::-1]
+    assert tct.last_repair == jct.last_repair and tct.last_repair[0] > 0
+    got = tcore.core_scan_bytes(tct, data, chunk_len=256)
+    assert got == jcore.core_scan_bytes(jct, data, chunk_len=256)
+    assert got == native.scan_first(data, 0)[::-1]

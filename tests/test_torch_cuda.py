@@ -279,3 +279,92 @@ def test_phi_tier_runs_on_the_card(cuda):
     assert sc.scan(data) == host.scan(data)
     assert tphi.phi_scan_launches == before + 2
     assert sc.stats().tier == "PhiTables" and sc.stats().repaired == 0
+
+
+@pytest.mark.parametrize("bits,rows,ncls,big", [
+    (4, 1, 16, False), (8, 98, 27, False), (8, 821, 27, True),
+    (4, 600, 16, True)])
+@pytest.mark.parametrize("n_esc", [0, 1, 8 * 1024, 8 * 1024 + 1, 32768])
+def test_gated_kernel_equals_plain_version(cuda, bits, rows, ncls, big,
+                                           n_esc):
+    """The gated phase-2 kernel at CAP 32768 (4 block rows of 8 tiles):
+    the active rows equal the plain version, the gated-off rows keep the
+    sentinel the output planes were filled with."""
+    from sregex_tpu_torch.ops import core as tcore
+    rng = np.random.default_rng(bits * 7 + rows + n_esc)
+    cpw = {4: 8, 8: 4}[bits]
+    W = 32
+    B, G, Jw = 4, 8, (W + 256) // cpw
+    cls = rng.integers(0, ncls, (B, Jw, G, 8, 128, cpw))
+    words = np.zeros((B, Jw, G, 8, 128), np.int64)
+    for k in range(cpw):
+        words |= cls[..., k] << (bits * k)
+    data = torch.from_numpy(words.astype(np.uint32).view(np.int32))
+    S = rows * 128 // ncls
+    table = torch.from_numpy((rng.integers(0, S, rows * 128) * ncls
+                              | rng.integers(0, 3, rows * 128) << 20)
+                             .astype(np.int32))
+    z = torch.zeros((B, G, 8, 128), dtype=torch.int32)
+    args = [t.to(cuda) for t in (data, z, z, table)]
+    ne = torch.tensor([n_esc], dtype=torch.int32, device=cuda)
+    kw = dict(W=W, CPW=cpw, BITS=bits)
+    out = tuple(torch.full((B, G, 8, 128), -7, dtype=torch.int32,
+                           device=cuda) for _ in range(3))
+    before = tcore.gated_scan_launches
+    got = tcore.gated_scan(*args, ne, big=big, out=out, **kw)
+    torch.cuda.synchronize()
+    assert tcore.gated_scan_launches == before + 1
+    want = tcore.gated_scan_ref(*args, ne, **kw)
+    nblk = min(B, -(-n_esc // (G * 1024)))
+    for g, w in zip(got, want):
+        assert torch.equal(g[:nblk], w[:nblk])
+        assert bool((g[nblk:] == -7).all())
+
+
+def test_core_tiers_run_on_the_card(cuda, monkeypatch):
+    """With SREGEX_FUSED=1 a big-tier machine counts and scans through
+    the fused tier (phase 2 on the gated big kernel); a machine with no
+    static tier goes through the legacy core; both equal to the native
+    engine."""
+    import sregex_tpu_torch
+    from sregex_tpu_torch.ops import core as tcore
+    monkeypatch.setenv("SREGEX_FUSED", "1")
+    rng = np.random.default_rng(5)
+    text = rng.choice(np.frombuffer(b"bcdxyz ", np.uint8), 8 << 20)
+    text[rng.integers(0, len(text) - 16, 300)] = ord("a")
+    data = text.tobytes()
+    for pat, tier in (("a.{11}b", "SpecTablesBig"),
+                      ("a.{10}b|cdefghijklmnopqrstuvwxyz", None)):
+        sc = sregex_tpu_torch.compile_pattern(pat)
+        host = sregex_tpu_torch.compile_pattern(pat, device=None)
+        assert type(sc._spec).__name__ == tier or sc._spec is tier
+        before = (tcore.gated_scan_launches, tscan.spec_scan_launches)
+        assert sc.count(data) == host.count(data)
+        assert sc.stats().tier == "CoreTables"
+        assert sc.scan(data) == host.scan(data)
+        if tier:
+            assert sc._fusedct not in (None, False)
+            assert tcore.gated_scan_launches == before[0] + 2
+        else:
+            assert sc._coret not in (None, False)
+        assert tscan.spec_scan_launches == before[1] + 2
+
+
+def test_big_machines_stay_on_the_static_big_tier_on_the_card(cuda):
+    """Without SREGEX_FUSED=1 the card's band keeps a big-tier machine on
+    the static big kernel, equal to the native engine."""
+    import sregex_tpu_torch
+    from sregex_tpu_torch.ops import core as tcore
+    rng = np.random.default_rng(6)
+    text = rng.choice(np.frombuffer(b"bcdxyz ", np.uint8), 8 << 20)
+    text[rng.integers(0, len(text) - 16, 300)] = ord("a")
+    data = text.tobytes()
+    sc = sregex_tpu_torch.compile_pattern("a.{11}b")
+    host = sregex_tpu_torch.compile_pattern("a.{11}b", device=None)
+    before = (tcore.gated_scan_launches, tbig.big_scan_launches)
+    assert sc.count(data) == host.count(data)
+    assert sc.scan(data) == host.scan(data)
+    assert sc.stats().tier == "SpecTablesBig"
+    assert sc._fusedct is False and sc._coret is False
+    assert tcore.gated_scan_launches == before[0]
+    assert tbig.big_scan_launches == before[1] + 2

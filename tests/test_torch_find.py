@@ -159,7 +159,7 @@ def test_find_with_a_prepared_corpus_and_below_the_threshold():
     prep = ts.prepare(data)
     assert ts.find(data, prepared=prep) == want
     assert ts.stats().certified is True
-    assert id(ts._tdfa_spec) in prep._by_tables
+    assert (id(ts._tdfa_spec), prep.chunk_len) in prep._by_tables
     ts.DEVICE_THRESHOLD = 1 << 20
     assert ts.find(data) == want
     st = ts.stats()

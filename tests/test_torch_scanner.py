@@ -136,7 +136,10 @@ def test_small_corpus_and_host_scanner_use_native():
 
 def test_past_the_wide_cap_raises_on_a_device_path():
     """Past the wide cap the big tier serves; a machine past the big cap
-    that is not piecewise affine raises on a device path."""
+    that is not piecewise affine has no static tier and constructs (the
+    core tiers or the native engine serve it, tests/test_torch_core.py);
+    the lazy machine, past the eager DFA budget, raises on a device
+    path."""
     ast, _ = parse("a.{11}b")
     prog = compile_regex(ast)
     sc = tstream.Scanner(prog, device="cpu")
@@ -144,10 +147,12 @@ def test_past_the_wide_cap_raises_on_a_device_path():
     assert type(sc._spec).__name__ == "SpecTablesBig"
     ast, _ = parse("a.{10}b|cdefghijklmnopqrstuvwxyz")
     prog = compile_regex(ast)
-    sc = tstream.Scanner(prog, device=None)      # host engines: fine
+    sc = tstream.Scanner(prog, device="cpu")
     assert sc.dfa.nstates * sc.dfa.nclasses > (1 << 17)
+    assert sc._spec is None
+    ast, _ = parse("a.{13}b")
     with pytest.raises(NotImplementedError, match="not ported"):
-        tstream.Scanner(prog, device="cpu")
+        tstream.Scanner(compile_regex(ast), device="cpu")
 
 
 def test_no_find_on_the_port():
