@@ -12,6 +12,10 @@ engine:
     SREGEX_FUSED=1, the fused two-phase core tier, the TPU's route for
     this set (phase 2 on the gated kernel with the table in shared
     memory);
+  - lazy: Scanner.count of a.{13}b, past the eager DFA budget, over the
+    multi corpus: the legacy core over the lazy machine (LazyCoreTables,
+    escapes re-scanned on the lazy machine's native walkers), checked
+    against the lazy machine's own count;
   - affine: Scanner.count and Scanner.scan of a base64-blob detector,
     [A-Za-z0-9+/]{400,499}=, over 1920 MB of log-like text with base64
     runs, after the warmup ladder has settled (the affine tier);
@@ -73,6 +77,7 @@ import torch
 import sregex_tpu_torch
 from sregex_tpu_torch import Scanner, build_dfa, compile_regex, parse
 from sregex_tpu_torch.consts import sre_isword
+from sregex_tpu_torch.dfa import LazyDfa
 from sregex_tpu_torch.native_pike import NativePikeCtx
 from sregex_tpu_torch.ops import _build
 from sregex_tpu_torch.ops import affine as aff
@@ -117,6 +122,8 @@ PHI_BIG_PLAIN_MB = 64         # the big-phi plain version's slice
 # past the big tier's 2**17 entries and not piecewise affine: no static
 # tier accepts it
 NO_TIER_PATTERN = "a.{10}b|cdefghijklmnopqrstuvwxyz"
+# past the eager DFA budget: no dense machine, the lazy one serves
+LAZY_PATTERN = rb"a.{13}b"
 REPS = 5
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 SCALAR_OPS_PER_S = 67e12      # H100 SXM, non-tensor 32-bit rate
@@ -255,11 +262,13 @@ def random_affine_case(rng, dev, *, pieces, bits, W, count, B=2, G=8,
                       COUNT=count)
 
 
-def random_tdfa_case(rng, dev, *, bits, rows, code, R, T, B=2, G=8, K=256):
+def random_tdfa_case(rng, dev, *, bits, rows, code, R, T, B=2, G=8, K=256,
+                     identity=False):
     """Random words (classes past the table too), valid premultiplied
     next and entry states, commits on about a third of the entries, and
     code slots that are register ids (up to two past R) or UNSET, CUR
-    and NEXT."""
+    and NEXT; with ``identity`` every register-source slot k holds k
+    (the registers carry over, only commits read them)."""
     cpw = 32 // bits
     W = 4 * cpw
     Jw = (W + K) // cpw
@@ -273,11 +282,15 @@ def random_tdfa_case(rng, dev, *, bits, rows, code, R, T, B=2, G=8, K=256):
     t_cmeta = np.where(rng.random(n) < 0.3, 1 | (rng.integers(0, 128, n) << 1),
                        rng.integers(0, 1 << 20, n) << 1).astype(np.int32)
 
-    def planes(k):
+    def planes(k, ident=False):
         P = max(1, -(-k // spp))
-        slots = np.where(rng.random((P, spp, n)) < 0.5,
-                         rng.integers(0, k + 2, (P, spp, n)),
-                         top - rng.integers(0, 3, (P, spp, n)))
+        if ident:
+            slots = np.broadcast_to(np.arange(P * spp).reshape(P, spp, 1),
+                                    (P, spp, n))
+        else:
+            slots = np.where(rng.random((P, spp, n)) < 0.5,
+                             rng.integers(0, k + 2, (P, spp, n)),
+                             top - rng.integers(0, 3, (P, spp, n)))
         out = np.zeros((P, n), np.uint64)
         for sl in range(spp):
             out |= slots[:, sl].astype(np.uint64) << np.uint64(code * sl)
@@ -286,14 +299,16 @@ def random_tdfa_case(rng, dev, *, bits, rows, code, R, T, B=2, G=8, K=256):
     s0 = (rng.integers(0, S, (B, G, 8, 128)) * ncls).astype(np.int32)
     j0 = rng.integers(0, W + 1, (B, G, 8, 128)).astype(np.int32)
     args = [torch.from_numpy(a).to(dev) for a in
-            (data, s0, j0, t_next, planes(R), planes(T), t_cmeta)]
+            (data, s0, j0, t_next, planes(R, identity), planes(T), t_cmeta)]
     return args, dict(W=W, CPW=cpw, BITS=bits, CODE=code, R=R, T=T)
 
 
-def random_phi_case(rng, dev, *, S, bits, ncls, big, B=2, G=8, K=512):
-    """Random words (classes up to 2**bits, past the table too), a random
-    fused table of ceil(S*ncls/128) rows with valid next states, and the
-    kernel's keywords (COUNT excepted)."""
+def random_phi_case(rng, dev, *, S, bits, ncls, big, B=2, G=8, K=512,
+                    in_range=False):
+    """Random words (classes up to 2**bits, past the table too, or with
+    ``in_range`` below ncls, so every word takes the big kernel's k-gram
+    path), a random fused table of ceil(S*ncls/128) rows with valid next
+    states, and the kernel's keywords (COUNT excepted)."""
     cpw = 32 // bits
     Kw = K // cpw
     rows = -(-(S * ncls) // 128)
@@ -307,7 +322,8 @@ def random_phi_case(rng, dev, *, S, bits, ncls, big, B=2, G=8, K=512):
         kw["NSEG"] = max(1, 128 // S)
         kw["WL"] = 128 // kw["NSEG"]
         P = -(-Kw // kw["WL"])
-    data = random_words(rng, (B, P, G, 8, 128), bits, 1 << bits)
+    data = random_words(rng, (B, P, G, 8, 128), bits,
+                        ncls if in_range else 1 << bits)
     return [torch.from_numpy(a).to(dev) for a in (data, table)], kw
 
 
@@ -321,10 +337,12 @@ def phi_valid(kw, dev):
     return (lane < kw["NSEG"] * kw["S"]).expand(8, 128)
 
 
-def compare_phi(kernel, plain, args, kw):
+def compare_phi(kernel, plain, args, kw, stride=None):
     """A phi kernel vs its plain version on the same inputs: bit-exact
-    planes on the valid slots."""
-    got = kernel(*args, **kw)
+    planes on the valid slots.  ``stride`` (k, table) goes to the big
+    kernel alone."""
+    got = kernel(*args, **kw) if stride is None else kernel(
+        *args, stride=stride, **kw)
     torch.cuda.synchronize()
     want = plain(*args, **kw)
     torch.cuda.synchronize()
@@ -459,6 +477,92 @@ def bound_ms(args, steps):
 def native_count(sc, corpus):
     k, st = sc._native.count(corpus, 0)
     return k + int(sc.dfa.match_eof[st])
+
+
+def lazy_phase(corpus, mb, dev):
+    """Scanner.count of LAZY_PATTERN over ``corpus`` on the legacy core
+    over the lazy machine: a first call (the sample, the core, the prep),
+    then the min of REPS reps, each equal to the lazy machine's own
+    count; a scan checked against its first match.  Fails unless the
+    LazyCoreTables tier served and its inner kernel launched.  Returns
+    the phase's fields."""
+    lsc = sregex_tpu_torch.compile_pattern(LAZY_PATTERN)
+    if lsc.dfa is not None or lsc._spec is not None:
+        raise AssertionError("%r has a dense machine" % LAZY_PATTERN)
+    n = len(corpus)
+    t0 = time.perf_counter()
+    lz = LazyDfa(lsc.program)
+    k, st = lz.count(corpus, 0)
+    lexp = k + int(lz.match_eof(st))
+    lexp_first, _ = lz.scan_first(corpus, 0)
+    lazy_s = time.perf_counter() - t0
+
+    def check(c):
+        if c != lexp:
+            raise AssertionError("lazy count %r != LazyDfa %r" % (c, lexp))
+
+    reset_launches()
+    prep = lsc.prepare(corpus)
+    t0 = time.perf_counter()
+    check(lsc.count(corpus, prepared=prep))
+    first_s = time.perf_counter() - t0
+    dt = min_rep_seconds(lambda: lsc.count(corpus, prepared=prep), check)
+    st_ = lsc.stats()
+    got = lsc.scan(corpus, prepared=prep)
+    launched = scan.spec_scan_launches
+    ct = lsc._coret
+    if st_.tier != "LazyCoreTables" or not isinstance(
+            ct, tcore.LazyCoreTables) or launched <= 0:
+        raise AssertionError("the lazy machine's core did not serve: %r, "
+                             "%d launches" % (st_, launched))
+    if got is None or got[1] != lexp_first:
+        raise AssertionError("lazy scan %r != LazyDfa end %r"
+                             % (got, lexp_first))
+    # the chunks whose core scan escaped (exit ESC), from one more launch
+    inner = ct.inner
+    data, C, _, _, B = prep.for_tables(inner)
+    s0, j0 = scan._entry_planes(ct.to_core_premult(0), inner.warmup, B, dev)
+    phi = scan.spec_scan(data, s0, j0, inner.fused, W=inner.warmup,
+                         CPW=inner.cpw, BITS=inner.bits, COUNT=True)[0]
+    escaped = int((phi.reshape(-1)[:C] == ct.esc_premult).sum())
+    return dict(mb=mb, bytes=n, pattern=LAZY_PATTERN.decode(), count=lexp,
+                first_end=lexp_first, count_gbps=n / dt / 1e9,
+                tier=st_.tier, H=ct.H, lazy_states=lsc._lazy.nstates,
+                inner=type(inner).__name__, inner_ncls=inner.ncls,
+                inner_rows=inner.rows, escaped=escaped,
+                repaired=st_.repaired, chunks=st_.chunks,
+                recore_events=st_.recore_events, launches=launched,
+                first_count_s=first_s, lazy_dfa_s=lazy_s,
+                peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+
+def tdfa_step_shares(t, corpus, nbytes=1 << 20):
+    """Over the first ``nbytes`` of ``corpus``, walked from the seed state
+    through the tagged tables ``t``: the share of steps whose
+    register-source word is the identity (every register from itself),
+    whose entry commits, and whose rebuild takes another register (the
+    tagged kernel's slow branch)."""
+    spp = 32 // t.code_bits
+    mask = (1 << t.code_bits) - 1
+    R = t.nregs
+    nxt = t.t_next.cpu().numpy()
+    cm = t.t_cmeta.cpu().numpy()
+    codes = np.zeros((nxt.size, max(R, 1)), np.int64)
+    rs = t.t_regsrc.cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+    for k in range(R):
+        codes[:, k] = (rs[k // spp] >> (t.code_bits * (k % spp))) & mask
+    own = np.arange(max(R, 1))
+    ident = (codes[:, :R] == own[:R]).all(1)
+    gather = ((codes[:, :R] < R) & (codes[:, :R] != own[:R])).any(1)
+    cls = t.class_map[np.frombuffer(bytes(corpus[:nbytes]), np.uint8)]
+    s = t.seed_premult
+    hits = np.zeros(3, np.int64)
+    for c in cls.tolist():
+        i = s + c
+        hits += (ident[i], cm[i] & 1, gather[i])
+        s = int(nxt[i])
+    return dict(zip(("identity_share", "commit_share", "gather_share"),
+                    (hits / len(cls)).tolist()))
 
 
 def headline_corpus(mb):
@@ -678,6 +782,17 @@ def main():
                   dict(bits=8, rows=1, code=8, R=14, T=2),
                   dict(bits=4, rows=4, code=16, R=48, T=48),
                   dict(bits=8, rows=16, code=16, R=48, T=48)]
+    # the register buckets' edges (R, T in {4, 5, 8, 9, 13}) for each code
+    # width, and all-identity register words
+    tdfa_cases += [dict(bits=4 if (R + T) % 2 else 8, rows=2, code=code,
+                        R=R, T=T, B=1)
+                   for code in (4, 8, 16)
+                   for R, T in ((4, 4), (5, 6), (8, 8), (9, 4), (4, 9),
+                                (13, 13), (5, 13))]
+    tdfa_cases += [dict(bits=4, rows=2, code=4, R=5, T=6, B=1,
+                        identity=True),
+                   dict(bits=8, rows=2, code=8, R=13, T=2, B=1,
+                        identity=True)]
     for case in tdfa_cases:
         args, kw = random_tdfa_case(rng, dev, **case)
         errs["tdfa"] = max(errs["tdfa"], compare(
@@ -702,8 +817,34 @@ def main():
         args, kw = random_phi_case(rng, dev, big=big_, **case)
         fns = ((tphi.phi_big_scan, tphi.phi_big_scan_ref) if big_
                else (tphi.phi_scan, tphi.phi_scan_ref))
-        errs[tier] = max(errs[tier], compare_phi(*fns, args,
-                                                 dict(kw, COUNT=count)))
+        st = None
+        if big_:
+            k = tphi.stride_k(case["S"], case["ncls"], kw["CPW"],
+                              args[1].numel())
+            st = (k, torch.from_numpy(tphi.stride_table(
+                args[1].cpu().numpy(), case["S"], case["ncls"], k,
+                count)).to(dev))
+        errs[tier] = max(errs[tier], compare_phi(
+            *fns, args, dict(kw, COUNT=count), stride=st))
+    # the big kernel's k-gram walk: every class below ncls, at each k of
+    # (1, 2, 4) that divides the word and fits shared memory
+    kgram_cases = []
+    for S, bits, ncls in ((139, 4, 3), (501, 4, 3), (1000, 4, 2),
+                          (139, 8, 5)):
+        for count in (True, False):
+            args, kw = random_phi_case(rng, dev, S=S, bits=bits, ncls=ncls,
+                                       big=True, K=2048, in_range=True)
+            kw["COUNT"] = count
+            for k in (1, 2, 4):
+                if kw["CPW"] % k or S * ncls ** k + args[1].numel() + 256 \
+                        > tphi.STRIDE_SMEM_ENTRIES:
+                    continue
+                st = torch.from_numpy(tphi.stride_table(
+                    args[1].cpu().numpy(), S, ncls, k, count)).to(dev)
+                errs["phi_big"] = max(errs["phi_big"], compare_phi(
+                    tphi.phi_big_scan, tphi.phi_big_scan_ref, args, kw,
+                    stride=(k, st)))
+                kgram_cases.append((S, k, count))
     # gated: the phase-2 scan at CAP 32768 (4 block rows of G tiles) over
     # narrow, wide and big tables, gated at the edges of a block row
     errs["gated"] = 0
@@ -721,7 +862,8 @@ def main():
             gated_cases.append((rows, n_esc))
     say("kernel_vs_plain", groups=GROUPS, max_abs_err=max(errs.values()),
         cases=len(cases) + 2 + len(big_cases) + len(affine_cases) + 4
-        + len(tdfa_cases) + len(phi_cases) + len(gated_cases))
+        + len(tdfa_cases) + len(phi_cases) + len(kgram_cases)
+        + len(gated_cases))
     del packed, s0, j0
 
     launches = {}
@@ -847,7 +989,12 @@ def main():
     # mprep stays for the wide kernel's timing; the fused Scanner's preps
     # go
     drop_preps(mprep, mct.inner, fsc._spec)
-    del mct, fsc, mcorpus
+    del mct, fsc
+
+    # a pattern past the eager DFA budget on the same corpus
+    torch.cuda.reset_peak_memory_stats()
+    say("lazy", **lazy_phase(mcorpus, mmb, dev))
+    del mcorpus
 
     # --- 6. affine: a base64-blob detector over log-like text ------------
     amb = mb_env("SREGEX_BENCH_AFFINE_MB")
@@ -1350,7 +1497,8 @@ def main():
     say("kernel_time", tier="tdfa", shape=list(fdata.shape), ms=ms,
         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
         corpus_gbps=s0.numel() * (fdata.shape[1] * ft.cpw - ft.warmup)
-        / ms / 1e6)
+        / ms / 1e6, R=ft.nregs, T=ft.ntags, CODE=ft.code_bits,
+        steps_1mb=tdfa_step_shares(ft, fcorpus))
     # the phi kernels in COUNT mode at their main path's shapes; the big
     # one's plain version on the first PHI_BIG_PLAIN_MB MB of the corpus
     for tier, fns in (("phi", (tphi.phi_scan, tphi.phi_scan_ref)),
@@ -1364,19 +1512,37 @@ def main():
             chunks_per_block = GROUPS * t.CPT
             plain_mb = min(PHI_BIG_PLAIN_MB, qmb)
             pdata = data[:-(-(plain_mb << 20) // K // chunks_per_block)]
+        # the big kernel takes its tables' cached k-gram table (the
+        # Scanner's), each other k measured beside it
+        skw = {} if tier == "phi" else dict(stride=t.stride(True))
+        by_k = {}
+        if tier == "phi_big":
+            for k in (1, 2, 4):
+                if t.cpw % k or t.nstates * t.ncls ** k + t.fused.numel() \
+                        + 256 > tphi.STRIDE_SMEM_ENTRIES:
+                    continue
+                stk = t.stride(True, k)
+                errs[tier] = max(errs[tier], compare_phi(
+                    *fns, [pdata, t.fused], kw, stride=stk))
+                by_k[k] = time_gpu(lambda: fns[0](data, t.fused,
+                                                  stride=stk, **kw), 5)
         errs[tier] = max(errs[tier], compare_phi(
-            *fns, [pdata, t.fused], kw))
-        ms = time_gpu(lambda: fns[0](data, t.fused, **kw), 20)
+            *fns, [pdata, t.fused], kw, **skw))
+        ms = time_gpu(lambda: fns[0](data, t.fused, **skw, **kw), 20)
         plain_ms = time_gpu(lambda: fns[1](pdata, t.fused, **kw), 1)
         plain_kernel_ms = (ms if pdata is data else
-                           time_gpu(lambda: fns[0](pdata, t.fused, **kw), 5))
+                           time_gpu(lambda: fns[0](pdata, t.fused, **skw,
+                                                   **kw), 5))
         # bytes: the words and the table once, the two planes once;
-        # operations: one per step of each live slot (C chunks, S entry
-        # states, K bytes), the least work of a dense transfer
+        # operations: one table lookup for each live slot (C chunks, S
+        # entry states) and each k bytes the kernel takes a lookup (k = 1
+        # for the lane-packed kernel; every word of this corpus is in
+        # range, so the big one takes k classes on every lookup)
         moved = (data.numel() + t.fused.numel()
                  + 2 * data.shape[0] * GROUPS * 1024) * 4
         t_bytes = moved / HBM_BYTES_PER_S * 1e3
-        t_ops = C * t.nstates * K / SCALAR_OPS_PER_S * 1e3
+        k_run = skw["stride"][0] if skw else 1
+        t_ops = C * t.nstates * (K // k_run) / SCALAR_OPS_PER_S * 1e3
         bms, by = ((t_bytes, "bytes") if t_bytes >= t_ops
                    else (t_ops, "operations"))
         timings[tier] = (ms, plain_ms, bms, by, list(data.shape),
@@ -1384,7 +1550,8 @@ def main():
         say("kernel_time", tier=tier, shape=list(data.shape), count=True,
             ms=ms, plain_ms=plain_ms, plain_shape=list(pdata.shape),
             kernel_ms_at_plain_shape=plain_kernel_ms, bound_ms=bms,
-            bound_by=by, corpus_gbps=C * K / ms / 1e6)
+            bound_by=by, corpus_gbps=C * K / ms / 1e6,
+            **({"k": skw["stride"][0], "ms_by_k": by_k} if by_k else {}))
     say("done", seconds=time.perf_counter() - t_start)
 
     print(smi, flush=True)

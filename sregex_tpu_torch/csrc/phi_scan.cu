@@ -8,12 +8,13 @@
 // (COUNT) or the offset in the chunk of the first one (kSent when none),
 // so the chunks compose exactly on the device with no speculation.
 //
-// One thread owns one phi slot, a (chunk, entry state) pair; a block of
-// 1024 threads is one (b, g) tile of the [B, P, G, 8, 128] layout,
-// thread t = sublane * 128 + lane, and writes slot t of the [B, G, 8,
-// 128] phi / acc planes (the exit state premultiplied by ncls).
+// Both write slot t = sublane * 128 + lane of a (b, g) tile of the
+// [B, G, 8, 128] phi / acc planes (the exit state premultiplied by
+// ncls) from the tile's words in the [B, P, G, 8, 128] layout.
 //
-//   lane-packed: a lane row holds nseg = 128 / S segments of S lanes,
+//   lane-packed: one thread owns one phi slot, a (chunk, entry state)
+//     pair, and a block of 1024 threads is one tile.  A lane row holds
+//     nseg = 128 / S segments of S lanes,
 //     seg = lane / S, entry = lane % S; the segment's word w lies at
 //     plane w / WL, lane (w % WL) * nseg + seg.  Lanes >= nseg * S are
 //     padding: they read lane min(seg + o * nseg, 127) and their result
@@ -21,8 +22,8 @@
 //   sublane-group: a chunk's entry states are striped over SB sublanes,
 //     entry = (sublane % SB) * 128 + lane (padding slots, entry >= S, run
 //     from S - 1 and are not used); word w lies at plane w / 128, lane
-//     w % 128 of the thread's own sublane (the prep copies it into each
-//     of the group's SB sublanes), so a warp reads one word, broadcast.
+//     w % 128 of the slot's own sublane (the prep copies it into each of
+//     the group's SB sublanes).
 //
 // The TPU could only gather within one 128-lane row, so its lookup was a
 // select chain over the table's rows; here the whole fused table (at most
@@ -36,9 +37,41 @@
 // What bounds it: each slot's chain of dependent shared-memory loads,
 // S slots per chunk, so the sublane-group kernel does O(S) operations per
 // corpus byte by construction.  Neighbouring slots of one chunk hold
-// neighbouring entry states, so their first lookups hit distinct banks;
-// the word loads coalesce (lane-packed) or broadcast (sublane-group).
+// neighbouring entry states, so their first lookups hit distinct banks.
+//
+// The sublane-group kernel's design for Hopper (phi_big_stride_kernel):
+//
+//   - several slots per thread: a half-warp owns one sublane row, and a
+//     thread the 8 slots at lanes l + 16 i of it.  The row's words are
+//     loaded 16 at a time (lane j of the half loads word w0 + j,
+//     coalesced), decoded once and broadcast with a shuffle; the 8 slots
+//     are 8 independent load chains.  The second half takes its slots in
+//     an order rotated by one, so that at each load the two halves' rows
+//     (128 states apart) sit 16 banks apart for an odd ncls^KS instead
+//     of on the same banks.  Blocks are persistent (one wave of SMs x
+//     occupancy) and stage the tables once;
+//   - a stride of KS classes a lookup: the host builds, from the fused
+//     table, the KS-gram table tabk[q * ncls^KS + g] of every state q
+//     and every KS classes g (mixed radix, first class lowest), whose
+//     entry holds the state after the KS steps as a byte offset into
+//     tabk (q' * ncls^KS * 4) at bit 14 and, below it, the match count
+//     (COUNT) or 1 + the offset of the first match in the KS steps
+//     (scan).  A chain step is one shift-add for the address, one
+//     shared-memory load and, for COUNT, one add of the whole entry: the
+//     low bits of the sum are the count (flushed every 16 words, before
+//     they could reach bit 14);
+//   - exact on every input: a word whose classes are not all below ncls
+//     (the plain version takes any class code) steps its classes one at
+//     a time through the fused table, staged padded so that the index
+//     past the table reads entry (index & 127) with no guard.  The branch
+//     is per word and uniform across a half-warp (one chunk; across the
+//     warp too, where both rows are copies of one chunk's words).
+//
+// The k-gram table needs valid premultiplied states in every entry of
+// the fused table (a multiple of ncls below S * ncls), as every table
+// PhiTablesBig builds has; ops/phi.stride_table checks it.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -48,9 +81,12 @@ constexpr int kTile = 1024;
 constexpr int kMatchShift = 20;
 constexpr int32_t kStateMask = (1 << kMatchShift) - 1;
 constexpr int32_t kSent = 1 << 30;
+constexpr size_t kSmemMax = 232448;   // 227 KB, a block's shared memory
 
 // Step one slot through the CPW classes of one data word (word index w).
-template <int BITS, bool COUNT>
+// GUARD: an index past the n-entry table reads entry (index & 127); a
+// table staged padded with those entries needs no guard.
+template <int BITS, bool COUNT, bool GUARD = true>
 __device__ __forceinline__ void step_word(const int32_t* tab, uint32_t n,
                                           uint32_t word, int w, int32_t& s,
                                           int32_t& acc) {
@@ -60,7 +96,7 @@ __device__ __forceinline__ void step_word(const int32_t* tab, uint32_t n,
   for (int k = 0; k < CPW; ++k) {
     uint32_t idx = static_cast<uint32_t>(s) + ((word >> (BITS * k)) &
                                                kClassMask);
-    idx = idx < n ? idx : (idx & 127u);
+    if (GUARD) idx = idx < n ? idx : (idx & 127u);
     const int32_t e = tab[idx];
     if (COUNT) {
       acc += e >> kMatchShift;
@@ -110,34 +146,143 @@ phi_scan_kernel(const int32_t* __restrict__ data,
   acc_out[tile * kTile + threadIdx.x] = acc;
 }
 
-template <int BITS, bool COUNT>
+constexpr int kSlots = 8;   // slots a thread owns in the stride kernel
+// a k-gram entry: the next row's byte offset at bit 14, the count or the
+// first match in the k steps below it
+constexpr int kOffShift = 14;
+constexpr uint32_t kFieldMask = (1u << kOffShift) - 1u;
+
+template <int BITS, int KS, bool COUNT>
 __global__ void __launch_bounds__(kTile)
-phi_big_scan_kernel(const int32_t* __restrict__ data,
-                    const int32_t* __restrict__ table, int table_len,
-                    int32_t* __restrict__ phi, int32_t* __restrict__ acc_out,
-                    int P, int G, int Kw, int S, int SB, int ncls) {
-  extern __shared__ int32_t tab[];
-  stage_table(tab, table, table_len);
-  const int64_t tile = blockIdx.x;
-  const int64_t b = tile / G;
-  const int64_t g = tile % G;
-  const int sub = threadIdx.x >> 7;
-  const int lane = threadIdx.x & 127;
+phi_big_stride_kernel(const int32_t* __restrict__ data,
+                      const int32_t* __restrict__ table, int table_len,
+                      const int32_t* __restrict__ stride, int stride_len,
+                      int32_t* __restrict__ phi,
+                      int32_t* __restrict__ acc_out, int P, int G, int Kw,
+                      int S, int SB, int ncls, int64_t items, uint32_t unit) {
+  constexpr int CPW = 32 / BITS;
+  constexpr int GPW = CPW / KS;                 // k-grams a word
+  constexpr int GB = BITS * KS;                 // bits of a k-gram index
+  constexpr uint32_t kGramMask = GB >= 32 ? ~0u : (1u << GB) - 1u;
+  constexpr uint32_t kClassMask = (1u << BITS) - 1u;
+  extern __shared__ int32_t smem[];
+  int32_t* tabk = smem;                         // the k-gram table
+  int32_t* tab1 = smem + stride_len;            // the fused table, padded
+  for (int i = threadIdx.x; i < stride_len; i += blockDim.x)
+    tabk[i] = stride[i];
+  const int pad_len = table_len + (1 << BITS);
+  for (int i = threadIdx.x; i < pad_len; i += blockDim.x)
+    tab1[i] = table[i < table_len ? i : (i & 127)];
+  __syncthreads();
+
+  const char* tk = reinterpret_cast<const char*>(tabk);
+  const int half = (threadIdx.x >> 4) & 1;      // the warp's row of a pair
+  const int hl = threadIdx.x & 15;              // the lane in the half
+  const unsigned hm = 0xFFFFu << (16 * half);   // the half's shuffle mask
+  const int wpb = blockDim.x >> 5;
   const int64_t pstride = static_cast<int64_t>(G) * kTile;
-  const int32_t* src = data + (b * P * G + g) * kTile + sub * 128;
-  const uint32_t n = static_cast<uint32_t>(table_len);
-  int32_t s = min((sub % SB) * 128 + lane, S - 1) * ncls;
-  int32_t acc = COUNT ? 0 : kSent;
-  int w = 0;
-  for (int p = 0; p < P; ++p) {
-    const int32_t* row = src + p * pstride;
-    for (int o = 0; o < 128 && w < Kw; ++o, ++w) {
-      const uint32_t word = static_cast<uint32_t>(__ldg(row + o));
-      step_word<BITS, COUNT>(tab, n, word, w, s, acc);
+  const uint32_t ncu = static_cast<uint32_t>(ncls);
+  uint32_t pw[KS];                              // ncls^t
+  pw[0] = 1u;
+#pragma unroll
+  for (int t = 1; t < KS; ++t) pw[t] = pw[t - 1] * ncu;
+
+  for (int64_t item = static_cast<int64_t>(blockIdx.x) * wpb +
+                      (threadIdx.x >> 5);
+       item < items; item += static_cast<int64_t>(gridDim.x) * wpb) {
+    const int64_t tile = item >> 2;             // four row pairs a tile
+    const int row = static_cast<int>(item & 3) * 2 + half;
+    const int64_t b = tile / G;
+    const int64_t g = tile % G;
+    const int32_t* src = data + (b * P * G + g) * kTile + row * 128;
+    // a slot's state, in the k-gram entry's form: the byte offset in tabk
+    // of its row, q * ncls^KS * 4, at bit kOffShift (the low bits are not
+    // read); slot i of the thread is lane hl + 16 * ((i + half) % 8) of
+    // the row.  COUNT sums whole entries in raw: their low kOffShift bits
+    // add up to the count of a 16-word batch, which stays below 2^14
+    uint32_t s[kSlots], raw[kSlots];
+    int32_t acc[kSlots];
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      const int e = min((row % SB) * 128 + hl + 16 * ((i + half) & 7),
+                        S - 1);
+      s[i] = (static_cast<uint32_t>(e) * ncu * unit) << kOffShift;
+      acc[i] = COUNT ? 0 : kSent;
+      raw[i] = 0u;
+    }
+    for (int w0 = 0; w0 < Kw; w0 += 16) {
+      const int wl = w0 + hl;
+      const uint32_t word =
+          wl < Kw ? static_cast<uint32_t>(
+                        __ldg(src + (wl >> 7) * pstride + (wl & 127)))
+                  : 0u;
+      // this lane's word: its k-gram indices, and whether every class is
+      // below ncls
+      uint32_t gw = 0;
+      bool ok = true;
+#pragma unroll
+      for (int gi = 0; gi < GPW; ++gi) {
+        uint32_t gs = 0;
+#pragma unroll
+        for (int t = 0; t < KS; ++t) {
+          const uint32_t c = (word >> (BITS * (gi * KS + t))) & kClassMask;
+          ok &= c < ncu;
+          gs += c * pw[t];
+        }
+        if (GB < 32) gw |= gs << ((GB * gi) & 31);
+        else gw = gs;
+      }
+      const uint32_t fast = __ballot_sync(~0u, ok) >> (16 * half);
+      const int nw = min(16, Kw - w0);
+      for (int jj = 0; jj < nw; ++jj) {
+        const int pos = (w0 + jj) * CPW;
+        const uint32_t gq = __shfl_sync(~0u, gw, jj, 16);
+        if ((fast >> jj) & 1u) {
+#pragma unroll
+          for (int gi = 0; gi < GPW; ++gi) {
+            const char* row_base =
+                tk + (((gq >> ((GB * gi) & 31)) & kGramMask) << 2);
+#pragma unroll
+            for (int i = 0; i < kSlots; ++i) {
+              const uint32_t e = *reinterpret_cast<const uint32_t*>(
+                  row_base + (s[i] >> kOffShift));
+              if (COUNT) {
+                raw[i] += e;
+              } else if ((e & kFieldMask) != 0 && acc[i] == kSent) {
+                acc[i] = pos + gi * KS + static_cast<int32_t>(e & kFieldMask)
+                         - 1;
+              }
+              s[i] = e;
+            }
+          }
+        } else {
+          // a class code >= ncls: single steps through the padded table
+          const uint32_t wd = __shfl_sync(hm, word, jj, 16);
+#pragma unroll
+          for (int i = 0; i < kSlots; ++i) {
+            int32_t s1 = static_cast<int32_t>((s[i] >> kOffShift) / unit);
+            step_word<BITS, COUNT, false>(tab1, 0u, wd, w0 + jj, s1, acc[i]);
+            s[i] = (static_cast<uint32_t>(s1) * unit) << kOffShift;
+          }
+        }
+      }
+      if (COUNT) {
+#pragma unroll
+        for (int i = 0; i < kSlots; ++i) {
+          acc[i] += static_cast<int32_t>(raw[i] & kFieldMask);
+          raw[i] = 0u;
+        }
+      }
+    }
+    int32_t* po = phi + tile * kTile + row * 128 + hl;
+    int32_t* ao = acc_out + tile * kTile + row * 128 + hl;
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      const int o = 16 * ((i + half) & 7);
+      po[o] = static_cast<int32_t>((s[i] >> kOffShift) / unit);
+      ao[o] = acc[i];
     }
   }
-  phi[tile * kTile + threadIdx.x] = s;
-  acc_out[tile * kTile + threadIdx.x] = acc;
 }
 
 template <typename Kernel>
@@ -161,16 +306,32 @@ cudaError_t launch_lane(const int32_t* d, const int32_t* t, int table_len,
   return cudaGetLastError();
 }
 
-template <int BITS, bool COUNT>
+template <int BITS, int KS, bool COUNT>
 cudaError_t launch_big(const int32_t* d, const int32_t* t, int table_len,
-                       int32_t* phi, int32_t* acc, int B, int P, int G,
-                       int Kw, int S, int SB, int ncls, cudaStream_t stream) {
-  auto kernel = phi_big_scan_kernel<BITS, COUNT>;
-  const size_t smem = static_cast<size_t>(table_len) * sizeof(int32_t);
+                       const int32_t* k, int stride_len, int32_t* phi,
+                       int32_t* acc, int B, int P, int G, int Kw, int S,
+                       int SB, int ncls, uint32_t unit, cudaStream_t stream) {
+  auto kernel = phi_big_stride_kernel<BITS, KS, COUNT>;
+  const size_t smem = (static_cast<size_t>(stride_len) + table_len +
+                       (1 << BITS)) * sizeof(int32_t);
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<B * G, kTile, smem, stream>>>(d, t, table_len, phi, acc, P, G, Kw,
-                                         S, SB, ncls);
+  int dev = 0, sms = 0, occ = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kTile,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  const int64_t items = static_cast<int64_t>(B) * G * 4;
+  const int64_t wanted = (items + kTile / 32 - 1) / (kTile / 32);
+  const int blocks = static_cast<int>(
+      std::min<int64_t>(wanted, static_cast<int64_t>(sms) * std::max(occ, 1)));
+  kernel<<<blocks, kTile, smem, stream>>>(d, t, table_len, k, stride_len,
+                                          phi, acc, P, G, Kw, S, SB, ncls,
+                                          items, unit);
   return cudaGetLastError();
 }
 
@@ -217,29 +378,42 @@ extern "C" int sre_phi_scan(const void* data, const void* table,
 
 // The sublane-group layout: data int32 [B, P, G, 8, 128] with 128 words
 // per plane, the S entry states of a chunk striped over SB sublanes (SB
-// a power of two, S <= SB * 128).  Other arguments as sre_phi_scan.
+// a power of two, S <= SB * 128).  stride int32 [stride_len = S * ncls^KS],
+// the k-gram table of the fused table for this COUNT mode (KS 1, 2 or 4,
+// dividing the classes per word; ops/phi.stride_table).  Other arguments
+// as sre_phi_scan.
 extern "C" int sre_phi_big_scan(const void* data, const void* table,
                                 int table_len, void* phi, void* acc, int B,
                                 int P, int G, int Kw, int BITS, int S, int SB,
-                                int ncls, int COUNT, void* stream) {
+                                int ncls, int COUNT, const void* stride,
+                                int stride_len, int KS, void* stream) {
   const auto* d = static_cast<const int32_t*>(data);
   const auto* t = static_cast<const int32_t*>(table);
+  const auto* k = static_cast<const int32_t*>(stride);
   auto* p = static_cast<int32_t*>(phi);
   auto* a = static_cast<int32_t*>(acc);
   auto st = static_cast<cudaStream_t>(stream);
   if (bad_common(table_len, B, P, G, Kw, ncls) || S <= 0 || SB <= 0 ||
-      SB > 8 || (SB & (SB - 1)) != 0 || S > SB * 128 || Kw > P * 128)
+      SB > 8 || (SB & (SB - 1)) != 0 || S > SB * 128 || Kw > P * 128 ||
+      (BITS != 4 && BITS != 8) || (KS != 1 && KS != 2 && KS != 4))
     return static_cast<int>(cudaErrorInvalidValue);
-#define SRE_LAUNCH(bits)                                                      \
-  (COUNT ? launch_big<bits, true>(d, t, table_len, p, a, B, P, G, Kw, S, SB,  \
-                                  ncls, st)                                   \
-         : launch_big<bits, false>(d, t, table_len, p, a, B, P, G, Kw, S, SB, \
-                                   ncls, st))
+  int64_t mk = 1;                                 // ncls^KS
+  for (int i = 0; i < KS; ++i) mk *= ncls;
+  if (static_cast<int64_t>(S) * mk != stride_len || stride_len <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto unit = static_cast<uint32_t>(4 * (mk / ncls));
+#define SRE_LAUNCH(bits, ks)                                                 \
+  (COUNT ? launch_big<bits, ks, true>(d, t, table_len, k, stride_len, p, a,  \
+                                      B, P, G, Kw, S, SB, ncls, unit, st)    \
+         : launch_big<bits, ks, false>(d, t, table_len, k, stride_len, p, a, \
+                                       B, P, G, Kw, S, SB, ncls, unit, st))
   cudaError_t err = cudaErrorInvalidValue;
   if (BITS == 4) {
-    err = SRE_LAUNCH(4);
-  } else if (BITS == 8) {
-    err = SRE_LAUNCH(8);
+    err = KS == 4 ? SRE_LAUNCH(4, 4) : KS == 2 ? SRE_LAUNCH(4, 2)
+                                               : SRE_LAUNCH(4, 1);
+  } else {
+    err = KS == 4 ? SRE_LAUNCH(8, 4) : KS == 2 ? SRE_LAUNCH(8, 2)
+                                               : SRE_LAUNCH(8, 1);
   }
 #undef SRE_LAUNCH
   return static_cast<int>(err);

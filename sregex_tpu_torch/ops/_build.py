@@ -116,6 +116,6 @@ def load():
                                      i, i, p]
         lib.sre_phi_big_scan.restype = i
         lib.sre_phi_big_scan.argtypes = [p, p, i, p, p, i, i, i, i, i, i, i,
-                                         i, i, p]
+                                         i, i, p, i, i, p]
         _lib = lib
         return _lib

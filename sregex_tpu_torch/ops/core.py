@@ -1,8 +1,8 @@
 """Adaptive hot-core tiers: big automata at the small tables' speed.
 
 Counterpart of the JAX package's ops/pallas_core.py (the single-device
-count and first-match parts; its batch, mesh, chunk-map, last-match
-and lazy-machine parts are not ported yet).
+count and first-match parts, over the dense or the lazy machine; its
+batch, mesh, chunk-map and last-match parts are not ported yet).
 
 A DFA scan over real data visits a small, skewed subset of its states.
 The core tiers sample the corpus, count the visits per state with the
@@ -13,6 +13,9 @@ the match bit.  The core runs on the ordinary pair/narrow/wide tiers.
 A chunk whose exit is not ESC ran inside the core all along, so its
 exit and counts are the full machine's; a chunk that exits in ESC
 fails the summary's ESC check.  Exactness never depends on the sample.
+LazyCoreTables builds the same core over a LazyDfa, for patterns past
+the eager DFA budget (no dense machine exists): only the hot states
+are materialised, and escapes re-scan on the lazy machine's walkers.
 
 Two tiers repair the escaped chunks differently:
 
@@ -41,7 +44,7 @@ import time
 import numpy as np
 import torch
 
-from ..dfa import build_core_dfa
+from ..dfa import build_core_dfa, core_from_rows
 from ..native import NativeDfa
 from .big import MAX_ENTRIES as BIG_MAX_ENTRIES
 from .big import SpecTablesBig
@@ -188,6 +191,86 @@ class CoreTables:
     def to_full_vec(self, premult_arr):
         """to_full over an array of non-ESC premultiplied ids."""
         return self.hot2full[np.asarray(premult_arr) // self.inner.ncls]
+
+
+class LazyCoreTables(CoreTables):
+    """The legacy hot-core tier over a LazyDfa full machine: patterns
+    past the eager DFA budget get a device path when the sampled hot
+    set is small.  Only the hot core is materialised as tables; escaped
+    chunks re-scan on the lazy machine (its native walkers), so a
+    drifted corpus costs speed, which the Scanner's re-core and decline
+    logic bounds.  Full states are lazy state ids and full2core is a
+    dict; the folds (core_count_bytes, core_scan_bytes) take it as they
+    take CoreTables.  Raises ValueError when no core fits, as
+    CoreTables does."""
+
+    def __init__(self, lazy, sample, max_escape_frac=MAX_ESCAPE_FRAC,
+                 require_fast=False, device="cuda"):
+        device = resolve_device(device)
+        counts, _ = lazy.visits(sample, 0)
+        counts[0] = counts.get(0, 0) + 1    # the entry state is always hot
+        total = float(sum(counts.values()))
+        order = [0] + sorted((s for s in counts if s != 0),
+                             key=lambda s: (-counts[s], s))
+        V = len(order)
+        csum = np.cumsum([counts[s] for s in order]).astype(np.float64)
+        allowed = max_escape_frac * total
+        # covering the whole visited set (no escapes) always qualifies
+        m_min = min(V, int(np.searchsorted(csum,
+                                           total + 1 - allowed)) + 1)
+        ms = sorted({m for m in (V,) + _CANDIDATE_MS
+                     if m_min <= m <= V}, reverse=True)
+
+        fast_fit = None
+        wide_fit = None
+        for m in ms:
+            core = self._build(lazy, order[:m])
+            if fast_fit is None:
+                inner = _inner_tables(core, True, False, device)
+                if inner is not None:
+                    fast_fit = (inner, core, order[:m])
+                    break
+            if wide_fit is None and not require_fast:
+                inner = _inner_tables(core, False, False, device)
+                if inner is not None:
+                    wide_fit = (inner, core, order[:m])
+        fit = fast_fit or wide_fit
+        if fit is None:
+            raise ValueError("no fast core tier fits the sampled "
+                             "hot set (visited %d states)" % V)
+        inner, core, hot = fit
+        # the LazyDfa is its own native engine: its walkers take the
+        # folds' calls (scan_first, count) with NativeDfa's signatures
+        self._adopt(lazy, lazy, device, inner, core,
+                    np.asarray(hot, dtype=np.int64),
+                    {sid: i for i, sid in enumerate(hot)})
+        self.lazy = lazy
+
+    @staticmethod
+    def _build(lazy, hot):
+        """The core machine over the hot lazy states ``hot``: their rows
+        materialised through the lazy machine, out-of-core targets to
+        the sticky ESC state."""
+        H = len(hot)
+        ncls = lazy.nclasses
+        f2c = {sid: i for i, sid in enumerate(hot)}
+        ct = np.full((H, ncls), H, np.int32)
+        m = np.zeros((H, ncls), dtype=bool)
+        eof = np.zeros(H, dtype=bool)
+        for i, sid in enumerate(hot):
+            eof[i] = lazy.match_eof(sid)
+            for c in range(ncls):
+                ns, mid = lazy._step(sid, c)
+                ct[i, c] = f2c.get(ns, H)
+                m[i, c] = mid >= 0
+        return core_from_rows(lazy.program, lazy.class_map, ct, m, eof)
+
+    def to_core_premult(self, full_state):
+        """Premultiplied core id of a lazy state, or -1 if not hot."""
+        c = self.full2core.get(int(full_state), self.H)
+        if c >= self.H:
+            return -1
+        return c * self.inner.ncls
 
 
 class _Fold:

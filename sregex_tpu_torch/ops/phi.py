@@ -30,11 +30,15 @@ overlap; the ragged tail finishes on the host from the composed exit):
 
 The kernels (csrc/phi_scan.cu) replace pallas_phi.py::_phi_kernel and
 ::_phi_kernel_big; phi_scan_ref and phi_big_scan_ref are their plain
-versions.  The composition (the JAX package's _compose, jnp there) is
-torch ops: a binary tree of gathers for COUNT, and for scan the same
-tree kept level by level (up-sweep) and walked down along the one path
-the true entry state takes (down-sweep), which gives every chunk's
-entry state and so the first firing chunk.
+versions.  The sublane-group kernel walks KS classes a lookup through a
+k-gram table built here from the fused table (stride_table, cached on
+PhiTablesBig); phi_big_stride_ref is a plain model of that walk, held
+against phi_big_scan_ref by the CPU tests.  The composition (the JAX
+package's _compose, jnp there) is torch ops: a binary tree of gathers
+for COUNT, and for scan the same tree kept level by level (up-sweep)
+and walked down along the one path the true entry state takes
+(down-sweep), which gives every chunk's entry state and so the first
+firing chunk.
 """
 
 import ctypes
@@ -50,6 +54,12 @@ from .spec_scan import _CPW, _host_bytes, fused_table, resolve_device
 
 _SENT = 1 << 30          # "no match" in the scan-mode acc plane
 _PACK_CHUNKS = 1 << 16   # chunks class-packed per step of the prep
+# int32 entries the sublane-group kernel may stage in a block's shared
+# memory (227 KB): the k-gram table, the fused table and its padding
+STRIDE_SMEM_ENTRIES = 232448 // 4
+# a k-gram entry: the next row's byte offset at bit 14, below it the
+# k steps' match count or first match (csrc/phi_scan.cu, kOffShift)
+_OFF_SHIFT = 14
 
 # kernel launches since the last reset (the CUDA path only)
 phi_scan_launches = 0
@@ -135,6 +145,71 @@ class PhiTablesBig(_PhiTables):
         self.SB = 1 << (sb - 1).bit_length()     # power-of-two group
         self.CPT = 8 // self.SB                  # chunks per tile
         self._finish(dfa)
+        self._strides = {}
+
+    def stride(self, count, k=None):
+        """(k, the k-gram table on the tables' device) for the kernel in
+        COUNT mode ``count``; k defaults to stride_k's choice.  Built once
+        per (k, mode)."""
+        k = stride_k(self.nstates, self.ncls, self.cpw, self.fused.numel()) \
+            if k is None else k
+        hit = self._strides.get((k, bool(count)))
+        if hit is None:
+            hit = torch.from_numpy(stride_table(
+                self.fused.cpu().numpy(), self.nstates, self.ncls, k,
+                count)).to(self.device)
+            self._strides[(k, bool(count))] = hit
+        return k, hit
+
+
+def stride_k(S, ncls, cpw, table_len):
+    """The classes a lookup of the sublane-group kernel: the largest k in
+    (4, 2, 1) dividing ``cpw`` whose k-gram table (S * ncls**k entries)
+    fits shared memory beside the padded fused table (on the card the
+    kernel's time falls with k: PERF.md)."""
+    for k in (4, 2):
+        if cpw % k == 0 and S * ncls ** k + table_len + 256 \
+                <= STRIDE_SMEM_ENTRIES:
+            return k
+    return 1
+
+
+def stride_table(fused, S, ncls, k, count):
+    """The k-gram table of a fused table (int32 [rows*128], entry
+    q*ncls + c = next*ncls | match << 20) over S states: int32
+    [S * ncls**k], entry q * ncls**k + g for the classes c_0 .. c_{k-1}
+    of g = sum(c_t * ncls**t), each below ncls, holds the state after
+    the k steps from q as the byte offset q' * ncls**k * 4 of its row,
+    shifted to bit 14, and below it the sum of the steps' match fields
+    (``count``) or 1 + the first step whose match field is nonzero (0:
+    none).  Raises
+    ValueError unless every entry of the fused table holds a
+    premultiplied state below S * ncls and a match field in [0, 127]:
+    the kernel's slow path reads any entry, and its result must land on
+    a row of this table."""
+    f = np.asarray(fused, dtype=np.int64)
+    st, m = f & _STATE_MASK, f >> _MATCH_SHIFT
+    if (st % ncls).any() or (st >= S * ncls).any() \
+            or (m < 0).any() or (m > 127).any():
+        raise ValueError("the fused table holds an entry the k-gram walk "
+                         "cannot take")
+    M = ncls ** k
+    if 4 * S * M >= 1 << (32 - _OFF_SHIFT):
+        raise ValueError("S * ncls**k = %d is past the k-gram budget"
+                         % (S * M))
+    g = np.arange(M, dtype=np.int64)[None, :]
+    cur = np.arange(S, dtype=np.int64)[:, None] * ncls + 0 * g
+    acc = np.zeros_like(cur)
+    for t in range(k):
+        e = f[cur + (g // ncls ** t) % ncls]
+        mt = e >> _MATCH_SHIFT
+        if count:
+            acc += mt
+        else:
+            acc = np.where((acc == 0) & (mt > 0), t + 1, acc)
+        cur = e & _STATE_MASK
+    out = (cur // ncls) * (M * 4) << _OFF_SHIFT | acc
+    return out.reshape(-1).astype(np.uint32).view(np.int32)
 
 
 # --- prep --------------------------------------------------------------------
@@ -306,12 +381,17 @@ def phi_scan(data, table, *, Kw, WL, CPW, BITS, S, NSEG, NCLS, COUNT):
     return out
 
 
-def phi_big_scan(data, table, *, Kw, CPW, BITS, S, SB, NCLS, COUNT):
+def phi_big_scan(data, table, *, Kw, CPW, BITS, S, SB, NCLS, COUNT,
+                 stride):
     """Run the sublane-group phi kernel.  data int32 [B, P, G, 8, 128]
     in the sublane-group layout (Kw words per chunk, 128 per plane; the
-    S entry states of a chunk striped over SB sublanes); table and the
-    result as phi_scan.  Slots whose entry state would be >= S are
-    padding (they run from state S - 1).
+    S entry states of a chunk striped over SB sublanes);
+    table and the result as phi_scan, every table entry a premultiplied
+    state below S*NCLS.  Slots whose entry state would be >= S are
+    padding (they run from state S - 1).  ``stride`` = (k, the k-gram
+    table of ``table`` for this COUNT mode on the same device, from
+    stride_table), e.g. PhiTablesBig.stride(COUNT); the plain version
+    on the CPU does not read it.
 
     CUDA tensors launch sre_phi_big_scan (csrc/phi_scan.cu) on the
     current stream or raise; CPU tensors take phi_big_scan_ref."""
@@ -325,8 +405,14 @@ def phi_big_scan(data, table, *, Kw, CPW, BITS, S, SB, NCLS, COUNT):
     if data.device.type != "cuda":
         raise ValueError("phi_big_scan runs on cuda or cpu tensors, got %s"
                          % data.device)
+    k, ktab = stride
+    if ktab.dtype != torch.int32 or ktab.device != data.device \
+            or ktab.numel() != S * NCLS ** k or CPW % k:
+        raise ValueError("stride must be (k, int32 [S*NCLS**k]) on the "
+                         "data's device with k dividing CPW")
     out = _launch("sre_phi_big_scan", data, table,
-                  (Kw, BITS, S, SB, NCLS, int(bool(COUNT))))
+                  (Kw, BITS, S, SB, NCLS, int(bool(COUNT)),
+                   ktab.data_ptr(), ktab.numel(), k))
     phi_big_scan_launches += 1
     return out
 
@@ -382,6 +468,64 @@ def phi_big_scan_ref(data, table, *, Kw, CPW, BITS, S, SB, NCLS, COUNT):
         return data[:, w // 128, ..., o:o + 1]
 
     return _phi_walk(data, table, entry, word_at, Kw, CPW, BITS, COUNT)
+
+
+def phi_big_stride_ref(data, table, stride, *, Kw, CPW, BITS, S, SB, NCLS,
+                       COUNT):
+    """A plain torch model of the sublane-group kernel's walk, on any
+    device: slots hold their k-gram row as a byte offset (the entry's
+    high bits); a word whose
+    classes are all below NCLS takes k classes a lookup in the k-gram
+    table ``stride`` = (k, int32 [S*NCLS**k]); any other word steps its
+    classes one at a time through the fused table padded with entry
+    (index & 127) past its end.  Equal to phi_big_scan_ref wherever
+    stride_table accepts the table (tests/test_torch_phi.py)."""
+    k, ktab = stride
+    ktab = ktab.to(data.device).long() & 0xFFFFFFFF
+    fmask = (1 << _OFF_SHIFT) - 1
+    n = table.numel()
+    pad = torch.cat([table, table[torch.arange(n, n + (1 << BITS),
+                                               device=data.device) & 127]])
+    M = NCLS ** k
+    unit = 4 * M // NCLS
+    cmask = (1 << BITS) - 1
+    subl = torch.arange(8, device=data.device)[:, None]
+    lanes = torch.arange(128, device=data.device)
+    q0 = ((subl % SB) * 128 + lanes).clamp(max=S - 1)
+    B, _, G = data.shape[:3]
+    s = (q0 * (M * 4)).expand(B, G, 8, 128).long()
+    acc = torch.full_like(s, 0 if COUNT else _SENT)
+    for w in range(Kw):
+        # every slot reads word w from its own sublane
+        o = w % 128
+        word = data[:, w // 128, ..., o:o + 1].long() & 0xFFFFFFFF
+        cls = [(word >> (BITS * j)) & cmask for j in range(CPW)]
+        fast = torch.stack([c < NCLS for c in cls]).all(0)
+        s_f, acc_f = s.clone(), acc.clone()
+        for gi in range(CPW // k):
+            g = sum(torch.where(fast, cls[gi * k + t], 0) * NCLS ** t
+                    for t in range(k))
+            e = ktab[s_f // 4 + g]
+            f = e & fmask
+            if COUNT:
+                acc_f = acc_f + f
+            else:
+                acc_f = torch.where((f != 0) & (acc_f == _SENT),
+                                    w * CPW + gi * k + f - 1, acc_f)
+            s_f = e >> _OFF_SHIFT
+        s1 = s // unit
+        acc_s = acc.clone()
+        for j in range(CPW):
+            e = pad[s1 + cls[j]].long()
+            if COUNT:
+                acc_s = acc_s + (e >> _MATCH_SHIFT)
+            else:
+                acc_s = torch.where(((e >> _MATCH_SHIFT) > 0)
+                                    & (acc_s == _SENT), w * CPW + j, acc_s)
+            s1 = e & _STATE_MASK
+        s = torch.where(fast, s_f, s1 * unit)
+        acc = torch.where(fast, acc_f, acc_s)
+    return (s // unit).to(torch.int32), acc.to(torch.int32)
 
 
 # --- composition and the summary --------------------------------------------
@@ -467,7 +611,8 @@ def _phi_dispatch(tables, prepared, C, entry_state, COUNT):
     kw = dict(Kw=K // tables.cpw, CPW=tables.cpw, BITS=tables.bits,
               S=tables.nstates, NCLS=tables.ncls, COUNT=COUNT)
     if isinstance(tables, PhiTablesBig):
-        phi, acc = phi_big_scan(data, tables.fused, SB=tables.SB, **kw)
+        phi, acc = phi_big_scan(data, tables.fused, SB=tables.SB,
+                                stride=tables.stride(COUNT), **kw)
     else:
         phi, acc = phi_scan(data, tables.fused, WL=WL, NSEG=tables.nseg,
                             **kw)

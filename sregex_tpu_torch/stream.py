@@ -22,10 +22,16 @@ static tier's kernel) is the TPU's route for long-chain wide and big
 machines; on the card it is slower than the static tier it would
 replace, so it serves only when SREGEX_FUSED=1 asks for it, and a scan
 that overflows its device cap hands the machine back to the static
-tier.  SREGEX_CORE=0 keeps every core tier out.  The lazy machine
-raises NotImplementedError when a device is asked for.  Unlike the JAX
+tier.  SREGEX_CORE=0 keeps every core tier out.  Unlike the JAX
 package, no device failure is swallowed: a failed build or launch
 raises.
+
+A pattern past the eager DFA budget (DfaTooLarge) gets no dense
+machine and no static tier, as in the JAX package: every call is
+served by the lazy machine (dfa.LazyDfa, subset construction on
+demand, its walkers native), stats().tier "lazy", and on a device
+corpus by the legacy core over it (ops/core.LazyCoreTables), whose
+escapes re-scan on the lazy machine.
 
 A machine whose state depends on history with no bound (run parity,
 a residue mod n) defeats every speculation window: once two
@@ -37,8 +43,10 @@ and scans with no speculation and no host repair.
 find() takes the JAX package's dense-DFA paths: the one-pass tagged-DFA
 kernel (ops/tdfa_scan.py) where it can certify its result, else the
 exact multi-pass path (the DFA prefilter, the reverse-DFA start
-locator, a Pike pass over the match region).  find's hot-core tagged
-and reverse tiers are not ported yet; the results do not differ.
+locator, a Pike pass over the match region).  On the lazy machine the
+prefilter is the lazy scan and the start locator the lazy reverse
+machine, walked on the host.  find's hot-core tagged and reverse tiers
+are not ported yet; the results do not differ.
 """
 
 import functools
@@ -47,15 +55,15 @@ import time
 
 from .compiler import compile_regex
 from .consts import sre_isword
-from .dfa import DfaTooLarge, build_dfa
+from .dfa import DfaTooLarge, LazyDfa, build_dfa
 from .diag import ScanStats
 from .native import NativeDfa
 from .native_pike import NativePikeCtx, NativeProgram
 from .ops.affine import SpecTablesAffine
 from .ops.big import SpecTablesBig
-from .ops.core import (FUSED_ESCAPE_FRAC, CoreTables, core_count_bytes,
-                       core_count_fused, core_scan_bytes, core_scan_fused,
-                       fused_chunk)
+from .ops.core import (FUSED_ESCAPE_FRAC, CoreTables, LazyCoreTables,
+                       core_count_bytes, core_count_fused, core_scan_bytes,
+                       core_scan_fused, fused_chunk)
 from .ops.layout import DEFAULT_K
 from .ops.pair import SpecTablesPair
 from .ops.phi import (PhiTables, PhiTablesBig, phi_count_bytes,
@@ -228,13 +236,13 @@ class Scanner:
         try:
             dfa = build_dfa(prog)
         except DfaTooLarge:
-            raise NotImplementedError(
-                "the pattern exceeds the eager DFA budget; the JAX "
-                "package's lazy machine is not ported yet") from None
+            # past the eager budget: the lazy machine serves (_lazy_dfa)
+            dfa = None
         self.dfa = dfa
-        self._native = NativeDfa(dfa)
+        self._native = None if dfa is None else NativeDfa(dfa)
+        self._lazy = None
         self.device = None if device is None else resolve_device(device)
-        self._spec = (None if self.device is None
+        self._spec = (None if self.device is None or dfa is None
                       else _build_spec_tables(dfa, self.device))
         # the core tiers (ops/core.py), built from a corpus sample at
         # first use: None untried, False declined
@@ -243,7 +251,7 @@ class Scanner:
         self._core_strikes = 0     # the legacy core's drifted scans
         self._core_rebuilds = 0    # its re-cores
         self._tdfa_spec = None
-        if self.device is not None:
+        if self.device is not None and dfa is not None:
             try:
                 self._tdfa_spec = TdfaSpecTables(prog, self.device)
             except (DfaTooLarge, ValueError):
@@ -254,6 +262,7 @@ class Scanner:
         # backwards, so find() only simulates the match region
         self._rev = False
         self._rev_spec = None
+        self._rev_lz = None        # the lazy reverse machine: None untried
         # the C++ Pike engine resolves captures when it builds
         self._pike_nprog = (NativeProgram(prog)
                             if NativePikeCtx.available() else None)
@@ -280,7 +289,8 @@ class Scanner:
         back to the multi-pass path (False; None: not tried)."""
         rep = tier.last_repair if tier is not None else None
         nat, chunks = rep if rep is not None else (0, 0)
-        name = type(tier).__name__ if tier is not None else "native"
+        name = type(tier).__name__ if tier is not None else (
+            "native" if self.dfa is not None else "lazy")
         self.last_stats = ScanStats(
             api, name, nbytes, chunks=chunks, repaired=nat,
             recore_events=self._core_rebuilds,
@@ -295,6 +305,30 @@ class Scanner:
         result certified), or None."""
         return self.last_stats
 
+    def _lazy_dfa(self):
+        """The lazy machine of a pattern past the eager budget, built at
+        first use."""
+        if self._lazy is None:
+            self._lazy = LazyDfa(self.program)
+        return self._lazy
+
+    def _host(self):
+        """The host engine: the dense machine's NativeDfa, else the lazy
+        machine (the same count / scan_first / scan_last contract)."""
+        return self._native if self.dfa is not None else self._lazy_dfa()
+
+    def _eof_id(self, state):
+        """Regex id of a match ending at EOF in ``state``, or -1."""
+        if self.dfa is not None:
+            return int(self.dfa.match_eof_id[state])
+        return self._lazy_dfa().match_eof_id(state)
+
+    def _id_at(self, state, byte):
+        """Regex id of the match ending where ``state`` meets ``byte``."""
+        if self.dfa is not None:
+            return self.dfa.id_at(state, byte)
+        return self._lazy_dfa().id_at(state, byte)
+
     def _core_sample(self, data):
         """Four slices spread over the corpus, so the hot-core sample
         sees more than the head's byte distribution."""
@@ -307,17 +341,23 @@ class Scanner:
     def _core_tables(self, data):
         """The legacy core tier: where the static chain finds no tier at
         all, sample the corpus once and build a core the pair/narrow/wide
-        kernels run.  Escapes repair natively, so a poor core only costs
-        speed.  Cached (False = declined: CoreTables found no core that
-        covers the sample)."""
+        kernels run (LazyCoreTables over the lazy machine when there is
+        no dense one).  Escapes repair natively, so a poor core only
+        costs speed.  Cached (False = declined: no core covers the
+        sample)."""
         if self._coret is None:
             self._coret = False
             req = _core_requirement(self._spec)
             if req is not None:
                 try:
-                    self._coret = CoreTables(
-                        self.dfa, self._core_sample(data),
-                        require_fast=req, device=self.device)
+                    sample = self._core_sample(data)
+                    self._coret = (
+                        CoreTables(self.dfa, sample, require_fast=req,
+                                   device=self.device)
+                        if self.dfa is not None else
+                        LazyCoreTables(self._lazy_dfa(), sample,
+                                       require_fast=req,
+                                       device=self.device))
                 except ValueError:
                     self._coret = False
         return self._coret or None
@@ -499,13 +539,13 @@ class Scanner:
         if r is not None:
             state, first = r
             return first, state, tier
-        first, state = self._native.scan_first(data, 0)
+        first, state = self._host().scan_first(data, 0)
         self._note_stats("scan", None, len(data), t0)
         return first, state, None
 
     def match(self, data, prepared=None):
         first, state, _ = self._scan_first(data, prepared)
-        return first >= 0 or bool(self.dfa.match_eof[state])
+        return first >= 0 or self._eof_id(state) >= 0
 
     def scan(self, data, prepared=None):
         """Earliest match END with the matched regex id: (regex_id,
@@ -513,8 +553,8 @@ class Scanner:
         match ends at EOF."""
         first, state, _ = self._scan_first(data, prepared)
         if first >= 0:
-            return self.dfa.id_at(state, data[first]), first
-        rid = int(self.dfa.match_eof_id[state])
+            return self._id_at(state, data[first]), first
+        rid = self._eof_id(state)
         return (rid, len(data)) if rid >= 0 else None
 
     def _pike_ctx(self):
@@ -537,6 +577,17 @@ class Scanner:
         if rc < 0:
             return None
         return rc, [int(v) for v in ctx.ovector]
+
+    def _rev_lazy_dfa(self):
+        """The lazy reverse machine of a pattern past the eager budget
+        (None when the pattern has no AST), built at first use: the start
+        locator of find on the lazy machine."""
+        if self._rev_lz is None:
+            self._rev_lz = False
+            if self.ast is not None:
+                self._rev_lz = LazyDfa(compile_regex(
+                    reverse_wrapped_ast(self.ast)))
+        return self._rev_lz or None
 
     def _rev_dfa(self):
         """The reverse automaton's native engine (None when the pattern
@@ -626,16 +677,22 @@ class Scanner:
         # DFA prefilter: no match end anywhere => no match at all
         first, state, tier = self._scan_first(data, prepared)
         result = None
-        if first >= 0 or self.dfa.match_eof[state]:
+        if first >= 0 or self._eof_id(state) >= 0:
             start = 0
-            rev = self._rev_dfa()
+            # the lazy reverse machine walks on the host (the JAX
+            # package's device locator for it, _rev_lazy_core, needs
+            # core_scan_last_bytes, not ported yet)
+            rev = self._rev_dfa() if self.dfa is not None \
+                else self._rev_lazy_dfa()
             if rev is not None:
                 rdata = data[::-1]
                 if self._rev_spec is not None and on_device:
                     rstate, q = spec_scan_last_bytes(self._rev_spec, rdata)
                 else:
                     q, rstate = rev.scan_last(rdata, 0)
-                if not rev.match_eof[rstate] and q >= 0:
+                eof = (rev.match_eof[rstate] if self.dfa is not None
+                       else rev.match_eof(rstate))
+                if not eof and q >= 0:
                     start = n - q     # else a match starts at offset 0
             result = self._pike_from(data, start)
         self._note_stats("find", tier, n, t0, certified=certified)
@@ -648,9 +705,9 @@ class Scanner:
         if r is not None:
             state, c = r
         else:
-            c, state = self._native.count(data, 0)
+            c, state = self._host().count(data, 0)
             self._note_stats("count", None, len(data), t0)
-        if self.dfa.match_eof[state]:
+        if self._eof_id(state) >= 0:
             c += 1
         return c
 

@@ -181,6 +181,77 @@ def test_tdfa_kernel_equals_plain_version(cuda, bits, rows, code, R, T):
         assert torch.equal(g, w)
 
 
+def _tdfa_edge_case(rng, bits, code, R, T, identity=False, rows=2):
+    """Random tagged tables as above at the register-bucket edges; with
+    ``identity`` every register-source word is the identity (register k
+    from register k), so only commits change anything."""
+    cpw = 32 // bits
+    B, G, W = 1, 8, 4 * cpw
+    Jw = (W + 256) // cpw
+    n = rows * 128
+    ncls = 16 if bits == 4 else 40
+    spp = 32 // code
+    top = (1 << code) - 1
+    words = rng.integers(0, 1 << 32, (B, Jw, G, 8, 128), dtype=np.uint64)
+    data = words.astype(np.uint32).view(np.int32)
+    t_next = (rng.integers(0, max(1, n // ncls), n) * ncls).astype(np.int32)
+    t_cmeta = np.where(rng.random(n) < 0.3,
+                       1 | (rng.integers(0, 128, n) << 1),
+                       rng.integers(0, 1 << 20, n) << 1).astype(np.int32)
+
+    def planes(k, ident):
+        P = max(1, -(-k // spp))
+        if ident:
+            slots = np.broadcast_to(np.arange(P * spp).reshape(P, spp, 1),
+                                    (P, spp, n))
+        else:
+            slots = np.where(rng.random((P, spp, n)) < 0.5,
+                             rng.integers(0, k + 2, (P, spp, n)),
+                             top - rng.integers(0, 3, (P, spp, n)))
+        out = np.zeros((P, n), np.uint64)
+        for sl in range(spp):
+            out |= slots[:, sl].astype(np.uint64) << np.uint64(code * sl)
+        return out.astype(np.uint32).view(np.int32)
+
+    s0 = (rng.integers(0, max(1, n // ncls), (B, G, 8, 128)) * ncls) \
+        .astype(np.int32)
+    j0 = rng.integers(0, W + 1, (B, G, 8, 128)).astype(np.int32)
+    arrs = (data, s0, j0, t_next, planes(R, identity), planes(T, False),
+            t_cmeta)
+    return arrs, dict(W=W, CPW=cpw, BITS=bits, CODE=code, R=R, T=T)
+
+
+@pytest.mark.parametrize("code", [4, 8, 16])
+@pytest.mark.parametrize("R,T", [(4, 4), (5, 6), (8, 8), (9, 4), (4, 9),
+                                 (13, 13), (5, 13)])
+def test_tdfa_kernel_at_the_register_bucket_edges(cuda, code, R, T):
+    """R and T at the edges of the register buckets (8, 13, 24) of the
+    kernel's register-file variants, for each code width; classes run
+    past the table."""
+    rng = np.random.default_rng(code * 1000 + R * 30 + T)
+    arrs, kw = _tdfa_edge_case(rng, 4 if R % 2 else 8, code, R, T)
+    args = [torch.from_numpy(a).to(cuda) for a in arrs]
+    got = ttdfa.tdfa_scan(*args, **kw)
+    torch.cuda.synchronize()
+    want = ttdfa.tdfa_scan_ref(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("code,R,T", [(4, 5, 6), (8, 13, 2)])
+def test_tdfa_kernel_with_identity_register_words(cuda, code, R, T):
+    """Every register-source word the identity: the registers carry over
+    untouched except where a commit reads them."""
+    rng = np.random.default_rng(code + R)
+    arrs, kw = _tdfa_edge_case(rng, 4, code, R, T, identity=True)
+    args = [torch.from_numpy(a).to(cuda) for a in arrs]
+    got = ttdfa.tdfa_scan(*args, **kw)
+    torch.cuda.synchronize()
+    want = ttdfa.tdfa_scan_ref(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def test_find_runs_on_the_card(cuda):
     import sregex_tpu_torch
     sc = sregex_tpu_torch.compile_pattern(rb"status=([0-9]+) user=([a-z_]+)")
@@ -253,14 +324,61 @@ def test_phi_big_kernel_equals_plain_version(cuda, S, bits, ncls, count):
     data, table, kw = _phi_case(rng, S, bits, ncls, big=True)
     assert table.size <= 64 * 128
     args = [torch.from_numpy(a).to(cuda) for a in (data, table)]
+    k = tphi.stride_k(S, ncls, kw["CPW"], table.size)
+    st = torch.from_numpy(tphi.stride_table(table, S, ncls, k, count))
     before = tphi.phi_big_scan_launches
-    got = tphi.phi_big_scan(*args, COUNT=count, **kw)
+    got = tphi.phi_big_scan(*args, COUNT=count, stride=(k, st.to(cuda)),
+                            **kw)
     torch.cuda.synchronize()
     assert tphi.phi_big_scan_launches == before + 1
     want = tphi.phi_big_scan_ref(*args, COUNT=count, **kw)
     valid = _phi_valid(kw).to(cuda)
     for g, w in zip(got, want):
         assert torch.equal(g[..., valid], w[..., valid])
+
+
+@pytest.mark.parametrize("S,bits,ncls", [(139, 4, 3), (501, 4, 3),
+                                         (1000, 4, 2), (139, 8, 5)])
+@pytest.mark.parametrize("words", ["in", "mixed"])
+def test_phi_big_kernel_k_gram_walk(cuda, S, bits, ncls, words):
+    """Every class below ncls (the k-gram path on every word), or one
+    word in ten with a class code past ncls (the single steps between
+    k-gram words): the kernel at each k in (1, 2, 4) that divides the
+    word and fits shared memory equals the plain version."""
+    rng = np.random.default_rng(S * 3 + bits + len(words))
+    cpw = 32 // bits
+    K = 2048
+    Kw = K // cpw
+    rows = -(-(S * ncls) // 128)
+    table = (rng.integers(0, S, rows * 128) * ncls
+             | rng.integers(0, 2, rows * 128) << 20).astype(np.int32)
+    SB = 1 << (-(-S // 128) - 1).bit_length()
+    P = -(-Kw // 128)
+    cls = rng.integers(0, ncls, (2, P, 8, 8, 128, cpw))
+    if words == "mixed":
+        bad = rng.random(cls.shape[:-1]) < 0.1
+        cls[..., 0] = np.where(bad, rng.integers(ncls, 1 << bits, bad.shape),
+                               cls[..., 0])
+    w = np.zeros(cls.shape[:-1], np.int64)
+    for j in range(cpw):
+        w |= cls[..., j] << (bits * j)
+    data = torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(cuda)
+    tab = torch.from_numpy(table).to(cuda)
+    kw = dict(Kw=Kw, CPW=cpw, BITS=bits, S=S, SB=SB, NCLS=ncls)
+    valid = _phi_valid(kw).to(cuda)
+    for count in (True, False):
+        want = tphi.phi_big_scan_ref(data, tab, COUNT=count, **kw)
+        for k in (1, 2, 4):
+            if cpw % k or S * ncls ** k + tab.numel() + 256 \
+                    > tphi.STRIDE_SMEM_ENTRIES:
+                continue
+            st = torch.from_numpy(tphi.stride_table(
+                table, S, ncls, k, count)).to(cuda)
+            got = tphi.phi_big_scan(data, tab, COUNT=count, stride=(k, st),
+                                    **kw)
+            torch.cuda.synchronize()
+            for g, v in zip(got, want):
+                assert torch.equal(g[..., valid], v[..., valid]), (k, count)
 
 
 def test_phi_tier_runs_on_the_card(cuda):
@@ -368,3 +486,23 @@ def test_big_machines_stay_on_the_static_big_tier_on_the_card(cuda):
     assert sc._fusedct is False and sc._coret is False
     assert tcore.gated_scan_launches == before[0]
     assert tbig.big_scan_launches == before[1] + 2
+
+
+def test_lazy_machine_runs_on_the_card(cuda):
+    """A pattern past the eager DFA budget constructs on the card and
+    counts through the legacy core over the lazy machine, equal to the
+    lazy host walk."""
+    import sregex_tpu_torch
+    rng = np.random.default_rng(8)
+    text = rng.choice(np.frombuffer(b"bcdfgz ", np.uint8), 8 << 20)
+    text[rng.integers(0, len(text) - 16, 3000)] = ord("a")
+    data = text.tobytes()
+    sc = sregex_tpu_torch.compile_pattern(rb"a.{13}b")
+    host = sregex_tpu_torch.compile_pattern(rb"a.{13}b", device=None)
+    assert sc.dfa is None and sc.device.type == "cuda"
+    before = tscan.spec_scan_launches
+    assert sc.count(data) == host.count(data)
+    assert sc.stats().tier == "LazyCoreTables"
+    assert sc.scan(data) == host.scan(data)
+    assert sc.find(data) == host.find(data)
+    assert tscan.spec_scan_launches >= before + 2

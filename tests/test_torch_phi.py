@@ -321,11 +321,101 @@ def test_wrappers_check_and_count_no_cpu_launch():
     meta = [x.to("meta") for x in (data, tt.fused)]
     with pytest.raises(ValueError, match="cuda or cpu"):
         tphi.phi_scan(*meta, **kw)
-    bkw = dict(Kw=K // 8, CPW=8, BITS=4, S=139, SB=2, NCLS=3, COUNT=False)
+    bkw = dict(Kw=K // 8, CPW=8, BITS=4, S=139, SB=2, NCLS=3, COUNT=False,
+               stride=(1, torch.from_numpy(tphi.stride_table(
+                   tt.fused.numpy(), tt.nstates, tt.ncls, 1, False))))
     with pytest.raises(ValueError, match="SB"):
         tphi.phi_big_scan(data, tt.fused, **dict(bkw, SB=3))
     with pytest.raises(ValueError, match="cuda or cpu"):
         tphi.phi_big_scan(*meta, **bkw)
+    with pytest.raises(TypeError, match="stride"):
+        tphi.phi_big_scan(data, tt.fused, **{k: v for k, v in bkw.items()
+                                             if k != "stride"})
     before = tphi.phi_big_scan_launches
     tphi.phi_big_scan(data, tt.fused, **bkw)
     assert tphi.phi_big_scan_launches == before
+
+
+def _stride_case(rng, S, bits, ncls, words, B=1, G=2, K=512):
+    """Random sublane-group words (``words``: "in" every class below
+    ncls, "mixed" one word in ten with a class code past ncls, "any"
+    classes up to 2**bits), a random fused table of valid premultiplied
+    states, and the kernel's keywords."""
+    cpw = 32 // bits
+    Kw = K // cpw
+    rows = -(-(S * ncls) // 128)
+    table = (rng.integers(0, S, rows * 128) * ncls
+             | rng.integers(0, 2, rows * 128) << 20).astype(np.int32)
+    SB = 1 << (-(-S // 128) - 1).bit_length()
+    P = -(-Kw // 128)
+    cls = rng.integers(0, ncls if words != "any" else 1 << bits,
+                       (B, P, G, 8, 128, cpw))
+    if words == "mixed":
+        bad = rng.random(cls.shape[:-1]) < 0.1
+        cls[..., 0] = np.where(bad, rng.integers(ncls, 1 << bits, bad.shape),
+                               cls[..., 0])
+    w = np.zeros(cls.shape[:-1], np.int64)
+    for j in range(cpw):
+        w |= cls[..., j] << (bits * j)
+    data = torch.from_numpy(w.astype(np.uint32).view(np.int32))
+    return data, torch.from_numpy(table), dict(Kw=Kw, CPW=cpw, BITS=bits,
+                                               S=S, SB=SB, NCLS=ncls)
+
+
+@pytest.mark.parametrize("S,bits,ncls", [(139, 4, 3), (501, 4, 3),
+                                         (1000, 4, 2), (139, 8, 5)])
+@pytest.mark.parametrize("words", ["in", "mixed", "any"])
+def test_stride_walk_equals_the_plain_version(S, bits, ncls, words):
+    """The plain model of the sublane-group kernel's k-gram walk equals
+    phi_big_scan_ref (held against the JAX kernel above) for every k in
+    (1, 2, 4) that divides the word and fits shared memory, COUNT and
+    scan, on the valid slots."""
+    rng = np.random.default_rng(S * 7 + bits + len(words))
+    data, table, kw = _stride_case(rng, S, bits, ncls, words)
+    valid = ((torch.arange(8)[:, None] % kw["SB"]) * 128
+             + torch.arange(128) < S)
+    ks = [k for k in (1, 2, 4) if kw["CPW"] % k == 0
+          and S * ncls ** k + table.numel() + 256
+          <= tphi.STRIDE_SMEM_ENTRIES]
+    assert len(ks) >= 2
+    for count in (True, False):
+        want = tphi.phi_big_scan_ref(data, table, COUNT=count, **kw)
+        for k in ks:
+            st = torch.from_numpy(tphi.stride_table(table.numpy(), S, ncls,
+                                                    k, count))
+            got = tphi.phi_big_stride_ref(data, table, (k, st), COUNT=count,
+                                          **kw)
+            for g, w in zip(got, want):
+                assert torch.equal(g[..., valid], w[..., valid]), (k, count)
+
+
+def test_stride_table_entries_and_choice():
+    """The chip's phi_big machine, b(?:a{499})*b (S = 501, 3 classes,
+    4-bit words): k = 4 fits (40,581 entries); each entry is the
+    composition of k single steps; PhiTablesBig caches one table per
+    (k, mode); a table entry past S*ncls, or not premultiplied, is
+    refused."""
+    d = _dfa(rb"b(?:a{499})*b")
+    t = tphi.PhiTablesBig(d, CPU)
+    assert (t.nstates, t.ncls, t.cpw) == (501, 3, 8)
+    assert tphi.stride_k(t.nstates, t.ncls, t.cpw, t.fused.numel()) == 4
+    k, st = t.stride(True)
+    assert k == 4 and st.numel() == 501 * 81
+    assert t.stride(True)[1] is st and t.stride(False)[1] is not st
+    f = t.fused.numpy().astype(np.int64)
+    rng = np.random.default_rng(3)
+    for q, g in zip(rng.integers(0, 501, 50), rng.integers(0, 81, 50)):
+        s, cnt = q * 3, 0
+        for j in range(4):
+            e = f[s + (g // 3 ** j) % 3]
+            cnt += e >> 20
+            s = e & ((1 << 20) - 1)
+        e = int(st[q * 81 + g]) & 0xFFFFFFFF
+        assert (e >> 14, e & 0x3FFF) == (s // 3 * 81 * 4, cnt)
+    bad = t.fused.numpy().copy()
+    bad[5] = 501 * 3
+    with pytest.raises(ValueError):
+        tphi.stride_table(bad, 501, 3, 2, True)
+    bad[5] = 4
+    with pytest.raises(ValueError):
+        tphi.stride_table(bad, 501, 3, 2, True)

@@ -138,8 +138,10 @@ def test_past_the_wide_cap_raises_on_a_device_path():
     """Past the wide cap the big tier serves; a machine past the big cap
     that is not piecewise affine has no static tier and constructs (the
     core tiers or the native engine serve it, tests/test_torch_core.py);
-    the lazy machine, past the eager DFA budget, raises on a device
-    path."""
+    a pattern past the eager DFA budget no longer raises: it constructs
+    with no dense machine, and on a device path past DEVICE_THRESHOLD
+    the legacy core over the lazy machine (LazyCoreTables) serves it
+    (tests/test_torch_lazy.py).  The name predates that."""
     ast, _ = parse("a.{11}b")
     prog = compile_regex(ast)
     sc = tstream.Scanner(prog, device="cpu")
@@ -151,8 +153,15 @@ def test_past_the_wide_cap_raises_on_a_device_path():
     assert sc.dfa.nstates * sc.dfa.nclasses > (1 << 17)
     assert sc._spec is None
     ast, _ = parse("a.{13}b")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tstream.Scanner(compile_regex(ast), device="cpu")
+    sc = tstream.Scanner(compile_regex(ast), device="cpu")
+    assert sc.dfa is None and sc._spec is None
+    data = b"xyz" * 2000 + b"a" + b"q" * 13 + b"b" + b"xyz" * 2000
+    sc.DEVICE_THRESHOLD = 1 << 12
+    assert sc.count(data) == 1
+    assert sc.stats().tier == "LazyCoreTables"
+    assert sc.scan(data) == (0, 6015)
+    assert sc.stats().tier == "LazyCoreTables"
+    assert type(sc._coret).__name__ == "LazyCoreTables"
 
 
 def test_no_find_on_the_port():
