@@ -240,9 +240,12 @@ def compare_gated(args, kw, n_esc, big_):
 
 
 def random_affine_case(rng, dev, *, pieces, bits, W, count, B=2, G=8,
-                       K=512):
+                       K=512, wrap=False):
     """Random affine tables of P pieces: sorted premultiplied
-    breakpoints, entries with random values, modes and match bits."""
+    breakpoints, entries with random values, modes and match bits; with
+    ``wrap`` arbitrary int32 entries and entry states instead (states
+    out of range, relative steps that wrap), the breakpoints'
+    neighbours and the int32 extremes among the states."""
     cpw = {4: 8, 8: 4}[bits]
     ncls = int(rng.integers(2, (1 << bits) + 1))
     S = pieces * int(rng.integers(3, 40))
@@ -252,14 +255,43 @@ def random_affine_case(rng, dev, *, pieces, bits, W, count, B=2, G=8,
     bp = np.sort(rng.choice(np.arange(1, S), pieces - 1, replace=False)
                  * ncls).astype(np.int32)
     rows = -(-(pieces * ncls) // 128)
-    val = rng.integers(0, 2 * off, rows * 128)
-    table = (val | rng.integers(0, 2, rows * 128) << 28
-             | rng.integers(0, 2, rows * 128) << 30).astype(np.int32)
-    s0 = (rng.integers(0, S, (B, G, 8, 128)) * ncls).astype(np.int32)
+    if wrap:
+        table = rng.integers(-2 ** 31, 2 ** 31, rows * 128).astype(np.int32)
+        s0 = rng.integers(-2 ** 31, 2 ** 31, (B, G, 8, 128))
+        near = [-2 ** 31, 2 ** 31 - 1, -1, 0, off, off - 1]
+        for b in bp.tolist():
+            near += [b - 1, b, b + 1]
+        s0.reshape(-1)[:len(near)] = near
+        s0 = s0.astype(np.int32)
+    else:
+        val = rng.integers(0, 2 * off, rows * 128)
+        table = (val | rng.integers(0, 2, rows * 128) << 28
+                 | rng.integers(0, 2, rows * 128) << 30).astype(np.int32)
+        s0 = (rng.integers(0, S, (B, G, 8, 128)) * ncls).astype(np.int32)
     j0 = rng.integers(0, W + 1, (B, G, 8, 128)).astype(np.int32)
     args = [torch.from_numpy(a).to(dev) for a in (data, s0, j0, table, bp)]
     return args, dict(W=W, CPW=cpw, BITS=bits, NCLS=ncls, OFF=off,
                       COUNT=count)
+
+
+def compare_affine(args, kw, relaid=None, generic=False):
+    """The affine kernel (templated, or ``generic``) vs its plain version
+    on the same inputs: bit-exact planes.  ``relaid`` defaults to the
+    re-laid table of args' table and breakpoints."""
+    if relaid is None:
+        relaid = aff.relay_table(args[3].cpu().numpy(), args[4].tolist(),
+                                 kw["NCLS"], kw["BITS"], kw["OFF"],
+                                 args[0].device)
+    got = aff.affine_scan(*args, relaid=relaid, generic=generic, **kw)
+    torch.cuda.synchronize()
+    want = aff.affine_scan_ref(*args, **kw)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError("the affine kernel differs from its plain "
+                             "version by %d (generic %r, %r)"
+                             % (err, generic, kw))
+    return err
 
 
 def random_tdfa_case(rng, dev, *, bits, rows, code, R, T, B=2, G=8, K=256,
@@ -337,12 +369,11 @@ def phi_valid(kw, dev):
     return (lane < kw["NSEG"] * kw["S"]).expand(8, 128)
 
 
-def compare_phi(kernel, plain, args, kw, stride=None):
+def compare_phi(kernel, plain, args, kw, stride):
     """A phi kernel vs its plain version on the same inputs: bit-exact
-    planes on the valid slots.  ``stride`` (k, table) goes to the big
-    kernel alone."""
-    got = kernel(*args, **kw) if stride is None else kernel(
-        *args, stride=stride, **kw)
+    planes on the valid slots.  ``stride`` (k, table) goes to the kernel
+    alone."""
+    got = kernel(*args, stride=stride, **kw)
     torch.cuda.synchronize()
     want = plain(*args, **kw)
     torch.cuda.synchronize()
@@ -472,6 +503,52 @@ def bound_ms(args, steps):
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     t_ops = steps / SCALAR_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def affine_times(asc, aprep, acorpus, timings, errs, dev):
+    """The affine kernel at the affine phase's shape, COUNT: the
+    templated kernel (the main path's) and the generic one, each checked
+    against the plain version; the templated one in scan mode; the plain
+    version; and as a yardstick the wide kernel on the base64 machine's
+    own wide table (SpecTablesWide) over the same corpus at its own
+    warmup.  Records timings["affine"] and returns the kernel_time
+    line's fields."""
+    t = asc._spec
+    data = aprep.for_tables(t)[0]
+    s0, j0 = scan._entry_planes(0, t.warmup, data.shape[0], dev)
+    args = [data, s0, j0, t.fused, t.bp]
+    kw = dict(W=t.warmup, CPW=t.cpw, BITS=t.bits, NCLS=t.ncls, OFF=t.off,
+              COUNT=True)
+    ms = {}
+    for generic in (False, True):
+        errs["affine"] = max(errs["affine"], compare_affine(
+            args, kw, t.relaid, generic))
+        ms[generic] = time_gpu(lambda: aff.affine_scan(
+            *args, relaid=t.relaid, generic=generic, **kw), 20)
+    kw_scan = dict(kw, COUNT=False)
+    errs["affine"] = max(errs["affine"], compare_affine(
+        args, kw_scan, t.relaid))
+    scan_ms = time_gpu(lambda: aff.affine_scan(*args, relaid=t.relaid,
+                                               **kw_scan), 5)
+    plain_ms = time_gpu(lambda: aff.affine_scan_ref(*args, **kw), 2)
+    bms, by = bound_ms(args, s0.numel() * data.shape[1] * t.cpw)
+    timings["affine"] = (ms[False], plain_ms, bms, by, list(data.shape))
+    wt = scan.SpecTablesWide(asc.dfa, dev)
+    wdata = prepare_on_device(wt, acorpus, 2048)[0]
+    ws0, wj0 = scan._entry_planes(0, wt.warmup, wdata.shape[0], dev)
+    wide_ms = time_gpu(lambda: scan.spec_scan(
+        wdata, ws0, wj0, wt.fused, W=wt.warmup, CPW=wt.cpw, BITS=wt.bits,
+        COUNT=True), 20)
+    wide_units = wdata.shape[1] * wt.cpw - wt.warmup
+    del wdata
+    return dict(
+        tier="affine", shape=list(data.shape), count=True, ms=ms[False],
+        generic_ms=ms[True], scan_ms=scan_ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, pieces=t.pieces, offsets=t.relaid.offsets,
+        corpus_gbps=s0.numel() * (data.shape[1] * t.cpw - t.warmup)
+        / ms[False] / 1e6,
+        wide_ms=wide_ms, wide_entries=wt.nstates * wt.ncls,
+        wide_corpus_gbps=ws0.numel() * wide_units / wide_ms / 1e6)
 
 
 def native_count(sc, corpus):
@@ -747,17 +824,24 @@ def main():
         args, kw = random_case(rng, dev, in_range=True, **case)
         errs["big"] = max(errs["big"], compare(
             big.big_scan, big.big_scan_ref, args, kw))
-    # affine: random tables of 1 to 48 pieces, and the tables of a
-    # renumbered (perm) and a plain counted-repetition machine
+    # affine: random tables of 1 to 48 pieces, each through the templated
+    # kernel (P <= 8) and the generic one; valid states, and arbitrary
+    # int32 entries and states (out of range, int32 wrap); then the tables
+    # of a renumbered (perm) and a plain counted-repetition machine
     affine_cases = [dict(pieces=1, bits=4, W=32, count=True),
                     dict(pieces=3, bits=4, W=512, count=False),
                     dict(pieces=17, bits=8, W=16, count=True),
                     dict(pieces=48, bits=8, W=64, count=False),
                     dict(pieces=48, bits=4, W=32, count=True)]
+    affine_cases += [dict(pieces=p, bits=bits, W=32 if bits == 4 else 16,
+                          count=count, wrap=wrap, B=1)
+                     for p in (2, 3, 6, 8, 9) for bits in (4, 8)
+                     for count, wrap in ((True, True), (False, False))]
     for case in affine_cases:
         args, kw = random_affine_case(rng, dev, **case)
-        errs["affine"] = max(errs["affine"], compare(
-            aff.affine_scan, aff.affine_scan_ref, args, kw))
+        for generic in (False, True):
+            errs["affine"] = max(errs["affine"],
+                                 compare_affine(args, kw, generic=generic))
     for pat, want_perm in (("(?:ab?c){60,140}z", True),
                            ("a{400,499}b", False)):
         at = aff.SpecTablesAffine(build_dfa(compile_regex(parse(pat)[0])),
@@ -767,11 +851,10 @@ def main():
         packed, _, _, _, B = prepare_on_device(at, text, 2048)
         s0, j0 = scan._entry_planes(0, at.warmup, B, dev)
         for count in (True, False):
-            errs["affine"] = max(errs["affine"], compare(
-                aff.affine_scan, aff.affine_scan_ref,
+            errs["affine"] = max(errs["affine"], compare_affine(
                 [packed, s0, j0, at.fused, at.bp],
                 dict(W=at.warmup, CPW=at.cpw, BITS=at.bits, NCLS=at.ncls,
-                     OFF=at.off, COUNT=count)))
+                     OFF=at.off, COUNT=count), at.relaid))
     # tdfa: random code planes, CODE 4/8/16, one and several rows, 4- and
     # 8-bit words, R and T at the edges of each code width; the last
     # case's 50 planes of 2048 entries take the global-memory variant
@@ -799,7 +882,8 @@ def main():
             tdfa.tdfa_scan, tdfa.tdfa_scan_ref, args, kw))
     # phi: lane-packed S in {3, 4, 50, 128} and sublane-group S in {139,
     # 501, 1000} up to the card's 64 rows, 4- and 8-bit words, COUNT and
-    # scan; the padding slots are left out
+    # scan, each kernel at the k stride_k chooses; the padding slots are
+    # left out
     errs["phi"] = errs["phi_big"] = 0
     phi_cases = [("phi", dict(S=3, bits=4, ncls=16), True),
                  ("phi", dict(S=4, bits=4, ncls=3), False),
@@ -817,34 +901,41 @@ def main():
         args, kw = random_phi_case(rng, dev, big=big_, **case)
         fns = ((tphi.phi_big_scan, tphi.phi_big_scan_ref) if big_
                else (tphi.phi_scan, tphi.phi_scan_ref))
-        st = None
-        if big_:
-            k = tphi.stride_k(case["S"], case["ncls"], kw["CPW"],
-                              args[1].numel())
-            st = (k, torch.from_numpy(tphi.stride_table(
-                args[1].cpu().numpy(), case["S"], case["ncls"], k,
-                count)).to(dev))
+        k = tphi.stride_k(case["S"], case["ncls"], kw["CPW"],
+                          args[1].numel(), (4, 2) if big_ else (8, 4, 2))
+        st = (k, torch.from_numpy(tphi.stride_table(
+            args[1].cpu().numpy(), case["S"], case["ncls"], k,
+            count)).to(dev))
         errs[tier] = max(errs[tier], compare_phi(
             *fns, args, dict(kw, COUNT=count), stride=st))
-    # the big kernel's k-gram walk: every class below ncls, at each k of
-    # (1, 2, 4) that divides the word and fits shared memory
+    # both kernels' k-gram walks at each k of (8, 4, 2, 1) that divides
+    # the word and fits shared memory: every class below ncls, and (the
+    # lane-packed kernel) classes up to 2**bits, past ncls
     kgram_cases = []
-    for S, bits, ncls in ((139, 4, 3), (501, 4, 3), (1000, 4, 2),
-                          (139, 8, 5)):
+    for tier, S, bits, ncls, in_range in (
+            ("phi_big", 139, 4, 3, True), ("phi_big", 501, 4, 3, True),
+            ("phi_big", 1000, 4, 2, True), ("phi_big", 139, 8, 5, True),
+            ("phi", 4, 4, 3, True), ("phi", 4, 4, 3, False),
+            ("phi", 1, 4, 2, True), ("phi", 5, 4, 5, False),
+            ("phi", 9, 4, 4, True), ("phi", 128, 4, 8, False),
+            ("phi", 50, 8, 20, True), ("phi", 3, 8, 256, True)):
+        big_ = tier == "phi_big"
+        fns = ((tphi.phi_big_scan, tphi.phi_big_scan_ref) if big_
+               else (tphi.phi_scan, tphi.phi_scan_ref))
         for count in (True, False):
             args, kw = random_phi_case(rng, dev, S=S, bits=bits, ncls=ncls,
-                                       big=True, K=2048, in_range=True)
+                                       big=big_, K=2048, in_range=in_range,
+                                       B=1)
             kw["COUNT"] = count
-            for k in (1, 2, 4):
+            for k in (8, 4, 2, 1):
                 if kw["CPW"] % k or S * ncls ** k + args[1].numel() + 256 \
-                        > tphi.STRIDE_SMEM_ENTRIES:
+                        > tphi.STRIDE_SMEM_ENTRIES or (big_ and k == 8):
                     continue
                 st = torch.from_numpy(tphi.stride_table(
                     args[1].cpu().numpy(), S, ncls, k, count)).to(dev)
-                errs["phi_big"] = max(errs["phi_big"], compare_phi(
-                    tphi.phi_big_scan, tphi.phi_big_scan_ref, args, kw,
-                    stride=(k, st)))
-                kgram_cases.append((S, k, count))
+                errs[tier] = max(errs[tier], compare_phi(
+                    *fns, args, kw, stride=(k, st)))
+                kgram_cases.append((tier, S, k, count))
     # gated: the phase-2 scan at CAP 32768 (4 block rows of G tiles) over
     # narrow, wide and big tables, gated at the edges of a block row
     errs["gated"] = 0
@@ -861,7 +952,7 @@ def main():
                                 compare_gated(args, kw, n_esc, big_))
             gated_cases.append((rows, n_esc))
     say("kernel_vs_plain", groups=GROUPS, max_abs_err=max(errs.values()),
-        cases=len(cases) + 2 + len(big_cases) + len(affine_cases) + 4
+        cases=len(cases) + 2 + len(big_cases) + 2 * len(affine_cases) + 4
         + len(tdfa_cases) + len(phi_cases) + len(kgram_cases)
         + len(gated_cases))
     del packed, s0, j0
@@ -1447,21 +1538,16 @@ def main():
                              % launches)
 
     # --- 12. kernel vs plain time at the main path's shapes ---------------
-    shapes = [("narrow", spec, tables, prepared[0], False, {}),
+    shapes = [("narrow", spec, tables, prepared[0], False),
               ("wide", spec, msc._spec, mprep.for_tables(msc._spec)[0],
-               True, {}),
-              ("affine", (aff.affine_scan, aff.affine_scan_ref), asc._spec,
-               aprep.for_tables(asc._spec)[0], True,
-               dict(NCLS=asc._spec.ncls, OFF=asc._spec.off)),
+               True),
               ("big", (big.big_scan, big.big_scan_ref), bsc._spec,
-               bprep.for_tables(bsc._spec)[0], True, {})]
-    for tier, fns, t, data, count, extra in shapes:
+               bprep.for_tables(bsc._spec)[0], True)]
+    for tier, fns, t, data, count in shapes:
         B = data.shape[0]
         s0, j0 = scan._entry_planes(0, t.warmup, B, dev)
         args = [data, s0, j0, t.fused]
-        if tier == "affine":
-            args.append(t.bp)
-        kw = dict(W=t.warmup, CPW=t.cpw, BITS=t.bits, COUNT=count, **extra)
+        kw = dict(W=t.warmup, CPW=t.cpw, BITS=t.bits, COUNT=count)
         errs[tier] = max(errs[tier], compare(*fns, args, kw))
         ms = time_gpu(lambda: fns[0](*args, **kw), 20)
         plain_ms = time_gpu(lambda: fns[1](*args, **kw), 2)
@@ -1472,6 +1558,8 @@ def main():
             ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
             corpus_gbps=s0.numel() * (data.shape[1] * t.cpw - t.warmup)
             / ms / 1e6)
+    say("kernel_time", **affine_times(asc, aprep, acorpus, timings, errs,
+                                      dev))
     # the tagged kernel at the find phase's shape, entered as tdfa_spec_find
     # enters it (every stream at the seed, the true entry frozen below W)
     fdata = fprep.for_tables(ft)[0]
@@ -1512,36 +1600,42 @@ def main():
             chunks_per_block = GROUPS * t.CPT
             plain_mb = min(PHI_BIG_PLAIN_MB, qmb)
             pdata = data[:-(-(plain_mb << 20) // K // chunks_per_block)]
-        # the big kernel takes its tables' cached k-gram table (the
-        # Scanner's), each other k measured beside it
-        skw = {} if tier == "phi" else dict(stride=t.stride(True))
+        # each kernel takes its tables' cached k-gram table (the
+        # Scanner's), each other k measured beside it, and the chosen k
+        # once in scan mode
+        st, st_scan = t.stride(True), t.stride(False)
         by_k = {}
-        if tier == "phi_big":
-            for k in (1, 2, 4):
-                if t.cpw % k or t.nstates * t.ncls ** k + t.fused.numel() \
-                        + 256 > tphi.STRIDE_SMEM_ENTRIES:
-                    continue
-                stk = t.stride(True, k)
-                errs[tier] = max(errs[tier], compare_phi(
-                    *fns, [pdata, t.fused], kw, stride=stk))
-                by_k[k] = time_gpu(lambda: fns[0](data, t.fused,
-                                                  stride=stk, **kw), 5)
+        for k in (8, 4, 2, 1):
+            if t.cpw % k or t.nstates * t.ncls ** k + t.fused.numel() \
+                    + 256 > tphi.STRIDE_SMEM_ENTRIES \
+                    or k not in (1, *t.STRIDE_KS):
+                continue
+            stk = t.stride(True, k)
+            errs[tier] = max(errs[tier], compare_phi(
+                *fns, [pdata, t.fused], kw, stk))
+            by_k[k] = time_gpu(lambda: fns[0](data, t.fused, stride=stk,
+                                              **kw), 5)
         errs[tier] = max(errs[tier], compare_phi(
-            *fns, [pdata, t.fused], kw, **skw))
-        ms = time_gpu(lambda: fns[0](data, t.fused, **skw, **kw), 20)
+            *fns, [pdata, t.fused], kw, st))
+        ms = time_gpu(lambda: fns[0](data, t.fused, stride=st, **kw), 20)
+        kw_scan = dict(kw, COUNT=False)
+        errs[tier] = max(errs[tier], compare_phi(
+            *fns, [pdata, t.fused], kw_scan, st_scan))
+        scan_ms = time_gpu(lambda: fns[0](data, t.fused, stride=st_scan,
+                                          **kw_scan), 5)
         plain_ms = time_gpu(lambda: fns[1](pdata, t.fused, **kw), 1)
         plain_kernel_ms = (ms if pdata is data else
-                           time_gpu(lambda: fns[0](pdata, t.fused, **skw,
+                           time_gpu(lambda: fns[0](pdata, t.fused, stride=st,
                                                    **kw), 5))
         # bytes: the words and the table once, the two planes once;
         # operations: one table lookup for each live slot (C chunks, S
-        # entry states) and each k bytes the kernel takes a lookup (k = 1
-        # for the lane-packed kernel; every word of this corpus is in
-        # range, so the big one takes k classes on every lookup)
+        # entry states) and each k bytes the kernel takes a lookup (every
+        # word of these corpora is in range, so both kernels take k
+        # classes on every lookup)
         moved = (data.numel() + t.fused.numel()
                  + 2 * data.shape[0] * GROUPS * 1024) * 4
         t_bytes = moved / HBM_BYTES_PER_S * 1e3
-        k_run = skw["stride"][0] if skw else 1
+        k_run = st[0]
         t_ops = C * t.nstates * (K // k_run) / SCALAR_OPS_PER_S * 1e3
         bms, by = ((t_bytes, "bytes") if t_bytes >= t_ops
                    else (t_ops, "operations"))
@@ -1550,8 +1644,8 @@ def main():
         say("kernel_time", tier=tier, shape=list(data.shape), count=True,
             ms=ms, plain_ms=plain_ms, plain_shape=list(pdata.shape),
             kernel_ms_at_plain_shape=plain_kernel_ms, bound_ms=bms,
-            bound_by=by, corpus_gbps=C * K / ms / 1e6,
-            **({"k": skw["stride"][0], "ms_by_k": by_k} if by_k else {}))
+            bound_by=by, corpus_gbps=C * K / ms / 1e6, k=k_run,
+            ms_by_k=by_k, scan_ms=scan_ms)
     say("done", seconds=time.perf_counter() - t_start)
 
     print(smi, flush=True)

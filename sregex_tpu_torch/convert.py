@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from .native import NativeDfa
-from .ops.affine import SpecTablesAffine
+from .ops.affine import SpecTablesAffine, relay_table
 from .ops.big import SpecTablesBig
 from .ops.core import CoreTables
 from .ops.layout import max_chunk_bytes
@@ -88,6 +88,8 @@ def spec_tables_from_jax(arrays, dfa, device):
     if cls is SpecTablesAffine:
         t.bp = torch.tensor(t.bp_premult, dtype=torch.int32,
                             device=t.device)
+        t.relaid = relay_table(fused, t.bp_premult, t.ncls, t.bits, t.off,
+                               t.device)
     return t
 
 

@@ -107,13 +107,13 @@ def load():
                            p]
         lib.sre_affine_scan.restype = i
         lib.sre_affine_scan.argtypes = [p, p, p, p, i, p, p, p, i, i, i, i,
-                                        i, i, i, p, i, i, i, p]
+                                        i, i, i, p, p, i, i, p]
         lib.sre_tdfa_scan.restype = i
         lib.sre_tdfa_scan.argtypes = [p, p, p, p, p, p, p, i, i, i, p, p, p,
                                       p, i, i, i, i, i, i, i, i, i, p]
         lib.sre_phi_scan.restype = i
         lib.sre_phi_scan.argtypes = [p, p, i, p, p, i, i, i, i, i, i, i, i,
-                                     i, i, p]
+                                     i, i, p, i, i, p]
         lib.sre_phi_big_scan.restype = i
         lib.sre_phi_big_scan.argtypes = [p, p, i, p, p, i, i, i, i, i, i, i,
                                          i, i, p, i, i, p]

@@ -10,7 +10,11 @@ transition function is piecewise affine in the state id,
 
 with p the piece that holds s, and a few pieces cover hundreds of
 states.  A step is then a piece search over P - 1 breakpoints, one
-lookup in a [P * ncls] table and a select (csrc/affine_scan.cu).
+lookup in a [P * ncls] table and a select (affine_scan_ref).  The card's
+kernel (csrc/affine_scan.cu) walks a re-laid copy of the table
+(relay_table): an 8-byte entry for every piece and class code, found
+with no multiply and no guard, and one multiply-add a step;
+affine_relaid_ref is a plain model of that walk.
 Detection is exact by construction and verified; a machine that is not
 piecewise affine within the piece cap declines to the other tiers.
 
@@ -23,6 +27,9 @@ Everything else (prep, speculation, the summary, native repair, the
 folds of ops/spec_scan.py) is shared with the other tiers; the repair
 planes are the 3-int32 format, since states reach 2**26.
 """
+
+import ctypes
+from collections import namedtuple
 
 import numpy as np
 import torch
@@ -39,6 +46,12 @@ MAX_ENTRIES = 1 << 26         # S * ncls cap (premult fits the mask)
 
 # kernel launches since the last reset (the CUDA path only)
 affine_scan_launches = 0
+
+# The kernel's table (relay_table): ``bp`` the breakpoints and ``offsets``
+# the byte offsets of the P rows, as tuples; ``table`` int32
+# [P * 2**bits * 2] and ``pieces`` int32 [2P - 1] (bp, then offsets) on
+# the device; ``host`` the pieces as a ctypes int32 array.
+Relaid = namedtuple("Relaid", "bp offsets table pieces host")
 
 
 def detect_pieces(dfa):
@@ -168,7 +181,8 @@ class SpecTablesAffine(_Tables):
     ``fused`` holds the [P * ncls] entries (val | rel << 28 | match <<
     30), zero padded to whole rows of 128; ``bp`` the P - 1 premultiplied
     breakpoints as an int32 tensor (``bp_premult`` as a tuple); ``off``
-    = S * ncls.  States may be renumbered (``perm``, ``inv``)."""
+    = S * ncls; ``relaid`` the kernel's table (relay_table).  States may
+    be renumbered (``perm``, ``inv``)."""
 
     wide = True
 
@@ -211,6 +225,8 @@ class SpecTablesAffine(_Tables):
         self._finish(dfa, flat, device)
         self.bp = torch.tensor(self.bp_premult, dtype=torch.int32,
                                device=self.device)
+        self.relaid = relay_table(flat, self.bp_premult, ncls, self.bits,
+                                  self.off, self.device)
 
     # fold hooks: kernel states live in the renumbered space when perm
     # is set; entries and returned / repair states stay in dfa ids
@@ -231,22 +247,66 @@ class SpecTablesAffine(_Tables):
     def _scan(self, data, state0, j0, C, bad_tail, W, COUNT=False):
         planes = affine_scan(data, state0, j0, self.fused, self.bp, W=W,
                              CPW=self.cpw, BITS=self.bits, NCLS=self.ncls,
-                             OFF=self.off, COUNT=COUNT)
+                             OFF=self.off, COUNT=COUNT, relaid=self.relaid)
         return _summary_and_planes(planes, state0, C, bad_tail, COUNT,
                                    wide=True)
 
 
+def relay_table(fused, bp, ncls, bits, off, device):
+    """The kernel's table for the fused table ``fused`` (int32 numpy
+    [R*128]) of a machine with breakpoints ``bp`` (sorted premultiplied,
+    P - 1 of them), ``ncls`` classes, BITS-bit class codes and OFF =
+    S * ncls: a Relaid.
+
+    The row of piece pid starts at byte offsets[pid] = pid << (bits + 3)
+    | sw(pid) << 3, and code c's 8-byte entry lies at byte (c << 3) ^
+    offsets[pid]: sw(pid) = pid * ncls rounded up to a power of two, mod
+    16, puts the entries of up to 16 (piece, class) pairs on distinct
+    8-byte banks of shared memory.  The entry of (pid, c), for every code
+    below 2**bits, is the pair (add, y) of the entry the plain version
+    reads, e = fused[idx] with idx = pid * ncls + c, or idx & 127 past
+    the table: add = val - OFF (int32 wrap) where e is relative, else
+    val; y = rel << 31 | match.  A step from s is then s * (y >> 31) +
+    add, equal to the plain version's under int32 wrap."""
+    bp = tuple(int(b) for b in bp)
+    if list(bp) != sorted(bp):
+        raise ValueError("the breakpoints must be sorted")
+    f = np.asarray(fused).astype(np.int64) & 0xFFFFFFFF
+    P, n = len(bp) + 1, 1 << bits
+    blk = 1 << (ncls - 1).bit_length()
+    sw = [(p * blk) % 16 if blk < 16 else 0 for p in range(P)]
+    idx = np.arange(P)[:, None] * ncls + np.arange(n)[None, :]
+    e = f[np.where(idx < len(f), idx, idx & 127)]
+    val = e & _VAL_MASK
+    rel = (e >> _MODE_BIT) & 1
+    pair = np.stack([np.where(rel == 1, val - int(off), val),
+                     rel << 31 | (e >> _MATCH_BIT) & 1], -1)
+    out = np.zeros((P, n, 2), np.int64)
+    at = np.arange(n)[None, :] ^ np.asarray(sw)[:, None]
+    out[np.arange(P)[:, None], at] = pair
+    table = (out & 0xFFFFFFFF).astype(np.uint32).view(np.int32).reshape(-1)
+    offsets = tuple(p << (bits + 3) | sw[p] << 3 for p in range(P))
+    pieces = bp + offsets
+    return Relaid(bp, offsets, torch.from_numpy(table).to(device),
+                  torch.tensor(pieces, dtype=torch.int32, device=device),
+                  (ctypes.c_int32 * len(pieces))(*pieces))
+
+
 def affine_scan(data, state0, j0, table, bp, *, W, CPW, BITS, NCLS, OFF,
-                COUNT):
+                COUNT, relaid, generic=False):
     """Run the piecewise-affine scan kernel.  data int32 [B, Jw, G, 8,
     128] (CPW BITS-bit classes per word, BITS 4 or 8); state0/j0 int32
     [B, G, 8, 128]; table int32 [R*128]; bp int32 [P-1] sorted
     premultiplied breakpoints; NCLS the class count; OFF = S * NCLS; W
-    the warmup in bytes.  Returns (phi, fm, swarm), each int32
+    the warmup in bytes; ``relaid`` the kernel's table of these, from
+    relay_table (SpecTablesAffine.relaid); the plain version on the CPU
+    does not read it.  Returns (phi, fm, swarm), each int32
     [B, G, 8, 128]; fm is the match count (COUNT) or the 0/1 OR.
 
     CUDA tensors launch csrc/affine_scan.cu on the current stream (no
-    synchronisation) or raise.  CPU tensors take affine_scan_ref."""
+    synchronisation) or raise: the kernel templated on P for P <= 8,
+    the generic one past it or with ``generic`` (to time it).  CPU
+    tensors take affine_scan_ref."""
     global affine_scan_launches
     _check_scan_args(data, state0, j0, table, W, CPW, BITS, extra=(bp,))
     if BITS not in (4, 8):
@@ -262,9 +322,17 @@ def affine_scan(data, state0, j0, table, bp, *, W, CPW, BITS, NCLS, OFF,
     if data.device.type != "cuda":
         raise ValueError("affine_scan runs on cuda or cpu tensors, got %s"
                          % data.device)
-    planes = launch_planes("sre_affine_scan", data, state0, j0, table,
-                           (W, CPW, BITS, int(bool(COUNT)), bp.data_ptr(),
-                            bp.numel(), int(NCLS), int(OFF)))
+    rt, pc = relaid.table, relaid.pieces
+    if len(relaid.bp) != bp.numel() or rt.device != data.device \
+            or pc.device != data.device \
+            or rt.numel() != 2 * (bp.numel() + 1) << BITS:
+        raise ValueError("relaid must be relay_table's Relaid of these "
+                         "breakpoints at BITS=%d on the data's device"
+                         % BITS)
+    planes = launch_planes("sre_affine_scan", data, state0, j0, rt,
+                           (W, CPW, BITS, int(bool(COUNT)), pc.data_ptr(),
+                            ctypes.addressof(relaid.host), bp.numel(),
+                            int(bool(generic))))
     affine_scan_launches += 1
     return planes
 
@@ -305,3 +373,46 @@ def affine_scan_ref(data, state0, j0, table, bp, *, W, CPW, BITS, NCLS,
             s, mbit = step(s, word, k)
             acc = acc + mbit if COUNT else acc | mbit
     return s, acc, swarm
+
+
+def _wrap32(x):
+    """int64 values as the int32 two's complement wrap of their low
+    32 bits, in an int64 tensor."""
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def affine_relaid_ref(data, state0, j0, relaid, *, W, CPW, BITS, COUNT):
+    """A plain torch model of the kernel's walk over its re-laid table
+    ``relaid`` (relay_table), on any device: the piece's row offset is
+    offsets[pid], pid the count of breakpoints at or below s; the entry
+    (add, y) lies at byte (code << 3) ^ offset; s' = s * (y >> 31) + add
+    with int32 wrap, and the match is y's bit 0.  Equal to
+    affine_scan_ref wherever relay_table was given that function's
+    table, breakpoints and OFF (tests/test_torch_affine.py)."""
+    cmask = (1 << BITS) - 1
+    tab = relaid.table.to(data.device).long().view(-1, 2) & 0xFFFFFFFF
+    add, y = _wrap32(tab[:, 0]), tab[:, 1]
+    offs = torch.tensor(relaid.offsets, device=data.device)
+
+    def step(s, word, k):
+        pid = torch.zeros_like(s)
+        for b in relaid.bp:
+            pid += (s >= b).long()
+        idx = (((word >> (BITS * k)) & cmask) << 3 ^ offs[pid]) >> 3
+        yy = y[idx]
+        return _wrap32(s * (yy >> 31) + add[idx]), yy & 1
+
+    s = state0.long()
+    j0 = j0.long()
+    data = data.long()
+    for w in range(W // CPW):
+        for k in range(CPW):
+            nxt, _ = step(s, data[:, w], k)
+            s = torch.where(w * CPW + k >= j0, nxt, s)
+    swarm = s
+    acc = torch.zeros_like(s)
+    for w in range(W // CPW, data.shape[1]):
+        for k in range(CPW):
+            s, m = step(s, data[:, w], k)
+            acc = acc + m if COUNT else acc | m
+    return tuple(x.to(torch.int32) for x in (s, acc, swarm))

@@ -30,15 +30,15 @@ overlap; the ragged tail finishes on the host from the composed exit):
 
 The kernels (csrc/phi_scan.cu) replace pallas_phi.py::_phi_kernel and
 ::_phi_kernel_big; phi_scan_ref and phi_big_scan_ref are their plain
-versions.  The sublane-group kernel walks KS classes a lookup through a
-k-gram table built here from the fused table (stride_table, cached on
-PhiTablesBig); phi_big_stride_ref is a plain model of that walk, held
-against phi_big_scan_ref by the CPU tests.  The composition (the JAX
-package's _compose, jnp there) is torch ops: a binary tree of gathers
-for COUNT, and for scan the same tree kept level by level (up-sweep)
-and walked down along the one path the true entry state takes
-(down-sweep), which gives every chunk's entry state and so the first
-firing chunk.
+versions.  Both kernels walk KS classes a lookup through a k-gram table
+built here from the fused table (stride_table, cached by the tables'
+stride()); phi_stride_ref and phi_big_stride_ref are plain models of
+those walks, held against the plain versions by the CPU tests.  The
+composition (the JAX package's _compose, jnp there) is torch ops: a
+binary tree of gathers for COUNT, and for scan the same tree kept level
+by level (up-sweep) and walked down along the one path the true entry
+state takes (down-sweep), which gives every chunk's entry state and so
+the first firing chunk.
 """
 
 import ctypes
@@ -54,8 +54,8 @@ from .spec_scan import _CPW, _host_bytes, fused_table, resolve_device
 
 _SENT = 1 << 30          # "no match" in the scan-mode acc plane
 _PACK_CHUNKS = 1 << 16   # chunks class-packed per step of the prep
-# int32 entries the sublane-group kernel may stage in a block's shared
-# memory (227 KB): the k-gram table, the fused table and its padding
+# int32 entries a stride kernel may stage in a block's shared memory
+# (227 KB): the k-gram table, the fused table and its padding
 STRIDE_SMEM_ENTRIES = 232448 // 4
 # a k-gram entry: the next row's byte offset at bit 14, below it the
 # k steps' match count or first match (csrc/phi_scan.cu, kOffShift)
@@ -71,9 +71,11 @@ class _PhiTables:
     table ``fused`` (int32 [rows*128], next*ncls | match << 20) on
     ``device``, bits/cpw (4-bit classes when ncls <= 16, else 8-bit),
     class_map, match_eof and last_repair (Scanner.stats(); a completed
-    phi scan never repairs, so it records (0, C))."""
+    phi scan never repairs, so it records (0, C)); the kernel's k-gram
+    tables (stride)."""
 
     last_repair = None
+    STRIDE_KS = (4, 2)       # the k stride_k may choose, largest first
 
     def _finish(self, dfa):
         S, ncls = dfa.nstates, dfa.nclasses
@@ -86,6 +88,21 @@ class _PhiTables:
         self.bits = 4 if ncls <= 16 else 8
         self.cpw = _CPW[self.bits]
         self.match_eof = dfa.match_eof
+        self._strides = {}
+
+    def stride(self, count, k=None):
+        """(k, the k-gram table on the tables' device) for the kernel in
+        COUNT mode ``count``; k defaults to stride_k's choice.  Built once
+        per (k, mode)."""
+        k = stride_k(self.nstates, self.ncls, self.cpw, self.fused.numel(),
+                     self.STRIDE_KS) if k is None else k
+        hit = self._strides.get((k, bool(count)))
+        if hit is None:
+            hit = torch.from_numpy(stride_table(
+                self.fused.cpu().numpy(), self.nstates, self.ncls, k,
+                count)).to(self.device)
+            self._strides[(k, bool(count))] = hit
+        return k, hit
 
 
 class PhiTables(_PhiTables):
@@ -95,6 +112,7 @@ class PhiTables(_PhiTables):
 
     MAX_STATES = 128
     MAX_ENTRIES = 1024
+    STRIDE_KS = (8, 4, 2)
 
     def __init__(self, dfa, device):
         S, ncls = dfa.nstates, dfa.nclasses
@@ -145,29 +163,15 @@ class PhiTablesBig(_PhiTables):
         self.SB = 1 << (sb - 1).bit_length()     # power-of-two group
         self.CPT = 8 // self.SB                  # chunks per tile
         self._finish(dfa)
-        self._strides = {}
-
-    def stride(self, count, k=None):
-        """(k, the k-gram table on the tables' device) for the kernel in
-        COUNT mode ``count``; k defaults to stride_k's choice.  Built once
-        per (k, mode)."""
-        k = stride_k(self.nstates, self.ncls, self.cpw, self.fused.numel()) \
-            if k is None else k
-        hit = self._strides.get((k, bool(count)))
-        if hit is None:
-            hit = torch.from_numpy(stride_table(
-                self.fused.cpu().numpy(), self.nstates, self.ncls, k,
-                count)).to(self.device)
-            self._strides[(k, bool(count))] = hit
-        return k, hit
 
 
-def stride_k(S, ncls, cpw, table_len):
-    """The classes a lookup of the sublane-group kernel: the largest k in
-    (4, 2, 1) dividing ``cpw`` whose k-gram table (S * ncls**k entries)
-    fits shared memory beside the padded fused table (on the card the
-    kernel's time falls with k: PERF.md)."""
-    for k in (4, 2):
+def stride_k(S, ncls, cpw, table_len, ks=(4, 2)):
+    """The classes a lookup of a phi kernel: the largest k in ``ks`` (the
+    sublane-group kernel's (4, 2), the lane-packed one's (8, 4, 2)), or
+    1, dividing ``cpw`` whose k-gram table (S * ncls**k entries) fits
+    shared memory beside the padded fused table (on the card the
+    kernels' time falls with k: PERF.md)."""
+    for k in ks:
         if cpw % k == 0 and S * ncls ** k + table_len + 256 \
                 <= STRIDE_SMEM_ENTRIES:
             return k
@@ -352,14 +356,29 @@ def _launch(entry, data, table, extra):
     return phi, acc
 
 
-def phi_scan(data, table, *, Kw, WL, CPW, BITS, S, NSEG, NCLS, COUNT):
+def _check_stride(stride, data, S, NCLS, CPW):
+    """(k, the k-gram table) checked against the kernel's shapes."""
+    k, ktab = stride
+    if ktab.dtype != torch.int32 or ktab.device != data.device \
+            or ktab.numel() != S * NCLS ** k or CPW % k:
+        raise ValueError("stride must be (k, int32 [S*NCLS**k]) on the "
+                         "data's device with k dividing CPW")
+    return k, ktab
+
+
+def phi_scan(data, table, *, Kw, WL, CPW, BITS, S, NSEG, NCLS, COUNT,
+             stride):
     """Run the lane-packed phi kernel.  data int32 [B, P, G, 8, 128] in
     the lane-packed layout (Kw words per chunk, WL per plane, NSEG
     segments of S lanes); table int32 [R*128], the fused table of a
-    machine with NCLS classes.  Returns (phi, acc), int32 [B, G, 8, 128]:
-    per lane the premultiplied exit state and the match count (COUNT)
-    or the first match offset in the chunk (_SENT when none).  Lanes
-    >= NSEG*S are padding.
+    machine with NCLS classes, every entry a premultiplied state below
+    S*NCLS.  Returns (phi, acc), int32 [B, G, 8, 128]: per lane the
+    premultiplied exit state and the match count (COUNT) or the first
+    match offset in the chunk (_SENT when none).  Lanes >= NSEG*S are
+    padding (the kernel leaves them unwritten).  ``stride`` = (k, the
+    k-gram table of ``table`` for this COUNT mode on the same device,
+    from stride_table), e.g. PhiTables.stride(COUNT); the plain version
+    on the CPU does not read it.
 
     CUDA tensors launch sre_phi_scan (csrc/phi_scan.cu) on the current
     stream or raise; CPU tensors take phi_scan_ref."""
@@ -375,8 +394,10 @@ def phi_scan(data, table, *, Kw, WL, CPW, BITS, S, NSEG, NCLS, COUNT):
     if data.device.type != "cuda":
         raise ValueError("phi_scan runs on cuda or cpu tensors, got %s"
                          % data.device)
+    k, ktab = _check_stride(stride, data, S, NCLS, CPW)
     out = _launch("sre_phi_scan", data, table,
-                  (Kw, WL, BITS, S, NSEG, NCLS, int(bool(COUNT))))
+                  (Kw, WL, BITS, S, NSEG, NCLS, int(bool(COUNT)),
+                   ktab.data_ptr(), ktab.numel(), k))
     phi_scan_launches += 1
     return out
 
@@ -405,11 +426,7 @@ def phi_big_scan(data, table, *, Kw, CPW, BITS, S, SB, NCLS, COUNT,
     if data.device.type != "cuda":
         raise ValueError("phi_big_scan runs on cuda or cpu tensors, got %s"
                          % data.device)
-    k, ktab = stride
-    if ktab.dtype != torch.int32 or ktab.device != data.device \
-            or ktab.numel() != S * NCLS ** k or CPW % k:
-        raise ValueError("stride must be (k, int32 [S*NCLS**k]) on the "
-                         "data's device with k dividing CPW")
+    k, ktab = _check_stride(stride, data, S, NCLS, CPW)
     out = _launch("sre_phi_big_scan", data, table,
                   (Kw, BITS, S, SB, NCLS, int(bool(COUNT)),
                    ktab.data_ptr(), ktab.numel(), k))
@@ -470,16 +487,15 @@ def phi_big_scan_ref(data, table, *, Kw, CPW, BITS, S, SB, NCLS, COUNT):
     return _phi_walk(data, table, entry, word_at, Kw, CPW, BITS, COUNT)
 
 
-def phi_big_stride_ref(data, table, stride, *, Kw, CPW, BITS, S, SB, NCLS,
-                       COUNT):
-    """A plain torch model of the sublane-group kernel's walk, on any
-    device: slots hold their k-gram row as a byte offset (the entry's
-    high bits); a word whose
+def _stride_walk(data, table, stride, q0, word_at, Kw, CPW, BITS, NCLS,
+                 COUNT):
+    """The plain loop of both kernels' k-gram walks: slots hold their
+    k-gram row as a byte offset (the entry's high bits); a word whose
     classes are all below NCLS takes k classes a lookup in the k-gram
     table ``stride`` = (k, int32 [S*NCLS**k]); any other word steps its
     classes one at a time through the fused table padded with entry
-    (index & 127) past its end.  Equal to phi_big_scan_ref wherever
-    stride_table accepts the table (tests/test_torch_phi.py)."""
+    (index & 127) past its end.  ``q0`` int64 [8, 128] the slots' plain
+    entry states; ``word_at(w)`` the slots' word w."""
     k, ktab = stride
     ktab = ktab.to(data.device).long() & 0xFFFFFFFF
     fmask = (1 << _OFF_SHIFT) - 1
@@ -489,16 +505,11 @@ def phi_big_stride_ref(data, table, stride, *, Kw, CPW, BITS, S, SB, NCLS,
     M = NCLS ** k
     unit = 4 * M // NCLS
     cmask = (1 << BITS) - 1
-    subl = torch.arange(8, device=data.device)[:, None]
-    lanes = torch.arange(128, device=data.device)
-    q0 = ((subl % SB) * 128 + lanes).clamp(max=S - 1)
     B, _, G = data.shape[:3]
     s = (q0 * (M * 4)).expand(B, G, 8, 128).long()
     acc = torch.full_like(s, 0 if COUNT else _SENT)
     for w in range(Kw):
-        # every slot reads word w from its own sublane
-        o = w % 128
-        word = data[:, w // 128, ..., o:o + 1].long() & 0xFFFFFFFF
+        word = word_at(w).long() & 0xFFFFFFFF
         cls = [(word >> (BITS * j)) & cmask for j in range(CPW)]
         fast = torch.stack([c < NCLS for c in cls]).all(0)
         s_f, acc_f = s.clone(), acc.clone()
@@ -526,6 +537,42 @@ def phi_big_stride_ref(data, table, stride, *, Kw, CPW, BITS, S, SB, NCLS,
         s = torch.where(fast, s_f, s1 * unit)
         acc = torch.where(fast, acc_f, acc_s)
     return (s // unit).to(torch.int32), acc.to(torch.int32)
+
+
+def phi_stride_ref(data, table, stride, *, Kw, WL, CPW, BITS, S, NSEG,
+                   NCLS, COUNT):
+    """A plain torch model of the lane-packed kernel's k-gram walk
+    (_stride_walk), on any device.  Equal to phi_scan_ref on the slots
+    below NSEG*S wherever stride_table accepts the table
+    (tests/test_torch_phi.py)."""
+    lanes = torch.arange(128, device=data.device)
+    seg = lanes // S
+    q0 = (lanes - seg * S).expand(8, 128)
+    didx = [(seg + o * NSEG).clamp(max=127) for o in range(WL)]
+
+    def word_at(w):
+        return data[:, w // WL].index_select(-1, didx[w % WL])
+
+    return _stride_walk(data, table, stride, q0, word_at, Kw, CPW, BITS,
+                        NCLS, COUNT)
+
+
+def phi_big_stride_ref(data, table, stride, *, Kw, CPW, BITS, S, SB, NCLS,
+                       COUNT):
+    """A plain torch model of the sublane-group kernel's k-gram walk
+    (_stride_walk), on any device: every slot reads word w from its own
+    sublane.  Equal to phi_big_scan_ref wherever stride_table accepts
+    the table (tests/test_torch_phi.py)."""
+    subl = torch.arange(8, device=data.device)[:, None]
+    lanes = torch.arange(128, device=data.device)
+    q0 = ((subl % SB) * 128 + lanes).clamp(max=S - 1)
+
+    def word_at(w):
+        o = w % 128
+        return data[:, w // 128, ..., o:o + 1]
+
+    return _stride_walk(data, table, stride, q0, word_at, Kw, CPW, BITS,
+                        NCLS, COUNT)
 
 
 # --- composition and the summary --------------------------------------------
@@ -615,7 +662,7 @@ def _phi_dispatch(tables, prepared, C, entry_state, COUNT):
                                 stride=tables.stride(COUNT), **kw)
     else:
         phi, acc = phi_scan(data, tables.fused, WL=WL, NSEG=tables.nseg,
-                            **kw)
+                            stride=tables.stride(COUNT), **kw)
     return _summary(tables, phi, acc, C, K, entry_state, COUNT).numpy()
 
 

@@ -4,9 +4,12 @@ its own tests run it), and the port's warmup ladder against the JAX
 Scanner's.
 
 Planes: on identical seeded inputs, affine_scan_ref (which the wrapper
-takes for CPU tensors) gives the JAX kernel's phi/fm/swarm, and the
-summary and repair planes equal JAX's.  Classes run past the table, so
-the out-of-table rule (entry index & 127) is exercised.  Results:
+takes for CPU tensors) and affine_relaid_ref (the plain model of the
+card's walk over the re-laid table) give the JAX kernel's phi/fm/swarm,
+and the summary and repair planes equal JAX's.  Classes run past the
+table, so the out-of-table rule (entry index & 127) is exercised; the
+model also equals affine_scan_ref on random tables of 1 to 48 pieces,
+states out of range and int32 wrap.  Results:
 spec_scan_bytes / spec_count_bytes equal the JAX package's and the
 native engine, a renumbered (perm) machine included.  B = 1 and
 K = 256 in the plane and result tests; every quantity is an integer,
@@ -158,9 +161,12 @@ def test_planes_and_summary_match_jax(tiers, name, count):
         t[0], t[1], t[2], tt.fused, tt.bp, W=W, CPW=tt.cpw, BITS=tt.bits,
         NCLS=tt.ncls, OFF=tt.off, COUNT=count)
     jphi, jfm, jswarm = jscan._unpack(j_packed, Cp)
-    assert np.array_equal(phi.reshape(-1).numpy(), jphi)
-    assert np.array_equal(fm.reshape(-1).numpy(), jfm)
-    assert np.array_equal(swarm.reshape(-1).numpy(), jswarm)
+    model = taff.affine_relaid_ref(t[0], t[1], t[2], tt.relaid, W=W,
+                                   CPW=tt.cpw, BITS=tt.bits, COUNT=count)
+    for got in ((phi, fm, swarm), model):
+        assert np.array_equal(got[0].reshape(-1).numpy(), jphi)
+        assert np.array_equal(got[1].reshape(-1).numpy(), jfm)
+        assert np.array_equal(got[2].reshape(-1).numpy(), jswarm)
     assert (j0 == 0).any() and (j0 >= W).any()
     if count:
         assert jfm.max() > 1         # counts, not a 0/1 flag
@@ -266,7 +272,8 @@ def test_wrapper_checks_and_counts_no_cpu_launch(tiers):
     _, tt, _ = tiers["counted"]
     data = torch.zeros((1, (32 + CHUNK) // 8, 1, 8, 128), dtype=torch.int32)
     s0 = torch.zeros((1, 1, 8, 128), dtype=torch.int32)
-    kw = dict(W=32, CPW=8, BITS=4, NCLS=tt.ncls, OFF=tt.off, COUNT=True)
+    kw = dict(W=32, CPW=8, BITS=4, NCLS=tt.ncls, OFF=tt.off, COUNT=True,
+              relaid=tt.relaid)
     before = taff.affine_scan_launches
     taff.affine_scan(data, s0, s0, tt.fused, tt.bp, **kw)
     assert taff.affine_scan_launches == before
@@ -278,3 +285,91 @@ def test_wrapper_checks_and_counts_no_cpu_launch(tiers):
     meta = [x.to("meta") for x in (data, s0, s0, tt.fused, tt.bp)]
     with pytest.raises(ValueError, match="cuda or cpu"):
         taff.affine_scan(*meta, **kw)
+
+
+def test_relaid_table_holds_the_plain_versions_entries(tiers):
+    """relay_table: piece pid's row at byte pid << (bits + 3), swizzled
+    by sw(pid) = pid * (ncls rounded up to a power of two) mod 16; the
+    entry of (pid, code) at byte (code << 3) ^ offsets[pid] is the
+    (add, y) of fused[pid * ncls + code], or of entry (index & 127) past
+    the table; SpecTablesAffine carries its own; unsorted breakpoints
+    are refused."""
+    for name, (_, tt, _) in tiers.items():
+        rel = tt.relaid
+        assert rel.bp == tt.bp_premult
+        assert list(rel.host) == list(rel.bp + rel.offsets) \
+            == rel.pieces.tolist()
+        blk = 1 << (tt.ncls - 1).bit_length()
+        for pid, o in enumerate(rel.offsets):
+            sw = (pid * blk) % 16 if blk < 16 else 0
+            assert o == pid << (tt.bits + 3) | sw << 3
+        tab = rel.table.numpy().view(np.uint32).reshape(-1, 2)
+        assert len(tab) == tt.pieces << tt.bits
+        f = tt.fused.numpy().view(np.uint32)
+        for pid in range(tt.pieces):
+            for code in (0, tt.ncls - 1, tt.ncls, (1 << tt.bits) - 1):
+                idx = pid * tt.ncls + code
+                e = int(f[idx if idx < len(f) else idx & 127])
+                val, rel_bit = e & taff._VAL_MASK, (e >> 28) & 1
+                add = (val - tt.off if rel_bit else val) & 0xFFFFFFFF
+                y = rel_bit << 31 | (e >> 30) & 1
+                at = (code << 3 ^ rel.offsets[pid]) >> 3
+                assert tuple(tab[at]) == (add, y), (name, pid, code)
+    with pytest.raises(ValueError, match="sorted"):
+        taff.relay_table(tt.fused.numpy(), (6, 3), tt.ncls, tt.bits,
+                         tt.off, CPU)
+
+
+def _affine_random(rng, pieces, bits, wrap, B=1, G=1, K=32):
+    """Random affine inputs of P pieces (the cuda tests' families):
+    class codes up to 2**bits; with ``wrap`` arbitrary int32 entries and
+    entry states (out of range, the breakpoints' neighbours, the int32
+    extremes), else valid ones."""
+    cpw = {4: 8, 8: 4}[bits]
+    W = 2 * cpw
+    ncls = int(rng.integers(2, (1 << bits) + 1))
+    S = pieces * int(rng.integers(3, 40))
+    off = S * ncls
+    Jw = (W + K) // cpw
+    words = rng.integers(0, 1 << 32, (B, Jw, G, 8, 128), dtype=np.uint64)
+    bp = np.sort(rng.choice(np.arange(1, S), pieces - 1, replace=False)
+                 * ncls)
+    rows = -(-(pieces * ncls) // 128)
+    if wrap:
+        table = rng.integers(-2 ** 31, 2 ** 31, rows * 128)
+        s0 = rng.integers(-2 ** 31, 2 ** 31, (B, G, 8, 128))
+        near = [-2 ** 31, 2 ** 31 - 1, -1, 0, off]
+        for b in bp.tolist():
+            near += [b - 1, b]
+        s0.reshape(-1)[:len(near)] = near
+    else:
+        table = (rng.integers(0, 2 * off, rows * 128)
+                 | rng.integers(0, 2, rows * 128) << 28
+                 | rng.integers(0, 2, rows * 128) << 30)
+        s0 = rng.integers(0, S, (B, G, 8, 128)) * ncls
+    j0 = rng.integers(0, W + 1, (B, G, 8, 128))
+    arrays = (words.astype(np.uint32).view(np.int32), s0.astype(np.int32),
+              j0.astype(np.int32), table.astype(np.int32),
+              bp.astype(np.int32))
+    return ([torch.from_numpy(a) for a in arrays],
+            dict(W=W, CPW=cpw, BITS=bits, NCLS=ncls, OFF=off))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("wrap", [False, True])
+def test_relaid_walk_equals_the_plain_version(bits, wrap):
+    """The plain model of the kernel's walk (affine_relaid_ref over
+    relay_table) equals affine_scan_ref for P from 1 to 48, the
+    templated kernel's range and past it, COUNT and scan."""
+    rng = np.random.default_rng(bits * 2 + wrap)
+    for pieces in (*range(1, 10), 12, 16, 23, 31, 40, 47, 48):
+        args, kw = _affine_random(rng, pieces, bits, wrap)
+        rel = taff.relay_table(args[3].numpy(), args[4].tolist(), kw["NCLS"],
+                               bits, kw["OFF"], CPU)
+        for count in (True, False):
+            want = taff.affine_scan_ref(*args, COUNT=count, **kw)
+            got = taff.affine_relaid_ref(*args[:3], rel, W=kw["W"],
+                                         CPW=kw["CPW"], BITS=bits,
+                                         COUNT=count)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (pieces, count)

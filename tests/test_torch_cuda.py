@@ -113,13 +113,71 @@ def test_affine_kernel_equals_plain_version(cuda, pieces, bits, count, W):
         rng.integers(0, W + 1, (B, G, 8, 128)).astype(np.int32))
     args = [t.to(cuda) for t in (data, s0, j0, table, bp)]
     kw = dict(W=W, CPW=cpw, BITS=bits, NCLS=ncls, OFF=off, COUNT=count)
+    rel = taff.relay_table(table.numpy(), bp.tolist(), ncls, bits, off, cuda)
     before = taff.affine_scan_launches
-    got = taff.affine_scan(*args, **kw)
+    got = taff.affine_scan(*args, relaid=rel, **kw)
     torch.cuda.synchronize()
     assert taff.affine_scan_launches == before + 1
     want = taff.affine_scan_ref(*args, **kw)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _affine_edge_case(rng, pieces, bits, edge, B=1, G=8, W=None, K=256):
+    """Random affine inputs of P pieces, class codes up to 2**bits (past
+    the table too).  ``edge``: "in" valid entry states and entries;
+    "wrap" arbitrary int32 table entries and entry states (states out of
+    range, relative steps that wrap), the breakpoints' neighbours and
+    the int32 extremes among them."""
+    cpw = {4: 8, 8: 4}[bits]
+    W = W or 4 * cpw
+    ncls = int(rng.integers(2, (1 << bits) + 1))
+    S = pieces * int(rng.integers(3, 40))
+    off = S * ncls
+    Jw = (W + K) // cpw
+    words = rng.integers(0, 1 << 32, (B, Jw, G, 8, 128), dtype=np.uint64)
+    bp = np.sort(rng.choice(np.arange(1, S), pieces - 1, replace=False)
+                 * ncls).astype(np.int32)
+    rows = -(-(pieces * ncls) // 128)
+    if edge == "wrap":
+        table = rng.integers(-2 ** 31, 2 ** 31, rows * 128)
+        s0 = rng.integers(-2 ** 31, 2 ** 31, (B, G, 8, 128))
+        near = [-2 ** 31, 2 ** 31 - 1, -1, 0, off, off - 1]
+        for b in bp.tolist():
+            near += [b - 1, b, b + 1]
+        s0.reshape(-1)[:len(near)] = near
+    else:
+        table = (rng.integers(0, 2 * off, rows * 128)
+                 | rng.integers(0, 2, rows * 128) << 28
+                 | rng.integers(0, 2, rows * 128) << 30)
+        s0 = rng.integers(0, S, (B, G, 8, 128)) * ncls
+    j0 = rng.integers(0, W + 1, (B, G, 8, 128))
+    arrays = (words.astype(np.uint32).view(np.int32), s0.astype(np.int32),
+              j0.astype(np.int32), table.astype(np.int32), bp)
+    return ([torch.from_numpy(a) for a in arrays],
+            dict(W=W, CPW=cpw, BITS=bits, NCLS=ncls, OFF=off))
+
+
+@pytest.mark.parametrize("pieces", [1, 2, 3, 8, 9, 48])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("edge", ["in", "wrap"])
+def test_affine_kernel_edge_families(cuda, pieces, bits, edge):
+    """The templated kernel (P <= 8) and the generic one (past 8, or
+    forced) equal the plain version on every class code, states out of
+    range and int32 wrap, COUNT and scan."""
+    rng = np.random.default_rng(pieces * 31 + bits + len(edge))
+    args, kw = _affine_edge_case(rng, pieces, bits, edge)
+    rel = taff.relay_table(args[3].numpy(), args[4].tolist(), kw["NCLS"],
+                           bits, kw["OFF"], cuda)
+    args = [t.to(cuda) for t in args]
+    for count in (True, False):
+        want = taff.affine_scan_ref(*args, COUNT=count, **kw)
+        for generic in (False, True):
+            got = taff.affine_scan(*args, COUNT=count, relaid=rel,
+                                   generic=generic, **kw)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (count, generic)
 
 
 def test_entry_points_run_on_the_card_by_default(cuda):
@@ -305,8 +363,10 @@ def test_phi_kernel_equals_plain_version(cuda, S, bits, ncls, count):
     rng = np.random.default_rng(S * 10 + bits)
     data, table, kw = _phi_case(rng, S, bits, ncls, big=False)
     args = [torch.from_numpy(a).to(cuda) for a in (data, table)]
+    k = tphi.stride_k(S, ncls, kw["CPW"], table.size, (8, 4, 2))
+    st = torch.from_numpy(tphi.stride_table(table, S, ncls, k, count))
     before = tphi.phi_scan_launches
-    got = tphi.phi_scan(*args, COUNT=count, **kw)
+    got = tphi.phi_scan(*args, COUNT=count, stride=(k, st.to(cuda)), **kw)
     torch.cuda.synchronize()
     assert tphi.phi_scan_launches == before + 1
     want = tphi.phi_scan_ref(*args, COUNT=count, **kw)
@@ -379,6 +439,60 @@ def test_phi_big_kernel_k_gram_walk(cuda, S, bits, ncls, words):
             torch.cuda.synchronize()
             for g, v in zip(got, want):
                 assert torch.equal(g[..., valid], v[..., valid]), (k, count)
+
+
+@pytest.mark.parametrize("S,bits,ncls", [(1, 4, 2), (3, 4, 3), (4, 4, 3),
+                                         (5, 4, 5), (9, 4, 4), (128, 4, 8),
+                                         (50, 8, 20), (3, 8, 256)])
+@pytest.mark.parametrize("words", ["in", "mixed"])
+def test_phi_kernel_k_gram_walk(cuda, S, bits, ncls, words):
+    """The lane-packed kernel at each k in (8, 4, 2, 1) that divides the
+    word and fits shared memory: every class below ncls (the k-gram path
+    on every word), or one word in ten with a class code past ncls (the
+    single steps between k-gram words), COUNT and scan, equal to the
+    plain version on the valid slots."""
+    rng = np.random.default_rng(S * 5 + bits + len(words))
+    cpw = 32 // bits
+    K = 2048
+    Kw = K // cpw
+    rows = -(-(S * ncls) // 128)
+    table = (rng.integers(0, S, rows * 128) * ncls
+             | rng.integers(0, 2, rows * 128) << 20).astype(np.int32)
+    nseg = max(1, 128 // S)
+    WL = 128 // nseg
+    P = -(-Kw // WL)
+    cls = rng.integers(0, ncls, (2, P, 8, 8, 128, cpw))
+    if words == "mixed" and ncls < 1 << bits:
+        bad = rng.random(cls.shape[:-1]) < 0.1
+        cls[..., 0] = np.where(bad, rng.integers(ncls, 1 << bits, bad.shape),
+                               cls[..., 0])
+    w = np.zeros(cls.shape[:-1], np.int64)
+    for j in range(cpw):
+        w |= cls[..., j] << (bits * j)
+    data = torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(cuda)
+    tab = torch.from_numpy(table).to(cuda)
+    kw = dict(Kw=Kw, WL=WL, CPW=cpw, BITS=bits, S=S, NSEG=nseg, NCLS=ncls)
+    valid = _phi_valid(kw).to(cuda)
+    for count in (True, False):
+        want = tphi.phi_scan_ref(data, tab, COUNT=count, **kw)
+        for k in (8, 4, 2, 1):
+            if cpw % k or S * ncls ** k + tab.numel() + 256 \
+                    > tphi.STRIDE_SMEM_ENTRIES:
+                continue
+            st = torch.from_numpy(tphi.stride_table(
+                table, S, ncls, k, count)).to(cuda)
+            got = tphi.phi_scan(data, tab, COUNT=count, stride=(k, st), **kw)
+            torch.cuda.synchronize()
+            for g, v in zip(got, want):
+                assert torch.equal(g[..., valid], v[..., valid]), (k, count)
+
+
+def test_phi_scan_needs_its_stride_on_the_card(cuda):
+    rng = np.random.default_rng(1)
+    data, table, kw = _phi_case(rng, 4, 4, 3, big=False)
+    args = [torch.from_numpy(a).to(cuda) for a in (data, table)]
+    with pytest.raises(TypeError, match="stride"):
+        tphi.phi_scan(*args, COUNT=True, **kw)
 
 
 def test_phi_tier_runs_on_the_card(cuda):

@@ -6,7 +6,10 @@ Tables and prep: the port's fused tables and packed corpora equal the
 JAX ones bit for bit, from host bytes and from a uint8 tensor.  Planes:
 the plain versions (which the kernel wrappers take for CPU tensors)
 give, for every chunk and every entry state, the native engine's exit
-state and count or first match.  Summaries: _phi_dispatch equals the
+state and count or first match; the plain models of both kernels'
+k-gram walks (phi_stride_ref, phi_big_stride_ref) equal the plain
+versions, and the lane-packed one equals the JAX kernel's planes.
+Summaries: _phi_dispatch equals the
 JAX one for COUNT and scan on both layouts, 4- and 8-bit words.
 Results: phi_count_bytes / phi_scan_bytes equal the JAX package's and
 the native engine's on tests/test_pallas_phi.py's machines, and the
@@ -16,11 +19,16 @@ Small corpora and chunk_len=512 keep the interpret-mode compiles few
 so the tolerance is exact equality.
 """
 
+import functools
 import random
 
 import numpy as np
 import pytest
 import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental import pallas as pl
 
 from sregex_tpu import compile_regex, parse, parse_multi
 from sregex_tpu.dfa import build_dfa
@@ -306,7 +314,7 @@ def test_wrappers_check_and_count_no_cpu_launch():
     _, tt, _ = _pair(rb"b(?:aa)*b")
     data, _, K, WL, _, _ = tphi.phi_prepare(tt, b"ab" * 5000, CHUNK)
     kw = dict(Kw=K // 8, WL=WL, CPW=8, BITS=4, S=4, NSEG=32, NCLS=3,
-              COUNT=True)
+              COUNT=True, stride=tt.stride(True))
     before = tphi.phi_scan_launches
     tphi.phi_scan(data, tt.fused, **kw)
     assert tphi.phi_scan_launches == before
@@ -321,6 +329,9 @@ def test_wrappers_check_and_count_no_cpu_launch():
     meta = [x.to("meta") for x in (data, tt.fused)]
     with pytest.raises(ValueError, match="cuda or cpu"):
         tphi.phi_scan(*meta, **kw)
+    with pytest.raises(TypeError, match="stride"):
+        tphi.phi_scan(data, tt.fused, **{k: v for k, v in kw.items()
+                                         if k != "stride"})
     bkw = dict(Kw=K // 8, CPW=8, BITS=4, S=139, SB=2, NCLS=3, COUNT=False,
                stride=(1, torch.from_numpy(tphi.stride_table(
                    tt.fused.numpy(), tt.nstates, tt.ncls, 1, False))))
@@ -419,3 +430,112 @@ def test_stride_table_entries_and_choice():
     bad[5] = 4
     with pytest.raises(ValueError):
         tphi.stride_table(bad, 501, 3, 2, True)
+
+
+def _lane_case(rng, S, bits, ncls, words, B=1, G=1, K=128):
+    """Random lane-packed words (``words`` as _stride_case's), a random
+    fused table of valid premultiplied states, and the kernel's
+    keywords."""
+    cpw = 32 // bits
+    Kw = K // cpw
+    rows = -(-(S * ncls) // 128)
+    table = (rng.integers(0, S, rows * 128) * ncls
+             | rng.integers(0, 2, rows * 128) << 20).astype(np.int32)
+    nseg = max(1, 128 // S)
+    WL = 128 // nseg
+    P = -(-Kw // WL)
+    cls = rng.integers(0, ncls if words != "any" else 1 << bits,
+                       (B, P, G, 8, 128, cpw))
+    if words == "mixed" and ncls < 1 << bits:
+        bad = rng.random(cls.shape[:-1]) < 0.1
+        cls[..., 0] = np.where(bad, rng.integers(ncls, 1 << bits, bad.shape),
+                               cls[..., 0])
+    w = np.zeros(cls.shape[:-1], np.int64)
+    for j in range(cpw):
+        w |= cls[..., j] << (bits * j)
+    data = torch.from_numpy(w.astype(np.uint32).view(np.int32))
+    return data, torch.from_numpy(table), dict(
+        Kw=Kw, WL=WL, CPW=cpw, BITS=bits, S=S, NSEG=nseg, NCLS=ncls)
+
+
+@pytest.mark.parametrize("S,bits,ncls", [(1, 4, 2), (4, 4, 3), (5, 4, 5),
+                                         (9, 4, 4), (128, 4, 8),
+                                         (2, 4, 20), (50, 8, 20),
+                                         (3, 8, 256)])
+@pytest.mark.parametrize("words", ["in", "mixed", "any"])
+def test_lane_stride_walk_equals_the_plain_version(S, bits, ncls, words):
+    """The plain model of the lane-packed kernel's k-gram walk equals
+    phi_scan_ref on the valid slots for every k in (8, 4, 2, 1) that
+    divides the word and fits shared memory (every k stride_k can
+    choose), 1 to 128 states, class codes past ncls, COUNT and scan."""
+    rng = np.random.default_rng(S * 11 + bits + len(words))
+    data, table, kw = _lane_case(rng, S, bits, ncls, words)
+    valid = torch.arange(128) < kw["NSEG"] * S
+    ks = [k for k in (8, 4, 2, 1) if kw["CPW"] % k == 0
+          and S * ncls ** k + table.numel() + 256
+          <= tphi.STRIDE_SMEM_ENTRIES]
+    assert tphi.stride_k(S, ncls, kw["CPW"], table.numel(),
+                         (8, 4, 2)) == ks[0]
+    for count in (True, False):
+        want = tphi.phi_scan_ref(data, table, COUNT=count, **kw)
+        for k in ks:
+            st = torch.from_numpy(tphi.stride_table(table.numpy(), S, ncls,
+                                                    k, count))
+            got = tphi.phi_stride_ref(data, table, (k, st), COUNT=count,
+                                      **kw)
+            for g, w in zip(got, want):
+                assert torch.equal(g[..., valid], w[..., valid]), (k, count)
+
+
+def _jax_lane_planes(jt, data, kw, count):
+    """The JAX package's lane-packed kernel (pallas_phi._phi_kernel) in
+    interpret mode on ``data``: its (phi, acc) planes as numpy."""
+    B, P, G = data.shape[:3]
+    rows = jt.fused_rows.shape[0]
+    kernel = functools.partial(jphi._phi_kernel, ROWS=rows, COUNT=count,
+                               **kw)
+    spec = pl.BlockSpec((1, G, 8, 128), lambda i: (i, 0, 0, 0))
+    out = pl.pallas_call(
+        kernel, grid=(B,),
+        in_specs=[pl.BlockSpec((1, P, G, 8, 128), lambda i: (i, 0, 0, 0, 0)),
+                  pl.BlockSpec(tuple(jt.fused_rows.shape),
+                               lambda i: (0, 0, 0))],
+        out_specs=[spec, spec],
+        out_shape=[jax.ShapeDtypeStruct((B, G, 8, 128), jnp.int32)] * 2,
+        interpret=True)(jnp.asarray(data), jt.fused_rows)
+    return [np.asarray(x) for x in out]
+
+
+@pytest.mark.parametrize("count", [True, False])
+def test_lane_stride_walk_equals_the_jax_kernel(count):
+    """b(?:aa)*b's tables (S = 4, ncls = 3): the lane-packed k-gram walk
+    at the k its tables choose (8) gives the JAX kernel's planes on the
+    same random words, class codes past ncls among them."""
+    jt, tt, _ = _pair(rb"b(?:aa)*b")
+    rng = np.random.default_rng(21)
+    P, G = 8, tphi.GROUPS
+    words = rng.integers(0, 1 << 32, (1, P, G, 8, 128), dtype=np.uint64)
+    data = words.astype(np.uint32).view(np.int32)
+    kw = dict(Kw=P * 4, WL=4, CPW=8, BITS=4, S=4, NSEG=32, NCLS=3)
+    want = _jax_lane_planes(jt, data, kw, count)
+    stride = tt.stride(count)
+    assert stride[0] == 8
+    got = tphi.phi_stride_ref(torch.from_numpy(data), tt.fused, stride,
+                              COUNT=count, **kw)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), w)
+
+
+def test_lane_tables_stride_choice():
+    """PhiTables takes k = 8 where it fits (b(?:aa)*b: 4 * 3**8 = 26,244
+    entries), caches one table per (k, mode), and steps down to 4, 2
+    and 1 as ncls grows; PhiTablesBig keeps (4, 2)."""
+    t = tphi.PhiTables(_dfa(rb"b(?:aa)*b"), CPU)
+    k, st = t.stride(True)
+    assert (k, st.numel()) == (8, 4 * 3 ** 8)
+    assert t.stride(True)[1] is st and t.stride(False)[1] is not st
+    assert t.stride(True, 2)[1].numel() == 4 * 9
+    assert tphi.stride_k(4, 5, 8, 128, (8, 4, 2)) == 4
+    assert tphi.stride_k(50, 20, 4, 1024, (8, 4, 2)) == 2
+    assert tphi.stride_k(3, 256, 4, 768, (8, 4, 2)) == 1
+    assert tphi.stride_k(4, 3, 8, 128) == 4

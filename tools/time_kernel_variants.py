@@ -1,0 +1,195 @@
+"""Time the affine or the lane-packed phi kernel against variants of its
+source, side by side on one card, at the main path's shape.
+
+    python3 tools/time_kernel_variants.py affine|phi [VARIANT.cu ...]
+
+Builds the tree's source ("tree": sregex_tpu_torch/csrc/affine_scan.cu or
+phi_scan.cu) and each VARIANT.cu alone with nvcc (sm_90a, the package's
+flags) into build/kernel_variants/, and prepares chip_smoke.py's input
+for the kernel:
+
+  affine: the base64-blob detector's tables at the warmup the affine
+    phase settles on (512) over its 1920 MB log-like corpus
+    (SREGEX_BENCH_AFFINE_MB), every stream entered at state 0; timed
+    COUNT, the templated kernel and the generic one;
+  phi: b(?:aa)*b's lane-packed tables over the phi phase's 1920 MB of
+    a-runs (SREGEX_BENCH_PHI_MB); timed COUNT at each k that fits
+    (8, 4, 2, 1).
+
+It checks that every source's planes equal the plain version on the
+first 64 MB at every timed setting, then times each with CUDA events,
+20 launches a time, in the order tree, V1, ... and back, twice.
+Prints the card's name and power limit and one JSON line {"kernel",
+"shape", "ms": {source: {setting: [ms per round]}}}.  Each VARIANT.cu
+must export the tree's entry point (sre_affine_scan or sre_phi_scan)
+with the tree's signature.  Needs a CUDA card.
+"""
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+import sregex_tpu_torch  # noqa: E402
+from sregex_tpu_torch.ops import _build  # noqa: E402
+from sregex_tpu_torch.ops import affine as aff  # noqa: E402
+from sregex_tpu_torch.ops import phi as tphi  # noqa: E402
+from sregex_tpu_torch.ops import spec_scan as scan  # noqa: E402
+from sregex_tpu_torch.ops.prep import prepare_on_device  # noqa: E402
+
+PLAIN_MB = 64
+SOURCES = {"affine": "affine_scan.cu", "phi": "phi_scan.cu"}
+
+
+def build(sources, out):
+    """{name: ctypes library} of each source, compiled in parallel, with
+    the package's argument types."""
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _build.find_nvcc()
+    procs = {name: subprocess.Popen(
+        [nvcc, *_build.NVCC_FLAGS, "-shared", "-o",
+         str(out / ("%s.so" % name)), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, src in sources.items()}
+    libs = {}
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError("nvcc failed on %s:\n%s" % (name, log))
+        lib = ctypes.CDLL(str(out / ("%s.so" % name)))
+        if hasattr(lib, "sre_affine_scan"):
+            lib.sre_affine_scan.restype = i
+            lib.sre_affine_scan.argtypes = [p, p, p, p, i, p, p, p, i, i, i,
+                                            i, i, i, i, p, p, i, i, p]
+        else:
+            lib.sre_phi_scan.restype = i
+            lib.sre_phi_scan.argtypes = [p, p, i, p, p, i, i, i, i, i, i, i,
+                                         i, i, i, p, i, i, p]
+        libs[name] = lib
+    return libs
+
+
+def stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def affine_case(libs):
+    """(data, its first PLAIN_MB MB, {setting: run(name, data)}, the
+    plain version, None: every slot is compared)."""
+    sc = sregex_tpu_torch.compile_pattern(cs.BASE64_BLOB)
+    t = scan.with_warmup(sc._spec, 512)
+    corpus = cs.base64_corpus(cs.mb_env("SREGEX_BENCH_AFFINE_MB"))
+    data = prepare_on_device(t, corpus, 2048)[0]
+    del corpus
+    K = (data.shape[1] * t.cpw - t.warmup)
+    small = data[:-(-(PLAIN_MB << 20) // K // (cs.GROUPS * 1024))]
+    kw = dict(W=t.warmup, CPW=t.cpw, BITS=t.bits, NCLS=t.ncls, OFF=t.off,
+              COUNT=True)
+    rel = t.relaid
+
+    def runner(generic):
+        def run(name, d):
+            s0, j0 = scan._entry_planes(0, t.warmup, d.shape[0], d.device)
+            out = tuple(torch.empty_like(s0) for _ in range(3))
+            rc = libs[name].sre_affine_scan(
+                d.data_ptr(), s0.data_ptr(), j0.data_ptr(),
+                rel.table.data_ptr(), rel.table.numel(),
+                *(o.data_ptr() for o in out), *d.shape[:3], t.warmup,
+                t.cpw, t.bits, 1, rel.pieces.data_ptr(),
+                ctypes.addressof(rel.host), len(rel.bp), int(generic),
+                stream())
+            if rc:
+                raise RuntimeError("%s: cudaError %d" % (name, rc))
+            return out
+        return run
+
+    def plain(d):
+        s0, j0 = scan._entry_planes(0, t.warmup, d.shape[0], d.device)
+        return aff.affine_scan_ref(d, s0, j0, t.fused, t.bp, **kw)
+
+    return data, small, {"templated": runner(False),
+                         "generic": runner(True)}, plain, None
+
+
+def phi_case(libs):
+    """As affine_case, with the valid slots to compare."""
+    sc = sregex_tpu_torch.compile_pattern(cs.PHI_PATTERN)
+    t = tphi.PhiTables(sc.dfa, "cuda")
+    corpus = cs.run_corpus(cs.mb_env("SREGEX_BENCH_PHI_MB"), 60, 300, 0)
+    data, _, K, WL, _, _ = tphi.phi_prepare(t, corpus, 2048)
+    del corpus
+    kw = dict(Kw=K // t.cpw, WL=WL, CPW=t.cpw, BITS=t.bits, S=t.nstates,
+              NSEG=t.nseg, NCLS=t.ncls, COUNT=True)
+    G = data.shape[2]
+    small = data[:-(-(PLAIN_MB << 20) // K // (G * 8 * t.nseg))]
+    ks = [k for k in (8, 4, 2, 1) if t.cpw % k == 0
+          and t.nstates * t.ncls ** k + t.fused.numel() + 256
+          <= tphi.STRIDE_SMEM_ENTRIES]
+
+    def runner(k):
+        def run(name, d):
+            stk = t.stride(True, k)[1]
+            phi = torch.empty((d.shape[0], G, 8, 128), dtype=torch.int32,
+                              device=d.device)
+            acc = torch.empty_like(phi)
+            rc = libs[name].sre_phi_scan(
+                d.data_ptr(), t.fused.data_ptr(), t.fused.numel(),
+                phi.data_ptr(), acc.data_ptr(), *d.shape[:3], kw["Kw"], WL,
+                t.bits, t.nstates, t.nseg, t.ncls, 1, stk.data_ptr(),
+                stk.numel(), k, stream())
+            if rc:
+                raise RuntimeError("%s: cudaError %d" % (name, rc))
+            return phi, acc
+        return run
+
+    def plain(d):
+        return tphi.phi_scan_ref(d, t.fused, **kw)
+
+    return data, small, {"k%d" % k: runner(k) for k in ks}, plain, \
+        cs.phi_valid(kw, data.device)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA card")
+    kernel = sys.argv[1]
+    sources = {"tree": ROOT / "sregex_tpu_torch" / "csrc" / SOURCES[kernel]}
+    for arg in sys.argv[2:]:
+        sources[Path(arg).stem] = Path(arg).resolve()
+    libs = build(sources, ROOT / "build" / "kernel_variants")
+    data, small, runs, plain, valid = (affine_case if kernel == "affine"
+                                       else phi_case)(libs)
+    want = plain(small)
+    for name in sources:
+        for setting, run in runs.items():
+            got = run(name, small)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) if valid is None else
+                       torch.equal(g[..., valid], w[..., valid])
+                       for g, w in zip(got, want)):
+                raise AssertionError("%s (%s) differs from the plain version"
+                                     % (name, setting))
+    names = list(sources)
+    ms = {name: {setting: [] for setting in runs} for name in names}
+    for order in (names, names[::-1]):
+        for name in order:
+            for setting, run in runs.items():
+                ms[name][setting].append(cs.time_gpu(
+                    lambda: run(name, data), 20))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    print(json.dumps({"kernel": kernel, "shape": list(data.shape),
+                      "ms": ms}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
