@@ -6,7 +6,7 @@ through compile_pattern / Scanner, each checked against the native C++
 engine:
 
   - headline: a first-match scan of one pattern over 1920 MB (the
-    narrow tier);
+    narrow tier, on the two-code kernel);
   - multi: Scanner.count of 90 keywords over a 1920 MB text corpus
     (the wide tier); beside it the same count by a Scanner with
     SREGEX_FUSED=1, the fused two-phase core tier, the TPU's route for
@@ -21,7 +21,7 @@ engine:
     runs, after the warmup ladder has settled (the affine tier);
   - big: Scanner.count of a 500-keyword dictionary over the multi
     corpus with dictionary words planted (the static big tier, where the
-    card's band keeps it);
+    card's band keeps it, on the 16-bit shared-memory kernel);
   - core: Scanner.count and Scanner.scan of the same dictionary over the
     same corpus by a Scanner with SREGEX_FUSED=1, served by the fused
     two-phase core tier (phase 1 on a sampled core, phase 2 on the gated
@@ -162,7 +162,9 @@ def drop_preps(prepared, *tables):
 
 def reset_launches():
     scan.spec_scan_launches = 0
+    scan.pair_scan_launches = 0
     big.big_scan_launches = 0
+    big.big_smem_launches = 0
     aff.affine_scan_launches = 0
     tdfa.tdfa_scan_launches = 0
     tphi.phi_scan_launches = 0
@@ -175,9 +177,11 @@ def max_abs_err(got, want):
                zip(got, want))
 
 
-def compare(kernel, plain, args, kw):
-    """Kernel vs plain version on the same inputs: bit-exact planes."""
-    got = kernel(*args, **kw)
+def compare(kernel, plain, args, kw, tables=None):
+    """Kernel vs plain version on the same inputs: bit-exact planes.
+    ``tables``: the kernel's own tables (pair=, t16=), which the plain
+    version does not take."""
+    got = kernel(*args, **kw, **(tables or {}))
     torch.cuda.synchronize()
     want = plain(*args, **kw)
     torch.cuda.synchronize()
@@ -199,11 +203,15 @@ def random_words(rng, shape, bits, hi):
 
 
 def random_case(rng, dev, *, bits, rows, W, count, B=2, G=8, K=512,
-                ncls=None, in_range=False):
+                ncls=None, in_range=False, odd_entry=False, frozen=False,
+                j0_odd=False):
     """Random packed words, a random table of rows*128 valid entries,
     valid entry states and random warmup freezes.  Classes run up to
     2**bits (past the table too) unless ``in_range``, which keeps them
-    below ncls, so every index stays inside the table."""
+    below ncls, so every index stays inside the table.  ``odd_entry``:
+    a third of the entry states arbitrary (negative, past the table, off
+    the ncls grid); ``frozen``: half the streams frozen through the
+    whole warmup; ``j0_odd``: every freeze odd (inside a code pair)."""
     cpw = {3: 10, 4: 8, 8: 4}[bits]
     K = K // (2 * cpw) * (2 * cpw)      # whole loop iterations
     Jw = (W + K) // cpw
@@ -215,6 +223,13 @@ def random_case(rng, dev, *, bits, rows, W, count, B=2, G=8, K=512,
              | rng.integers(0, 3, rows * 128) << 20).astype(np.int32)
     s0 = (rng.integers(0, S, (B, G, 8, 128)) * ncls).astype(np.int32)
     j0 = rng.integers(0, W + 1, (B, G, 8, 128)).astype(np.int32)
+    if odd_entry:
+        pick = rng.random(s0.shape) < 1 / 3
+        s0[pick] = rng.integers(-300, S * ncls + 3000, int(pick.sum()))
+    if frozen:
+        j0[rng.random(j0.shape) < 0.5] = W
+    if j0_odd:
+        j0 |= 1
     args = [torch.from_numpy(a).to(dev) for a in (data, s0, j0, table)]
     return args, dict(W=W, CPW=cpw, BITS=bits, COUNT=count)
 
@@ -586,7 +601,7 @@ def lazy_phase(corpus, mb, dev):
     dt = min_rep_seconds(lambda: lsc.count(corpus, prepared=prep), check)
     st_ = lsc.stats()
     got = lsc.scan(corpus, prepared=prep)
-    launched = scan.spec_scan_launches
+    launched = scan.spec_scan_launches + scan.pair_scan_launches
     ct = lsc._coret
     if st_.tier != "LazyCoreTables" or not isinstance(
             ct, tcore.LazyCoreTables) or launched <= 0:
@@ -810,20 +825,65 @@ def main():
     packed, _, _, _, B = prepare_on_device(pt, corpus, 2048)
     s0, j0 = scan._entry_planes(0, pt.warmup // 2, B, dev)
     for count in (True, False):
-        errs["narrow"] = max(errs["narrow"], compare(
-            *spec, [packed, s0, j0, pt.fused],
-            dict(W=pt.warmup // 2, CPW=pt.cpw, BITS=pt.bits,
-                 COUNT=count)))
-    # big: tables past the shared-memory cap, in-range indices
-    big_cases = [dict(bits=4, rows=600, W=32, count=True, ncls=16),
-                 dict(bits=4, rows=1024, W=32, count=False, ncls=16),
-                 dict(bits=8, rows=821, W=32, count=True, ncls=27),
-                 dict(bits=8, rows=1024, W=64, count=False, ncls=200)]
+        for pair in (None, pt.pair):
+            errs["narrow"] = max(errs["narrow"], compare(
+                *spec, [packed, s0, j0, pt.fused],
+                dict(W=pt.warmup // 2, CPW=pt.cpw, BITS=pt.bits,
+                     COUNT=count), dict(pair=pair)))
+    # the two-code kernel on random narrow tables, 3- and 4-bit, COUNT and
+    # scan: classes past ncls, freezes inside a code pair, one and no warm
+    # word, entry states off the table's rows (some frozen through the
+    # whole warmup)
+    pair_cases = [dict(bits=4, W=32, count=True, ncls=16),
+                  dict(bits=4, W=32, count=False, ncls=4, j0_odd=True),
+                  dict(bits=4, W=8, count=True, ncls=9, odd_entry=True,
+                       frozen=True),
+                  dict(bits=4, W=0, count=False, ncls=16),
+                  dict(bits=3, W=40, count=True, ncls=8),
+                  dict(bits=3, W=10, count=False, ncls=5, odd_entry=True,
+                       frozen=True),
+                  dict(bits=3, W=40, count=True, ncls=6, j0_odd=True)]
+    for case in pair_cases:
+        args, kw = random_case(rng, dev, rows=1, **case)
+        ncls = case["ncls"]
+        pairs = scan.pair_table(args[3].cpu().numpy(), ncls, 128 // ncls,
+                                case["bits"], dev)
+        errs["narrow"] = max(errs["narrow"],
+                             compare(*spec, args, kw, dict(pair=pairs)))
+    # big: tables past the shared-memory cap at 32 bits, each through the
+    # global-memory kernel and (where big16_table holds it) the 16-bit
+    # one; classes in range, and past ncls (the wrap) with entry states
+    # off the rows; 907 states of 128 classes fill shared memory at 16
+    # bits, 908 do not (big16_table declines them)
+    big_cases = [dict(bits=4, rows=600, W=32, count=True, ncls=16,
+                      in_range=True),
+                 dict(bits=4, rows=1024, W=32, count=False, ncls=16,
+                      in_range=True),
+                 dict(bits=8, rows=821, W=32, count=True, ncls=27,
+                      in_range=True),
+                 dict(bits=8, rows=1024, W=64, count=False, ncls=200,
+                      in_range=True),
+                 dict(bits=8, rows=821, W=32, count=False, ncls=27,
+                      odd_entry=True, frozen=True),
+                 dict(bits=4, rows=600, W=32, count=True, ncls=9,
+                      odd_entry=True),
+                 dict(bits=8, rows=907, W=16, count=True, ncls=128,
+                      in_range=True),
+                 dict(bits=8, rows=908, W=16, count=False, ncls=128,
+                      in_range=True)]
+    big16_held = []
     for case in big_cases:
         assert case["rows"] * 128 > scan.SMEM_TABLE_MAX
-        args, kw = random_case(rng, dev, in_range=True, **case)
-        errs["big"] = max(errs["big"], compare(
-            big.big_scan, big.big_scan_ref, args, kw))
+        args, kw = random_case(rng, dev, **case)
+        ncls = case["ncls"]
+        t16 = big.big16_table(args[3].cpu().numpy(), ncls,
+                              case["rows"] * 128 // ncls, case["bits"], dev)
+        big16_held.append(t16 is not None)
+        for t16_ in (None, t16) if t16 is not None else (None,):
+            errs["big"] = max(errs["big"], compare(
+                big.big_scan, big.big_scan_ref, args, kw, dict(t16=t16_)))
+    if big16_held[-2:] != [True, False]:
+        raise AssertionError("big16_table's cap: %r" % big16_held)
     # affine: random tables of 1 to 48 pieces, each through the templated
     # kernel (P <= 8) and the generic one; valid states, and arbitrary
     # int32 entries and states (out of range, int32 wrap); then the tables
@@ -952,7 +1012,8 @@ def main():
                                 compare_gated(args, kw, n_esc, big_))
             gated_cases.append((rows, n_esc))
     say("kernel_vs_plain", groups=GROUPS, max_abs_err=max(errs.values()),
-        cases=len(cases) + 2 + len(big_cases) + 2 * len(affine_cases) + 4
+        cases=len(cases) + 4 + len(pair_cases) + len(big_cases)
+        + sum(big16_held) + 2 * len(affine_cases) + 4
         + len(tdfa_cases) + len(phi_cases) + len(kgram_cases)
         + len(gated_cases))
     del packed, s0, j0
@@ -974,6 +1035,8 @@ def main():
     assert exp_first > 0
     tables = scan.SpecTables(dfa, dev)
     assert type(sc._spec) is scan.SpecTables
+    if tables.pair is None or sc._spec.pair is None:
+        raise AssertionError("the headline's table has no two-code table")
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1009,7 +1072,10 @@ def main():
         raise AssertionError("Scanner.match missed the planted match")
     sc_dt = min_rep_seconds(lambda: sc.count(corpus, prepared=sc_prep),
                             check_total)
-    launches["narrow"] = scan.spec_scan_launches
+    launches["narrow"] = scan.pair_scan_launches
+    if scan.spec_scan_launches:
+        raise AssertionError("the headline ran the one-lookup kernel %d "
+                             "times" % scan.spec_scan_launches)
     say("headline", mb=mb, bytes=n, offset=exp_first, count=exp_count,
         dfa_scan_gbps=n / dt / 1e9, scanner_count_gbps=n / sc_dt / 1e9,
         tier=st.tier, repaired=repaired, chunks=chunks,
@@ -1190,7 +1256,10 @@ def main():
     if bst.tier != "SpecTablesBig" or bsc._coret is not False \
             or bsc._fusedct is not False:
         raise AssertionError("big phase served by %s" % bst.tier)
-    launches["big"] = big.big_scan_launches
+    launches["big"] = big.big_smem_launches
+    if big.big_scan_launches or bsc._spec.t16 is None:
+        raise AssertionError("the big phase ran the global-memory kernel "
+                             "%d times" % big.big_scan_launches)
     say("big", mb=bmb, bytes=bn, keywords=len(words), count=bexp,
         count_gbps=bn / bdt / 1e9, tier=bst.tier,
         states=bsc.dfa.nstates, classes=bsc.dfa.nclasses,
@@ -1228,7 +1297,8 @@ def main():
                                  % csc.stats().tier)
     launches["gated"] = tcore.gated_scan_launches
     claunch = dict(gated=launches["gated"], spec=scan.spec_scan_launches,
-                   big=big.big_scan_launches)
+                   pair=scan.pair_scan_launches, big=big.big_scan_launches,
+                   big_smem=big.big_smem_launches)
 
     # the phase split by CUDA events, and the gated kernel at this
     # phase-2 shape with this corpus's escapes
@@ -1427,7 +1497,7 @@ def main():
     fallback_s = time.perf_counter() - t0
     gst = gsc.stats()
     glaunch = dict(tdfa=tdfa.tdfa_scan_launches,
-                   spec=scan.spec_scan_launches)
+                   spec=scan.spec_scan_launches + scan.pair_scan_launches)
     if got != gexp:
         raise AssertionError("fallback find %r != the planted match"
                              % (got[:1],))
@@ -1538,26 +1608,38 @@ def main():
                              % launches)
 
     # --- 12. kernel vs plain time at the main path's shapes ---------------
-    shapes = [("narrow", spec, tables, prepared[0], False),
+    # narrow and big: the redesigned kernel the main path ran (the
+    # two-code table, the 16-bit table) in the path's mode and the other
+    # one, and the one-lookup kernel at the same shape
+    shapes = [("narrow", spec, tables, prepared[0], False,
+               dict(pair=tables.pair), "two-code"),
               ("wide", spec, msc._spec, mprep.for_tables(msc._spec)[0],
-               True),
+               True, {}, "one-lookup"),
               ("big", (big.big_scan, big.big_scan_ref), bsc._spec,
-               bprep.for_tables(bsc._spec)[0], True)]
-    for tier, fns, t, data, count in shapes:
+               bprep.for_tables(bsc._spec)[0], True,
+               dict(t16=bsc._spec.t16), "16-bit")]
+    for tier, fns, t, data, count, tab, variant in shapes:
         B = data.shape[0]
         s0, j0 = scan._entry_planes(0, t.warmup, B, dev)
         args = [data, s0, j0, t.fused]
         kw = dict(W=t.warmup, CPW=t.cpw, BITS=t.bits, COUNT=count)
-        errs[tier] = max(errs[tier], compare(*fns, args, kw))
-        ms = time_gpu(lambda: fns[0](*args, **kw), 20)
+        errs[tier] = max(errs[tier], compare(*fns, args, kw, tab))
+        ms = time_gpu(lambda: fns[0](*args, **kw, **tab), 20)
         plain_ms = time_gpu(lambda: fns[1](*args, **kw), 2)
         steps = s0.numel() * data.shape[1] * t.cpw
         bms, by = bound_ms(args, steps)
         timings[tier] = (ms, plain_ms, bms, by, list(data.shape))
+        more = {}
+        if tab:
+            other = dict(kw, COUNT=not count)
+            errs[tier] = max(errs[tier], compare(*fns, args, other, tab))
+            more = dict(other_mode_ms=time_gpu(
+                lambda: fns[0](*args, **other, **tab), 20),
+                one_lookup_ms=time_gpu(lambda: fns[0](*args, **kw), 20))
         say("kernel_time", tier=tier, shape=list(data.shape), count=count,
-            ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-            corpus_gbps=s0.numel() * (data.shape[1] * t.cpw - t.warmup)
-            / ms / 1e6)
+            variant=variant, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, corpus_gbps=s0.numel()
+            * (data.shape[1] * t.cpw - t.warmup) / ms / 1e6, **more)
     say("kernel_time", **affine_times(asc, aprep, acorpus, timings, errs,
                                       dev))
     # the tagged kernel at the find phase's shape, entered as tdfa_spec_find
@@ -1651,9 +1733,9 @@ def main():
     print(smi, flush=True)
     kernels = []
     for tier, src, where in (
-            ("narrow", "spec_scan.cu", "sregex_tpu/ops/pallas_scan.py:267"),
+            ("narrow", "pair_scan.cu", "sregex_tpu/ops/pallas_scan.py:267"),
             ("wide", "spec_scan.cu", "sregex_tpu/ops/pallas_scan.py:334"),
-            ("big", "spec_scan.cu", "sregex_tpu/ops/pallas_big.py:169"),
+            ("big", "big_scan.cu", "sregex_tpu/ops/pallas_big.py:169"),
             ("affine", "affine_scan.cu",
              "sregex_tpu/ops/pallas_affine.py:275"),
             ("tdfa", "tdfa_scan.cu", "sregex_tpu/ops/tdfa_scan.py:450"),
@@ -1672,6 +1754,10 @@ def main():
         elif tier == "gated":
             name = ("gated phase-2 scan (big table, shape %s, %d escaped "
                     "chunks)" % (shape, nesc))
+        elif tier == "narrow":
+            name = "two-code spec scan (narrow table, shape %s)" % shape
+        elif tier == "big":
+            name = "16-bit spec scan (big table, shape %s)" % shape
         else:
             name = "%s scan (%s table, shape %s)" % (
                 "affine" if tier == "affine" else "spec", tier, shape)

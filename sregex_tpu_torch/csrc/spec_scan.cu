@@ -1,11 +1,14 @@
-// Speculative DFA chunk scan for Hopper (sm_90a).
+// Speculative DFA chunk scan for Hopper (sm_90a): the one-lookup kernel.
 //
 // Replaces the JAX package's TPU kernels ops/pallas_scan.py::_kernel
 // (the narrow 128-entry table), ::_kernel_wide (tables of R rows of 128)
 // and their launch ::_dispatch_kernel, and, with the table left in global
 // memory, ops/pallas_big.py::_kernel_big with its row loop _lookup_rows
-// (tables of up to 2^17 entries).  It computes what they compute; it does
-// not copy their structure:
+// (tables of up to 2^17 entries).  It serves the wide tier, the gated
+// phase 2 and the tables the redesigned kernels do not hold: the narrow
+// tier's 3- and 4-bit tables run pair_scan.cu (one lookup per two class
+// codes), the big tables that fit 16 bits an entry big_scan.cu.  It
+// computes what they compute; it does not copy their structure:
 //
 //   - one thread owns one chunk stream; a block of 1024 threads is one
 //     (b, g) tile of the [B, Jw, G, 8, 128] layout, so thread t reads
@@ -24,19 +27,21 @@
 //   - main loop: one lookup per unit; COUNT adds the match field
 //     (e >> 20), otherwise the entries are ORed and macc >> 20 is stored.
 //
-// What bounds it: each stream is a chain of dependent shared-memory
-// lookups (about 30 cycles each), and lanes whose table indices differ
-// collide on shared-memory banks, against only 0.5 B of 4-bit packed
-// input read per corpus byte.  The simple design hides the chain's
-// latency with occupancy: 1024 independent streams per block and up to
-// two blocks per SM, each issuing its own chain; the input loads of the
-// next word do not depend on the chain and overlap it.  Several streams
-// per thread, TMA staging and table replication against bank conflicts
-// are left for later.  The big tier's chain is one of dependent L1/L2
-// loads (a few hundred cycles on an L1 miss) instead: the same
-// occupancy hides it, and a scan's live states touch few table lines,
-// which L1 keeps.
-//
+// What bounds it: the integer pipe.  A step runs ~9.6 instructions,
+// ~6.9 on the integer pipe (tools/sass_loops.py): the class extract, the
+// index add, the guard below (a compare, a mask and a select), the
+// address, the match fold and the state mask; at 64 lanes a clock an SM
+// those need 0.84 ms of the narrow table's 1.03 ms at [120, 260, 8, 8,
+// 128], against 0.31 ms to read the 4-bit words.  The chain's latency
+// is hidden by occupancy (1024 streams a block, two blocks an SM), and
+// the narrow table's few live entries sit on distinct banks
+// (tools/bank_conflicts.py: one wavefront a warp's load on the
+// headline's corpus).  The wide tier's 8-bit tables reach half their
+// byte bound; pair_scan.cu removes the guard, the add and the mask from
+// the narrow tier's steps.  The big tier's chain is one of dependent
+// loads through L1 and L2: 2.07 ms for the 500-keyword dictionary where
+// the same steps from shared memory take 1.07 (big_scan.cu).
+
 // The gated variants (sre_spec_scan_gated, sre_big_scan_gated) replace
 // ops/pallas_core.py::_dispatch_kernel_gated, the phase-2 launch of the
 // fused two-phase core tier: the full machine redoes the chunks that

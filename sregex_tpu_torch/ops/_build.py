@@ -101,6 +101,12 @@ def load():
         for fn in (lib.sre_spec_scan, lib.sre_big_scan):
             fn.restype = i
             fn.argtypes = [p, p, p, p, i, p, p, p, i, i, i, i, i, i, i, p]
+        lib.sre_spec_scan_pair.restype = i
+        lib.sre_spec_scan_pair.argtypes = [p, p, p, p, i, p, p, p, i, i, i,
+                                           i, i, i, i, p, i, p, i, p]
+        lib.sre_big_scan_smem.restype = i
+        lib.sre_big_scan_smem.argtypes = [p, p, p, p, i, p, p, p, i, i, i,
+                                          i, i, i, i, p, i, i, i, p]
         for fn in (lib.sre_spec_scan_gated, lib.sre_big_scan_gated):
             fn.restype = i
             fn.argtypes = [p, p, p, p, i, p, p, p, i, i, i, i, i, i, i, p,

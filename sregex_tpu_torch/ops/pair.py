@@ -21,9 +21,11 @@ from .spec_scan import _CPW, _spec_scan, _Tables
 class SpecTablesPair(_Tables):
     """Pair-composed tables; a drop-in for SpecTables in the scan folds
     (ncls is the PAIR alphabet size, so premultiplied states and the
-    repair path's conversions stay consistent)."""
+    repair path's conversions stay consistent).  On the card its 4-bit
+    tables take the two-code kernel, one lookup per two pair codes."""
 
     MAX_ENTRIES = 1024
+    two_code = True
 
     def __init__(self, dfa, device, narrow_only=False):
         S, cb = dfa.nstates, dfa.nclasses
@@ -59,4 +61,5 @@ class SpecTablesPair(_Tables):
         # W and j0 arrive in bytes; the kernel steps in pairs
         return _spec_scan(data, state0, j0 // 2, self.fused, C, bad_tail,
                           W=W // 2, CPW=self.cpw, BITS=self.bits,
-                          COUNT=COUNT, wide=self.wide, ESC=esc)
+                          COUNT=COUNT, wide=self.wide, ESC=esc,
+                          pair=self.pair)

@@ -10,30 +10,42 @@ the chunk before it (phi), and the host fold repairs what failed with
 the native C++ engine, so results are exact whatever the speculation
 did.
 
-The kernel (csrc/spec_scan.cu) replaces pallas_scan.py::_kernel,
-::_kernel_wide and ::_dispatch_kernel.  On the card its time goes to
-each stream's chain of dependent shared-memory table lookups and to
-bank conflicts between lanes that look up different entries; the input
-it reads is only 0.5 B per corpus byte at 4-bit packing.  The simple
-design answers with occupancy: one stream per thread, 1024 streams per
-block, the whole table in shared memory, so the narrow and the wide
-tier are the same single lookup per byte.
+The kernels replace pallas_scan.py::_kernel, ::_kernel_wide and
+::_dispatch_kernel.  csrc/spec_scan.cu is one lookup a class code with
+the whole table in shared memory, one stream a thread; the wide tier
+runs it.  What bounds it on the card is the integer pipe, not the
+lookups' latency or bank conflicts: a step runs ~9.6 instructions,
+~6.9 on the integer pipe (the class extract, the index add, a
+three-instruction guard against the table's end, the address, the
+match fold, the state mask), which set most of the narrow table's 1.03
+ms at [120, 260, 8, 8, 128], against 0.31 ms to read its words.  The
+narrow tier (and the pair tier's 4-bit tables) therefore run
+csrc/pair_scan.cu wherever pair_table holds the table: one lookup per
+two class codes in a host-built table that composes the exact one-step
+function, guard included, so a code pair costs a byte permute, one
+multiply-add for the address, the row mask and the match fold, and the
+kernel reads its words at 81% of the card's bandwidth (0.38 ms);
+spec_pair_ref is a plain model of its walk.
 """
 
 import copy
 import ctypes
 import os
+from collections import namedtuple
 
 import numpy as np
 import torch
 
 from ..native import NativeDfa
 from .layout import (_MATCH_SHIFT, _STATE_MASK, DEFAULT_K, GROUPS,
-                     SMEM_TABLE_MAX, TILE, WORDS_PER_ITER,
+                     SMEM_BYTES, SMEM_TABLE_MAX, TILE, WORDS_PER_ITER,
                      effective_chunk, max_chunk_bytes)
 
-# kernel launches since the last reset (the CUDA path only)
+# kernel launches since the last reset (the CUDA path only): the
+# one-lookup kernel (sre_spec_scan) and the two-code kernel
+# (sre_spec_scan_pair)
 spec_scan_launches = 0
+pair_scan_launches = 0
 
 _CPW = {3: 10, 4: 8, 8: 4}
 
@@ -66,14 +78,18 @@ def fused_table(dfa, rows):
 class _Tables:
     """What the scan folds read from every tier: dfa, ncls (the
     premultiplier), cpw, bits, warmup (bytes), max_chunk, class_map,
-    match_eof, rows, the flat fused table on ``device``, and ``wide``
+    match_eof, rows, the flat fused table on ``device``, ``wide``
     (True: the repair planes come back as 3 int32 planes, else as 4
-    uint8 planes, as in the JAX package)."""
+    uint8 planes, as in the JAX package), and ``pair``, the two-code
+    kernel's table (pair_table) where the tier takes that kernel and
+    the table holds, else None."""
 
     # (natively repaired chunks, total chunks) of the last completed
     # no-match scan; None after a matched scan.  Feeds Scanner.stats().
     last_repair = None
     wide = False
+    pair = None
+    two_code = False     # the tier takes the two-code kernel where it can
 
     def _finish(self, dfa, fused, device):
         self.dfa = dfa
@@ -81,16 +97,23 @@ class _Tables:
         self.fused = torch.from_numpy(fused).to(self.device)
         self.class_map = dfa.class_map.astype(np.uint8)
         self.match_eof = dfa.match_eof
+        if self.two_code:
+            self.pair = pair_table(fused, self.ncls, self.nstates,
+                                   self.bits, self.device)
 
     def _scan(self, data, state0, j0, C, bad_tail, W, COUNT=False,
               esc=None):
         return _spec_scan(data, state0, j0, self.fused, C, bad_tail,
                           W=W, CPW=self.cpw, BITS=self.bits,
-                          COUNT=COUNT, wide=self.wide, ESC=esc)
+                          COUNT=COUNT, wide=self.wide, ESC=esc,
+                          pair=self.pair)
 
 
 class SpecTables(_Tables):
-    """The narrow tier: S * ncls <= 128 (one 128-entry table)."""
+    """The narrow tier: S * ncls <= 128 (one 128-entry table).  On the
+    card its 3- and 4-bit tables take the two-code kernel."""
+
+    two_code = True
 
     def __init__(self, dfa, device):
         S, ncls = dfa.nstates, dfa.nclasses
@@ -179,15 +202,19 @@ def _check_scan_args(data, state0, j0, table, W, CPW, BITS,
                          % (W, Jw, CPW))
 
 
-def spec_scan(data, state0, j0, table, *, W, CPW, BITS, COUNT):
+def spec_scan(data, state0, j0, table, *, W, CPW, BITS, COUNT,
+              pair=None):
     """Run the speculative scan kernel.  data int32 [B, Jw, G, 8, 128]
     (CPW BITS-bit classes per word); state0/j0 int32 [B, G, 8, 128];
-    table int32 [R*128]; W the warmup in kernel units.  Returns
-    (phi, fm, swarm), each int32 [B, G, 8, 128].
+    table int32 [R*128]; W the warmup in kernel units; ``pair`` None or
+    the two-code table pair_table built from ``table`` (the tables'
+    ``pair``).  Returns (phi, fm, swarm), each int32 [B, G, 8, 128].
 
-    CUDA tensors launch csrc/spec_scan.cu on the current stream (no
-    synchronisation) or raise.  CPU tensors take spec_scan_ref."""
-    global spec_scan_launches
+    CUDA tensors launch csrc/pair_scan.cu where ``pair`` is given, else
+    csrc/spec_scan.cu, on the current stream (no synchronisation), or
+    raise.  CPU tensors take spec_scan_ref (which does not read
+    ``pair``)."""
+    global spec_scan_launches, pair_scan_launches
     _check_scan_args(data, state0, j0, table, W, CPW, BITS)
     if data.device.type == "cpu":
         return spec_scan_ref(data, state0, j0, table, W=W, CPW=CPW,
@@ -195,9 +222,22 @@ def spec_scan(data, state0, j0, table, *, W, CPW, BITS, COUNT):
     if data.device.type != "cuda":
         raise ValueError("spec_scan runs on cuda or cpu tensors, got %s"
                          % data.device)
-    planes = launch_planes("sre_spec_scan", data, state0, j0, table,
-                           (W, CPW, BITS, int(bool(COUNT))))
-    spec_scan_launches += 1
+    if pair is None:
+        planes = launch_planes("sre_spec_scan", data, state0, j0, table,
+                               (W, CPW, BITS, int(bool(COUNT))))
+        spec_scan_launches += 1
+        return planes
+    pt, rm = pair.table, pair.rowmap
+    if BITS not in (3, 4) or pt.device != data.device \
+            or rm.device != data.device \
+            or pt.numel() != pair.rows * ((1 << 2 * BITS) + 1) \
+            or (pt.numel() + table.numel()) * 4 > SMEM_BYTES:
+        raise ValueError("pair must be pair_table's PairTable at BITS=%d "
+                         "on the data's device" % BITS)
+    planes = launch_planes("sre_spec_scan_pair", data, state0, j0, table,
+                           (W, CPW, BITS, int(bool(COUNT)), pt.data_ptr(),
+                            pt.numel(), rm.data_ptr(), rm.numel()))
+    pair_scan_launches += 1
     return planes
 
 
@@ -253,6 +293,112 @@ def spec_scan_ref(data, state0, j0, table, *, W, CPW, BITS, COUNT):
     return s, (acc if COUNT else acc >> _MATCH_SHIFT), swarm
 
 
+# The two-code kernel's table: ``table`` int32 [rows * (2**(2 BITS) + 1)]
+# and ``rowmap`` int32 [max row state + 1] on the device, ``rows``.
+PairTable = namedtuple("PairTable", "table rowmap rows")
+
+_PAIR_ROW_BITS = 24          # an entry's next row offset (bytes)
+_PAIR_MATCH_MAX = 7          # the sum of two match fields rides 4 bits
+_PAIR_STATE_MAX = 1 << 16    # premultiplied row states below this
+
+
+def pair_table(fused, ncls, nstates, bits, device):
+    """The two-code kernel's table (csrc/pair_scan.cu) for the fused
+    table ``fused`` (int32 numpy [R*128]) of a machine of ``nstates``
+    states and ``ncls`` classes at BITS-bit codes: a PairTable, or None
+    where the kernel cannot hold the table exactly (8-bit codes, a match
+    field outside [0, 7], a row state at or past 2**16, or the tables
+    past one block's shared memory).
+
+    A row for every premultiplied state the table produces (entry &
+    (2**20 - 1)) and every multiple of ncls below nstates * ncls; entry
+    (row, c0 | c1 << BITS) of a row holds, after the two one-code steps
+    the plain version takes from the row's state on codes c0 then c1
+    (an index past the table reads entry index & 127): the next row's
+    byte offset (row * (2**(2 BITS) + 1) * 4), the OR of the two match
+    fields at bit 24 and their sum at bit 28.  The row's last entry is
+    its premultiplied state.  ``rowmap`` maps each premultiplied state
+    below its length to its row's byte offset, or -1."""
+    if bits not in (3, 4):
+        return None
+    f = np.asarray(fused, dtype=np.int64)
+    m = f >> _MATCH_SHIFT
+    if m.min() < 0 or m.max() > _PAIR_MATCH_MAX:
+        return None
+    n = f.size
+    vals = np.union1d(f & _STATE_MASK,
+                      np.arange(0, int(nstates) * int(ncls), int(ncls)))
+    cp = 1 << (2 * bits)
+    rows = vals.size
+    if vals[-1] >= _PAIR_STATE_MAX \
+            or (n + rows * (cp + 1)) * 4 > SMEM_BYTES:
+        return None
+
+    def step(s, c):
+        idx = s + c
+        return f[np.where(idx < n, idx, idx & 127)]
+
+    code = np.arange(cp)
+    e1 = step(vals[:, None], code & ((1 << bits) - 1))
+    e2 = step(e1 & _STATE_MASK, code >> bits)
+    rowmap = np.full(int(vals[-1]) + 1, -1, np.int64)
+    rowmap[vals] = np.arange(rows) * (cp + 1) * 4
+    m1, m2 = e1 >> _MATCH_SHIFT, e2 >> _MATCH_SHIFT
+    ent = rowmap[e2 & _STATE_MASK] | (m1 | m2) << _PAIR_ROW_BITS \
+        | (m1 + m2) << (_PAIR_ROW_BITS + 4)
+    table = np.concatenate([ent, vals[:, None]], axis=1).reshape(-1)
+    return PairTable(
+        torch.from_numpy(table.astype(np.uint32).view(np.int32)).to(device),
+        torch.from_numpy(rowmap.astype(np.int32)).to(device), rows)
+
+
+def spec_pair_ref(data, state0, j0, table, pair, *, W, CPW, BITS, COUNT):
+    """A plain torch model of the two-code kernel's walk over ``pair``
+    (pair_table of ``table``), on any device.  A stream entered at a
+    row with no freeze (j0 <= 0) walks its warmup in code pairs; the
+    others take spec_scan_ref's one-code warmup.  A stream at a row
+    after the warmup walks the rest in code pairs, one entry a pair
+    (the next row at its byte offset, bits 0-23; the match OR at bit
+    24, the sum at bit 28), and its exit is the final row's last entry;
+    one with no row takes spec_scan_ref's walk.  Equal to spec_scan_ref
+    wherever pair_table was given its table (tests/test_torch_spec_scan.py)."""
+    ref = spec_scan_ref(data, state0, j0, table, W=W, CPW=CPW, BITS=BITS,
+                        COUNT=COUNT)
+    cp = 1 << (2 * BITS)
+    ptab = pair.table.to(data.device).long() & 0xFFFFFFFF
+    rowmap = pair.rowmap.to(data.device).long()
+    data = data.long()
+
+    def row_of(s):          # entry index of s's row, -1 when none
+        s = s.long()
+        ok = (s >= 0) & (s < rowmap.numel())
+        r = rowmap[torch.where(ok, s, 0)]
+        return torch.where(ok & (r >= 0), r >> 2, -1)
+
+    def walk(nb, w0, w1, acc=None):
+        for w in range(w0, w1):
+            for k in range(CPW // 2):
+                e = ptab[nb + ((data[:, w] >> (2 * BITS * k)) & (cp - 1))]
+                nb = (e & ((1 << _PAIR_ROW_BITS) - 1)) >> 2
+                if acc is not None:
+                    acc = acc + (e >> 28) if COUNT else acc | e
+        return nb, acc
+
+    warm = W // CPW
+    nb0 = row_of(state0)
+    warm_pairs = (j0 <= 0) & (nb0 >= 0)
+    nbw, _ = walk(nb0.clamp(min=0), 0, warm)
+    swarm = torch.where(warm_pairs, ptab[nbw + cp].to(torch.int32), ref[2])
+    nb = torch.where(warm_pairs, nbw, row_of(ref[2]))
+    fast = nb >= 0
+    nb, acc = walk(nb.clamp(min=0), warm, data.shape[1],
+                   torch.zeros_like(nb))
+    if not COUNT:
+        acc = (acc >> 24) & 15
+    phi = torch.where(fast, ptab[nb + cp].to(torch.int32), ref[0])
+    return phi, torch.where(fast, acc.to(torch.int32), ref[1]), swarm
+
+
 def _summarize(phi, fm, swarm, state0, C, bad_tail, COUNT, ESC=None):
     """The on-device validation of the speculation chain: int32 [10]
       [0] all_ok  [1] first_bad  [2] entry@first_bad  [3] phi@first_bad
@@ -300,10 +446,10 @@ def _summarize(phi, fm, swarm, state0, C, bad_tail, COUNT, ESC=None):
 
 
 def _spec_scan(data, state0, j0, table, C, bad_tail, *, W, CPW, BITS,
-               COUNT=False, wide=False, ESC=None):
+               COUNT=False, wide=False, ESC=None, pair=None):
     """Kernel + summary.  Returns (summary int32 [10], packed)."""
     planes = spec_scan(data, state0, j0, table, W=W, CPW=CPW, BITS=BITS,
-                       COUNT=COUNT)
+                       COUNT=COUNT, pair=pair)
     return _summary_and_planes(planes, state0, C, bad_tail, COUNT, wide,
                                ESC)
 

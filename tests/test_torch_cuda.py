@@ -86,6 +86,124 @@ def test_big_kernel_equals_plain_version(cuda, bits, rows, ncls, count):
         assert torch.equal(g, w)
 
 
+def _spec_launches():
+    """Launches of the speculative scan's shared-memory kernels: the
+    one-lookup kernel and the two-code kernel (narrow 3- and 4-bit
+    tables)."""
+    return tscan.spec_scan_launches + tscan.pair_scan_launches
+
+
+def _scan_case(rng, bits, rows, ncls, W, *, in_range=False,
+               odd_entry=False, frozen=False, j0_odd=False, raw=False,
+               B=2, G=8, K=480):
+    """Random words (classes up to 2**bits, or below ncls with
+    ``in_range``), a random table of rows*128 entries over S = rows*128
+    // ncls states with match fields 0-2, valid entry states and
+    freezes j0 in [0, W].  ``odd_entry``: a third of the entry states
+    arbitrary (negative, past the table, off the ncls grid); ``frozen``:
+    half the streams frozen through the whole warmup; ``j0_odd``: every
+    freeze odd (inside a code pair); ``raw``: next fields off the ncls
+    grid.  Returns (numpy arrays, the CPU tensors, S)."""
+    cpw = {3: 10, 4: 8, 8: 4}[bits]
+    K = K // (2 * cpw) * (2 * cpw)
+    shape = (B, (W + K) // cpw, G, 8, 128)
+    cls = rng.integers(0, ncls if in_range else 1 << bits, shape + (cpw,))
+    words = np.zeros(shape, np.int64)
+    for k in range(cpw):
+        words |= cls[..., k] << (bits * k)
+    S = rows * 128 // ncls
+    nxt = rng.integers(0, 1 << 9, rows * 128) if raw \
+        else rng.integers(0, S, rows * 128) * ncls
+    table = (nxt | rng.integers(0, 3, rows * 128) << 20).astype(np.int32)
+    planes = (B, G, 8, 128)
+    s0 = (rng.integers(0, S, planes) * ncls).astype(np.int32)
+    j0 = rng.integers(0, W + 1, planes).astype(np.int32)
+    if j0_odd:
+        j0 |= 1
+    if odd_entry:
+        pick = rng.random(planes) < 1 / 3
+        s0[pick] = rng.integers(-300, S * ncls + 3000, int(pick.sum()))
+    if frozen:
+        j0[rng.random(planes) < 0.5] = W
+    arrays = (words.astype(np.uint32).view(np.int32), s0, j0, table)
+    return [torch.from_numpy(a) for a in arrays], S
+
+
+@pytest.mark.parametrize("bits,ncls,W,opts", [
+    (4, 16, 32, {}), (4, 4, 32, dict(j0_odd=True)),
+    (4, 9, 8, dict(odd_entry=True, frozen=True)), (4, 16, 0, {}),
+    (4, 5, 32, dict(raw=True, odd_entry=True)), (3, 8, 40, {}),
+    (3, 5, 10, dict(odd_entry=True, frozen=True)),
+    (3, 6, 40, dict(j0_odd=True))])
+def test_pair_kernel_equals_plain_version(cuda, bits, ncls, W, opts):
+    """The two-code kernel (csrc/pair_scan.cu) against spec_scan_ref, COUNT
+    and scan: classes past ncls, freezes inside a code pair, one and no
+    warm word, entry states off the table's rows, some frozen through
+    the whole warmup, next fields off the ncls grid."""
+    rng = np.random.default_rng(bits * 100 + ncls * 10 + W)
+    args, S = _scan_case(rng, bits, 1, ncls, W, **opts)
+    pt = tscan.pair_table(args[3].numpy(), ncls, S, bits, cuda)
+    assert pt is not None
+    args = [t.to(cuda) for t in args]
+    cpw = {3: 10, 4: 8}[bits]
+    for count in (True, False):
+        kw = dict(W=W, CPW=cpw, BITS=bits, COUNT=count)
+        before = (tscan.pair_scan_launches, tscan.spec_scan_launches)
+        got = tscan.spec_scan(*args, pair=pt, **kw)
+        torch.cuda.synchronize()
+        assert (tscan.pair_scan_launches, tscan.spec_scan_launches) == \
+            (before[0] + 1, before[1])
+        for g, w in zip(got, tscan.spec_scan_ref(*args, **kw)):
+            assert torch.equal(g, w), count
+
+
+@pytest.mark.parametrize("bits,rows,ncls,opts", [
+    (4, 600, 16, dict(in_range=True)), (4, 300, 9, {}),
+    (8, 821, 27, {}), (8, 200, 200, dict(odd_entry=True)),
+    (8, 64, 27, dict(odd_entry=True, frozen=True)),
+    (8, 907, 128, dict(in_range=True)), (8, 908, 128, dict(in_range=True)),
+    (4, 40, 5, dict(odd_entry=True))])
+def test_big_smem_kernel_equals_plain_version(cuda, bits, rows, ncls, opts):
+    """The 16-bit kernel (csrc/big_scan.cu) against big_scan_ref, COUNT and
+    scan: classes past ncls (the wrap padding), entry states that are
+    not rows, some frozen through the whole warmup, and a table just
+    under (907 states of 128 classes) and just over (908: declined, the
+    global-memory kernel serves) the shared-memory cap."""
+    rng = np.random.default_rng(bits * 1000 + rows + ncls)
+    args, S = _scan_case(rng, bits, rows, ncls, 32, B=1, **opts)
+    t16 = tbig.big16_table(args[3].numpy(), ncls, S, bits, cuda)
+    assert (t16 is None) == (rows == 908 and ncls == 128)
+    args = [t.to(cuda) for t in args]
+    cpw = {4: 8, 8: 4}[bits]
+    for count in (True, False):
+        kw = dict(W=32, CPW=cpw, BITS=bits, COUNT=count)
+        before = (tbig.big_smem_launches, tbig.big_scan_launches)
+        got = tbig.big_scan(*args, t16=t16, **kw)
+        torch.cuda.synchronize()
+        assert (tbig.big_smem_launches, tbig.big_scan_launches) == (
+            (before[0], before[1] + 1) if t16 is None
+            else (before[0] + 1, before[1]))
+        for g, w in zip(got, tbig.big_scan_ref(*args, **kw)):
+            assert torch.equal(g, w), count
+
+
+def test_narrow_tier_takes_the_two_code_kernel_on_the_card(cuda):
+    """The headline pattern counts and scans through the two-code
+    kernel, equal to the native engine."""
+    import sregex_tpu_torch
+    pat = "(?:a|b)aa(?:aa|bb)cc(?:a|b)"
+    sc = sregex_tpu_torch.compile_pattern(pat)
+    host = sregex_tpu_torch.compile_pattern(pat, device=None)
+    assert type(sc._spec).__name__ == "SpecTables"
+    assert sc._spec.pair.rows == 11
+    data = b"abccc" * (2 << 20) + b"xaaabbccb" + b"abccc" * 1000
+    before = (tscan.pair_scan_launches, tscan.spec_scan_launches)
+    assert sc.count(data) == host.count(data)
+    assert sc.scan(data) == host.scan(data)
+    assert tscan.pair_scan_launches == before[0] + 2
+    assert tscan.spec_scan_launches == before[1]
+
+
 @pytest.mark.parametrize("pieces,bits,count,W", [
     (1, 4, True, 32), (3, 4, False, 512), (17, 8, True, 16),
     (48, 8, False, 64), (48, 4, True, 32)])
@@ -570,7 +688,7 @@ def test_core_tiers_run_on_the_card(cuda, monkeypatch):
         sc = sregex_tpu_torch.compile_pattern(pat)
         host = sregex_tpu_torch.compile_pattern(pat, device=None)
         assert type(sc._spec).__name__ == tier or sc._spec is tier
-        before = (tcore.gated_scan_launches, tscan.spec_scan_launches)
+        before = (tcore.gated_scan_launches, _spec_launches())
         assert sc.count(data) == host.count(data)
         assert sc.stats().tier == "CoreTables"
         assert sc.scan(data) == host.scan(data)
@@ -579,7 +697,7 @@ def test_core_tiers_run_on_the_card(cuda, monkeypatch):
             assert tcore.gated_scan_launches == before[0] + 2
         else:
             assert sc._coret not in (None, False)
-        assert tscan.spec_scan_launches == before[1] + 2
+        assert _spec_launches() == before[1] + 2
 
 
 def test_big_machines_stay_on_the_static_big_tier_on_the_card(cuda):
@@ -593,13 +711,14 @@ def test_big_machines_stay_on_the_static_big_tier_on_the_card(cuda):
     data = text.tobytes()
     sc = sregex_tpu_torch.compile_pattern("a.{11}b")
     host = sregex_tpu_torch.compile_pattern("a.{11}b", device=None)
-    before = (tcore.gated_scan_launches, tbig.big_scan_launches)
+    assert sc._spec.t16 is not None       # 6,144 states x 3 classes
+    before = (tcore.gated_scan_launches, tbig.big_smem_launches)
     assert sc.count(data) == host.count(data)
     assert sc.scan(data) == host.scan(data)
     assert sc.stats().tier == "SpecTablesBig"
     assert sc._fusedct is False and sc._coret is False
     assert tcore.gated_scan_launches == before[0]
-    assert tbig.big_scan_launches == before[1] + 2
+    assert tbig.big_smem_launches == before[1] + 2
 
 
 def test_lazy_machine_runs_on_the_card(cuda):
@@ -614,9 +733,9 @@ def test_lazy_machine_runs_on_the_card(cuda):
     sc = sregex_tpu_torch.compile_pattern(rb"a.{13}b")
     host = sregex_tpu_torch.compile_pattern(rb"a.{13}b", device=None)
     assert sc.dfa is None and sc.device.type == "cuda"
-    before = tscan.spec_scan_launches
+    before = _spec_launches()
     assert sc.count(data) == host.count(data)
     assert sc.stats().tier == "LazyCoreTables"
     assert sc.scan(data) == host.scan(data)
     assert sc.find(data) == host.find(data)
-    assert tscan.spec_scan_launches >= before + 2
+    assert _spec_launches() >= before + 2

@@ -15,7 +15,16 @@ range, its instruction count, its shared-memory loads (LDS) and its
 opcodes by count.  A loop's count includes every branch inside it
 (e.g. a rare slow path); read the dumped SASS to split those off.
 Where no function matches, the line lists the source's functions.
-Needs the CUDA toolkit (nvcc, cuobjdump, cu++filt).
+Needs the CUDA toolkit (nvcc, cuobjdump, cu++filt).  The inner loops
+of the two-code and 16-bit scans, for example:
+
+    python3 tools/sass_loops.py sass \
+        "sregex_tpu_torch/csrc/pair_scan.cu:spec_pair_kernel<4, 0>" \
+        "sregex_tpu_torch/csrc/big_scan.cu:big_smem_kernel<8, 1>"
+
+(the scan-mode narrow kernel and the COUNT-mode 8-bit big kernel; the
+main loop of the first is the one with 8 LDS, of the second the one
+with 16 LDS.U16, two streams of 4 codes a word, two words a turn).
 """
 
 import collections

@@ -1,12 +1,14 @@
-"""Time the affine or the lane-packed phi kernel against variants of its
-source, side by side on one card, at the main path's shape.
+"""Time a hand kernel against variants of its source, side by side on
+one card, at the main path's shape.
 
-    python3 tools/time_kernel_variants.py affine|phi [VARIANT.cu ...]
+    python3 tools/time_kernel_variants.py KERNEL [VARIANT.cu ...]
 
-Builds the tree's source ("tree": sregex_tpu_torch/csrc/affine_scan.cu or
-phi_scan.cu) and each VARIANT.cu alone with nvcc (sm_90a, the package's
-flags) into build/kernel_variants/, and prepares chip_smoke.py's input
-for the kernel:
+KERNEL is affine, phi, narrow or big.
+
+Builds the tree's source ("tree": sregex_tpu_torch/csrc/affine_scan.cu,
+phi_scan.cu, pair_scan.cu or big_scan.cu) and each VARIANT.cu alone
+with nvcc (sm_90a, the package's flags) into build/kernel_variants/,
+and prepares chip_smoke.py's input for the kernel:
 
   affine: the base64-blob detector's tables at the warmup the affine
     phase settles on (512) over its 1920 MB log-like corpus
@@ -14,15 +16,25 @@ for the kernel:
     COUNT, the templated kernel and the generic one;
   phi: b(?:aa)*b's lane-packed tables over the phi phase's 1920 MB of
     a-runs (SREGEX_BENCH_PHI_MB); timed COUNT at each k that fits
-    (8, 4, 2, 1).
+    (8, 4, 2, 1);
+  narrow: the headline's tables (two-code table, 4-bit) over its 1920 MB
+    corpus (SREGEX_BENCH_MB), entered as the scan folds enter it (every
+    stream at state 0, stream 0 frozen through the warmup); timed in
+    scan mode (the headline's) and COUNT;
+  big: the 500-keyword dictionary's tables (16-bit table) over the big
+    phase's 1920 MB corpus (SREGEX_BENCH_BIG_MB), entered the same way;
+    timed COUNT (the big phase's) and in scan mode.
 
-It checks that every source's planes equal the plain version on the
-first 64 MB at every timed setting, then times each with CUDA events,
-20 launches a time, in the order tree, V1, ... and back, twice.
-Prints the card's name and power limit and one JSON line {"kernel",
-"shape", "ms": {source: {setting: [ms per round]}}}.  Each VARIANT.cu
-must export the tree's entry point (sre_affine_scan or sre_phi_scan)
-with the tree's signature.  Needs a CUDA card.
+For narrow and big the tree's one-lookup kernel (sre_spec_scan or
+sre_big_scan, from the package's library) is timed beside them as the
+source "one_lookup".  It checks that every source's planes equal the
+plain version on the first 64 MB at every timed setting, then times
+each with CUDA events, 20 launches a time, in the order tree, V1, ...
+and back, twice.  Prints the card's name and power limit and one JSON
+line {"kernel", "shape", "ms": {source: {setting: [ms per round]}}}.
+Each VARIANT.cu must export the tree's entry point (sre_affine_scan,
+sre_phi_scan, sre_spec_scan_pair or sre_big_scan_smem) with the tree's
+signature.  Needs a CUDA card.
 """
 
 import ctypes
@@ -40,12 +52,21 @@ import chip_smoke as cs  # noqa: E402
 import sregex_tpu_torch  # noqa: E402
 from sregex_tpu_torch.ops import _build  # noqa: E402
 from sregex_tpu_torch.ops import affine as aff  # noqa: E402
+from sregex_tpu_torch.ops import big as tbig  # noqa: E402
 from sregex_tpu_torch.ops import phi as tphi  # noqa: E402
 from sregex_tpu_torch.ops import spec_scan as scan  # noqa: E402
 from sregex_tpu_torch.ops.prep import prepare_on_device  # noqa: E402
 
 PLAIN_MB = 64
-SOURCES = {"affine": "affine_scan.cu", "phi": "phi_scan.cu"}
+SOURCES = {"affine": "affine_scan.cu", "phi": "phi_scan.cu",
+           "narrow": "pair_scan.cu", "big": "big_scan.cu"}
+# argument types of each entry point a source may export
+ARGTYPES = {
+    "sre_affine_scan": "ppppipppiiiiiiippiip",
+    "sre_phi_scan": "ppippiiiiiiiiiipiip",
+    "sre_spec_scan_pair": "ppppipppiiiiiiipipip",
+    "sre_big_scan_smem": "ppppipppiiiiiiipiiip",
+}
 
 
 def build(sources, out):
@@ -59,20 +80,17 @@ def build(sources, out):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name, src in sources.items()}
     libs = {}
-    p, i = ctypes.c_void_p, ctypes.c_int
+    ctype = {"p": ctypes.c_void_p, "i": ctypes.c_int}
     for name, proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError("nvcc failed on %s:\n%s" % (name, log))
         lib = ctypes.CDLL(str(out / ("%s.so" % name)))
-        if hasattr(lib, "sre_affine_scan"):
-            lib.sre_affine_scan.restype = i
-            lib.sre_affine_scan.argtypes = [p, p, p, p, i, p, p, p, i, i, i,
-                                            i, i, i, i, p, p, i, i, p]
-        else:
-            lib.sre_phi_scan.restype = i
-            lib.sre_phi_scan.argtypes = [p, p, i, p, p, i, i, i, i, i, i, i,
-                                         i, i, i, p, i, i, p]
+        for entry, types in ARGTYPES.items():
+            if hasattr(lib, entry):
+                fn = getattr(lib, entry)
+                fn.restype = ctypes.c_int
+                fn.argtypes = [ctype[c] for c in types]
         libs[name] = lib
     return libs
 
@@ -157,6 +175,65 @@ def phi_case(libs):
         cs.phi_valid(kw, data.device)
 
 
+def scan_case(libs, kernel):
+    """As affine_case for the narrow (two-code) and big (16-bit) kernels:
+    run(name, data) launches source ``name``'s kernel, or the package's
+    one-lookup kernel for the name "one_lookup"."""
+    if kernel == "narrow":
+        ast, _ = sregex_tpu_torch.parse(cs.HEADLINE)
+        t = scan.SpecTables(sregex_tpu_torch.build_dfa(
+            sregex_tpu_torch.compile_regex(ast)), "cuda")
+        corpus = cs.headline_corpus(cs.mb_env("SREGEX_BENCH_MB"))
+        entry, one, extra = ("sre_spec_scan_pair", "sre_spec_scan",
+                             (t.pair.table, t.pair.rowmap))
+        plain_fn = scan.spec_scan_ref
+    else:
+        words = cs.dictionary(500)
+        t = sregex_tpu_torch.compile_pattern(words)._spec
+        corpus = cs.multi_corpus(cs.mb_env("SREGEX_BENCH_BIG_MB"), words)
+        entry, one, extra = "sre_big_scan_smem", "sre_big_scan", None
+        plain_fn = tbig.big_scan_ref
+    data = prepare_on_device(t, corpus, 2048)[0]
+    del corpus
+    K = data.shape[1] * t.cpw - t.warmup
+    small = data[:-(-(PLAIN_MB << 20) // K // (cs.GROUPS * 1024))]
+    package = _build.load()
+
+    def runner(count):
+        def run(name, d):
+            s0, j0 = scan._entry_planes(0, t.warmup, d.shape[0], d.device)
+            out = tuple(torch.empty_like(s0) for _ in range(3))
+            head = (d.data_ptr(), s0.data_ptr(), j0.data_ptr(),
+                    t.fused.data_ptr(), t.fused.numel(),
+                    *(o.data_ptr() for o in out), *d.shape[:3], t.warmup,
+                    t.cpw, t.bits, int(count))
+            if name == "one_lookup":
+                rc = getattr(package, one)(*head, stream())
+            elif extra is not None:
+                rc = getattr(libs[name], entry)(
+                    *head, extra[0].data_ptr(), extra[0].numel(),
+                    extra[1].data_ptr(), extra[1].numel(), stream())
+            else:
+                rc = getattr(libs[name], entry)(
+                    *head, t.t16.table.data_ptr(), t.t16.table.numel(),
+                    t.t16.ncls, t.t16.rows, stream())
+            if rc:
+                raise RuntimeError("%s: cudaError %d" % (name, rc))
+            return out
+        return run
+
+    settings = ((("scan", False), ("count", True)) if kernel == "narrow"
+                else (("count", True), ("scan", False)))
+    runs = {name: runner(count) for name, count in settings}
+
+    def plain(d, setting):
+        s0, j0 = scan._entry_planes(0, t.warmup, d.shape[0], d.device)
+        return plain_fn(d, s0, j0, t.fused, W=t.warmup, CPW=t.cpw,
+                        BITS=t.bits, COUNT=dict(settings)[setting])
+
+    return data, small, runs, plain, None
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA card")
@@ -165,16 +242,21 @@ def main():
     for arg in sys.argv[2:]:
         sources[Path(arg).stem] = Path(arg).resolve()
     libs = build(sources, ROOT / "build" / "kernel_variants")
-    data, small, runs, plain, valid = (affine_case if kernel == "affine"
-                                       else phi_case)(libs)
-    want = plain(small)
+    if kernel in ("narrow", "big"):
+        data, small, runs, plain, valid = scan_case(libs, kernel)
+        sources["one_lookup"] = None
+        want = {setting: plain(small, setting) for setting in runs}
+    else:
+        data, small, runs, plain, valid = (affine_case if kernel == "affine"
+                                           else phi_case)(libs)
+        want = dict.fromkeys(runs, plain(small))
     for name in sources:
         for setting, run in runs.items():
             got = run(name, small)
             torch.cuda.synchronize()
             if not all(torch.equal(g, w) if valid is None else
                        torch.equal(g[..., valid], w[..., valid])
-                       for g, w in zip(got, want)):
+                       for g, w in zip(got, want[setting])):
                 raise AssertionError("%s (%s) differs from the plain version"
                                      % (name, setting))
     names = list(sources)
