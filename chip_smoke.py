@@ -11,7 +11,7 @@ engine:
     (the wide tier); beside it the same count by a Scanner with
     SREGEX_FUSED=1, the fused two-phase core tier, the TPU's route for
     this set (phase 2 on the gated kernel with the table in shared
-    memory);
+    memory, the escaped chunks read in place), and that phase 2 timed;
   - lazy: Scanner.count of a.{13}b, past the eager DFA budget, over the
     multi corpus: the legacy core over the lazy machine (LazyCoreTables,
     escapes re-scanned on the lazy machine's native walkers), checked
@@ -25,8 +25,9 @@ engine:
   - core: Scanner.count and Scanner.scan of the same dictionary over the
     same corpus by a Scanner with SREGEX_FUSED=1, served by the fused
     two-phase core tier (phase 1 on a sampled core, phase 2 on the gated
-    big kernel), with its phase split; then the same with the device
-    cap under the corpus's escapes, where the first count overflows and
+    kernel's 16-bit route, the escaped chunks read in place), with its
+    phase split; then the same with the device cap under the corpus's
+    escapes, where the first count overflows and
     hands the machine to the static big tier; then Scanner.count of a
     machine with no static tier, a.{10}b|cdefghijklmnopqrstuvwxyz, over
     the same corpus (the legacy core, or the native engine where no
@@ -170,6 +171,8 @@ def reset_launches():
     tphi.phi_scan_launches = 0
     tphi.phi_big_scan_launches = 0
     tcore.gated_scan_launches = 0
+    for route in tcore.gated_route_launches:
+        tcore.gated_route_launches[route] = 0
 
 
 def max_abs_err(got, want):
@@ -234,24 +237,37 @@ def random_case(rng, dev, *, bits, rows, W, count, B=2, G=8, K=512,
     return args, dict(W=W, CPW=cpw, BITS=bits, COUNT=count)
 
 
-def compare_gated(args, kw, n_esc, big_):
+def compare_gated(args, kw, n_esc, big_, t16=None, sel=None):
     """The gated kernel vs its plain version: bit-exact planes in the
     active block rows, and the rows gated off still hold the sentinel
-    the output planes were filled with."""
+    the output planes were filled with.  ``sel``: the slots read the
+    corpus args[0] through this map (in place)."""
     ne = torch.tensor([n_esc], dtype=torch.int32, device=args[0].device)
     out = tuple(torch.full_like(args[1], -7) for _ in range(3))
-    got = tcore.gated_scan(*args, ne, big=big_, out=out, **kw)
+    got = tcore.gated_scan(*args, ne, big=big_, t16=t16, sel=sel, out=out,
+                           **kw)
     torch.cuda.synchronize()
-    want = tcore.gated_scan_ref(*args, ne, **kw)
+    want = tcore.gated_scan_ref(*args, ne, sel=sel, **kw)
     torch.cuda.synchronize()
-    nblk = tcore._active_rows(ne, args[0])
+    nblk = tcore._active_rows(ne, args[1])
     err = max_abs_err([g[:nblk] for g in got],
                       [w[:nblk] for w in want]) if nblk else 0
     if err or not all(bool((g[nblk:] == -7).all()) for g in got):
         raise AssertionError("the gated kernel differs from its plain "
                              "version by %d or wrote a gated row (n_esc %d, "
-                             "%r)" % (err, n_esc, kw))
+                             "t16 %s, sel %s, %r)" % (
+                                 err, n_esc, t16 is not None,
+                                 sel is not None, kw))
     return err
+
+
+def slot_map(rng, chunks, n_esc, cap, dev):
+    """An ascending random slot -> chunk map of n_esc chunks among
+    ``chunks``, padding slots on chunk 0 (_compact_escapes' layout)."""
+    sel = np.zeros(cap, np.int64)
+    n = min(n_esc, cap)
+    sel[:n] = np.sort(rng.choice(chunks, n, replace=False))
+    return torch.from_numpy(sel.astype(np.int32)).to(dev)
 
 
 def random_affine_case(rng, dev, *, pieces, bits, W, count, B=2, G=8,
@@ -564,6 +580,92 @@ def affine_times(asc, aprep, acorpus, timings, errs, dev):
         / ms[False] / 1e6,
         wide_ms=wide_ms, wide_entries=wt.nstates * wt.ncls,
         wide_corpus_gbps=ws0.numel() * wide_units / wide_ms / 1e6)
+
+
+def gated_times(prep, fct, full, n, dev, errs):
+    """The fused tier's phase split on a prepared corpus, by CUDA events:
+    phase 1, the gated kernel on the route of the full machine's tables,
+    reading the escaped chunks in place (``ms``; ``windows_ms`` on the
+    same windows gathered first, ``one_row_ms`` with one escape: one
+    active row, the chain alone), the window gather the card no longer
+    makes (``gather_ms``), the plain version and one whole
+    _fused_count (``fused_device_ms``).  Holds the kernel against its
+    plain version at both addressings.  ``sectors_per_word``: the
+    distinct 32-byte sectors holding one word of each active slot's
+    chunk, ``sector_mb`` those sectors over every word.  Returns the
+    kernel_time line's fields and the kernels line's timing tuple."""
+    inner = fct.inner
+    ck = tcore.fused_chunk(inner, full)
+    cdata, C, K, _, B1 = prep.for_tables(inner, ck)
+    fdata = prep.for_tables(full, ck)[0]
+    Cfull = C - 1 if C * K > n and n - (C - 1) * K != K else C
+    cap = tcore._fused_cap(B1)
+    Cp = B1 * GROUPS * 1024
+    s01, j01 = scan._entry_planes(fct.to_core_premult(0), inner.warmup, B1,
+                                  dev)
+
+    def phase1():
+        return scan.spec_scan(cdata, s01, j01, inner.fused, W=inner.warmup,
+                              CPW=inner.cpw, BITS=inner.bits, COUNT=True)
+
+    p1_ms = time_gpu(phase1, 20)
+    live = torch.arange(Cp, device=dev) < Cfull
+    n_esc, _, sel_g, _ = tcore._compact_escapes(
+        phase1()[0].reshape(Cp), live, fct.esc_premult, cap)
+    nesc = int(n_esc)
+    big_ = isinstance(full, big.SpecTablesBig)
+    t16 = full.t16 if big_ else None
+    route = "big16" if t16 is not None else "global" if big_ else "smem"
+    z2 = torch.zeros((cap // (GROUPS * 1024), GROUPS, 8, 128),
+                     dtype=torch.int32, device=dev)
+    gargs = [fdata, z2, z2, full.fused]
+    gkw = dict(W=full.warmup, CPW=full.cpw, BITS=full.bits, big=big_,
+               t16=t16)
+    pkw = dict(W=full.warmup, CPW=full.cpw, BITS=full.bits)
+    gblk = tcore._gather_windows(fdata, sel_g, cap)
+    errs["gated"] = max(errs["gated"], compare_gated(
+        gargs, pkw, nesc, big_, t16=t16, sel=sel_g), compare_gated(
+        [gblk, z2, z2, full.fused], pkw, nesc, big_, t16=t16))
+    ne = n_esc.reshape(1)
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    g_ms = time_gpu(lambda: tcore.gated_scan(*gargs, ne, sel=sel_g, **gkw),
+                    20)
+    one_ms = time_gpu(lambda: tcore.gated_scan(*gargs, one, sel=sel_g,
+                                               **gkw), 20)
+    win_ms = time_gpu(lambda: tcore.gated_scan(gblk, z2, z2, full.fused, ne,
+                                               **gkw), 20)
+    gather_ms = time_gpu(lambda: tcore._gather_windows(fdata, sel_g, cap),
+                         20)
+    g_plain_ms = time_gpu(lambda: tcore.gated_scan_ref(
+        *gargs, ne, sel=sel_g, **pkw), 2)
+    fused_ms = time_gpu(lambda: tcore._fused_count(
+        cdata, fdata, inner, full, fct._h2f_dev, Cfull,
+        fct.to_core_premult(0), 0, CAP=cap, ESC=fct.esc_premult), 5)
+    # bytes: each distinct chunk an active slot reads, all its words; the
+    # table the route stages or reads; the active slots' map entries,
+    # entry planes and three output planes.  Operations: one a step of
+    # each escaped chunk
+    nblk = tcore._active_rows(ne, z2)
+    slots = nblk * GROUPS * 1024
+    active = sel_g[:slots]
+    chunks = int(torch.unique(active).numel())
+    sectors = int(torch.unique(active // 8).numel())
+    table_bytes = (t16.table.numel() * 2 if t16 is not None
+                   else full.fused.numel() * 4)
+    t_bytes = ((chunks * fdata.shape[1] + 6 * slots) * 4 + table_bytes) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = min(nesc, cap) * (full.warmup + K) / SCALAR_OPS_PER_S * 1e3
+    bms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                           "operations")
+    shape = [cap // (GROUPS * 1024)] + list(fdata.shape[1:])
+    line = dict(route=route, shape=shape, corpus_shape=list(fdata.shape),
+                n_esc=nesc, active_rows=nblk, ms=g_ms, one_row_ms=one_ms,
+                windows_ms=win_ms, gather_ms=gather_ms, plain_ms=g_plain_ms,
+                bound_ms=bms, bound_by=by, sectors_per_word=sectors,
+                sector_mb=sectors * 32 * fdata.shape[1] / 1e6,
+                phase1_ms=p1_ms, phase1_shape=list(cdata.shape),
+                fused_device_ms=fused_ms, K=ck, cap=cap)
+    return line, (g_ms, g_plain_ms, bms, by, shape, route)
 
 
 def native_count(sc, corpus):
@@ -996,21 +1098,35 @@ def main():
                 errs[tier] = max(errs[tier], compare_phi(
                     *fns, args, kw, stride=(k, st)))
                 kgram_cases.append((tier, S, k, count))
-    # gated: the phase-2 scan at CAP 32768 (4 block rows of G tiles) over
-    # narrow, wide and big tables, gated at the edges of a block row
+    # gated: the phase-2 scan at CAP 32768 (4 block rows of G tiles) on
+    # every route (narrow and wide tables in shared memory, a big table
+    # by its 16-bit table and from global memory), over block-layout
+    # windows and in place through a slot map into a corpus of two more
+    # block rows, gated at the edges of a block row; the big table's
+    # entry states a third off its rows
     errs["gated"] = 0
     cap_rows = 32768 // (GROUPS * 1024)
     gated_cases = []
-    for bits, rows, ncls, big_ in ((4, 1, 16, False), (8, 98, 27, False),
-                                   (8, 821, 27, True)):
+    for bits, rows, ncls, route in ((4, 1, 16, "smem"), (8, 98, 27, "smem"),
+                                    (8, 821, 27, "big16"),
+                                    (8, 821, 27, "global")):
         args, kw = random_case(rng, dev, bits=bits, rows=rows, W=32,
-                               count=True, B=cap_rows, K=256, ncls=ncls,
-                               in_range=True)
+                               count=True, B=cap_rows + 2, K=256, ncls=ncls,
+                               in_range=True, odd_entry=rows > 98)
         kw.pop("COUNT")
+        t16 = big.big16_table(args[3].cpu().numpy(), ncls, rows * 128 // ncls,
+                              bits, dev) if route == "big16" else None
+        if (t16 is None) == (route == "big16"):
+            raise AssertionError("big16_table declined the %s case" % route)
+        s0, j0 = (a[:cap_rows].contiguous() for a in args[1:3])
+        chunks = args[0][:, 0].numel()
         for n_esc in (0, 1, GROUPS * 1024, GROUPS * 1024 + 1, 32768):
-            errs["gated"] = max(errs["gated"],
-                                compare_gated(args, kw, n_esc, big_))
-            gated_cases.append((rows, n_esc))
+            for sel in (None, slot_map(rng, chunks, n_esc, 32768, dev)):
+                data = args[0] if sel is not None else args[0][:cap_rows]
+                errs["gated"] = max(errs["gated"], compare_gated(
+                    [data, s0, j0, args[3]], kw, n_esc, route != "smem",
+                    t16=t16, sel=sel))
+                gated_cases.append((route, n_esc, sel is not None))
     say("kernel_vs_plain", groups=GROUPS, max_abs_err=max(errs.values()),
         cases=len(cases) + 4 + len(pair_cases) + len(big_cases)
         + sum(big16_held) + 2 * len(affine_cases) + 4
@@ -1124,6 +1240,7 @@ def main():
     with env("SREGEX_FUSED", "1"):
         fsc = sregex_tpu_torch.compile_pattern(pats)
         g0 = tcore.gated_scan_launches
+        r0 = tcore.gated_route_launches["smem"]
         t0 = time.perf_counter()
         check_multi(fsc.count(mcorpus, prepared=mprep))
         ffirst_s = time.perf_counter() - t0
@@ -1133,6 +1250,10 @@ def main():
     if fmst.tier != "CoreTables" or not isinstance(mct, tcore.CoreTables):
         raise AssertionError("the multi set is not on the fused tier: %r"
                              % fmst)
+    if tcore.gated_route_launches["smem"] - r0 != \
+            tcore.gated_scan_launches - g0 or tcore.gated_scan_launches == g0:
+        raise AssertionError("multi phase 2 left the shared-memory route: "
+                             "%r" % tcore.gated_route_launches)
     say("multi_fused", mb=mmb, count=mexp, fused_multi_gbps=mn / fmdt / 1e9,
         multi_dfa_scan_gbps=mn / mdt / 1e9,
         K=tcore.fused_chunk(mct.inner, fsc._spec),
@@ -1143,6 +1264,9 @@ def main():
         gated_launches=tcore.gated_scan_launches - g0,
         first_call_s=ffirst_s,
         peak_mem_bytes=torch.cuda.max_memory_allocated())
+    # the gated kernel's wide route at this arm's phase-2 shape and escapes
+    say("kernel_time", tier="gated_wide", **gated_times(
+        mprep, mct, fsc._spec, mn, dev, errs)[0])
     # mprep stays for the wide kernel's timing; the fused Scanner's preps
     # go
     drop_preps(mprep, mct.inner, fsc._spec)
@@ -1296,60 +1420,25 @@ def main():
             raise AssertionError("core scan served by %s"
                                  % csc.stats().tier)
     launches["gated"] = tcore.gated_scan_launches
-    claunch = dict(gated=launches["gated"], spec=scan.spec_scan_launches,
+    claunch = dict(gated=launches["gated"],
+                   gated_routes=dict(tcore.gated_route_launches),
+                   spec=scan.spec_scan_launches,
                    pair=scan.pair_scan_launches, big=big.big_scan_launches,
                    big_smem=big.big_smem_launches)
+    # the dictionary's table fits 16 bits: every phase 2 on that route
+    if not launches["gated"] \
+            or tcore.gated_route_launches["big16"] != launches["gated"]:
+        raise AssertionError("core phase 2 routes: %r" % claunch)
 
     # the phase split by CUDA events, and the gated kernel at this
     # phase-2 shape with this corpus's escapes
-    inner, full = fct.inner, csc._spec
-    ck = tcore.fused_chunk(inner, full)
-    cdata, C, K, _, B1 = cprep.for_tables(inner, ck)
-    fdata = cprep.for_tables(full, ck)[0]
-    Cfull = C - 1 if C * K > bn and bn - (C - 1) * K != K else C
-    cap = tcore._fused_cap(B1)
-    Cp = B1 * GROUPS * 1024
-    s01, j01 = scan._entry_planes(fct.to_core_premult(0), inner.warmup, B1,
-                                  dev)
-
-    def phase1():
-        return scan.spec_scan(cdata, s01, j01, inner.fused, W=inner.warmup,
-                              CPW=inner.cpw, BITS=inner.bits, COUNT=True)
-
-    p1_ms = time_gpu(phase1, 20)
-    live = torch.arange(Cp, device=dev) < Cfull
-    n_esc, _, sel_g, _ = tcore._compact_escapes(
-        phase1()[0].reshape(Cp), live, fct.esc_premult, cap)
-    gblk = tcore._gather_windows(fdata, sel_g, cap)
-    z2 = torch.zeros((gblk.shape[0], GROUPS, 8, 128), dtype=torch.int32,
-                     device=dev)
-    gargs = [gblk, z2, z2, full.fused]
-    gkw = dict(W=full.warmup, CPW=full.cpw, BITS=full.bits)
-    nesc = int(n_esc)
-    errs["gated"] = max(errs["gated"], compare_gated(gargs, gkw, nesc, True))
-    ne = n_esc.reshape(1)
-    g_ms = time_gpu(lambda: tcore.gated_scan(*gargs, ne, big=True, **gkw),
-                    20)
-    g_plain_ms = time_gpu(lambda: tcore.gated_scan_ref(*gargs, ne, **gkw),
-                          2)
-    fused_ms = time_gpu(lambda: tcore._fused_count(
-        cdata, fdata, inner, full, fct._h2f_dev, Cfull,
-        fct.to_core_premult(0), 0, CAP=cap, ESC=fct.esc_premult), 5)
-    # bytes: the active rows' words, the table and three planes of the
-    # active rows; operations: one per step of each escaped chunk
-    nblk = min(gblk.shape[0], -(-nesc // (GROUPS * 1024)))
-    slots = nblk * GROUPS * 1024
-    t_bytes = (slots * gblk.shape[1] + full.fused.numel() + 3 * slots) * 4 \
-        / HBM_BYTES_PER_S * 1e3
-    t_ops = min(nesc, cap) * (full.warmup + K) / SCALAR_OPS_PER_S * 1e3
-    bms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
-                                                           "operations")
-    timings["gated"] = (g_ms, g_plain_ms, bms, by, list(gblk.shape))
-    say("kernel_time", tier="gated", shape=list(gblk.shape), n_esc=nesc,
-        active_rows=nblk, ms=g_ms, plain_ms=g_plain_ms, bound_ms=bms,
-        bound_by=by, phase1_ms=p1_ms, phase1_shape=list(cdata.shape),
-        fused_device_ms=fused_ms)
-    del gblk, gargs, z2, sel_g, live, cdata, fdata
+    inner = fct.inner
+    gline, timings["gated"] = gated_times(cprep, fct, csc._spec, bn, dev,
+                                          errs)
+    p1_ms, g_ms, fused_ms = (gline[k] for k in (
+        "phase1_ms", "ms", "fused_device_ms"))
+    nesc, ck, cap = gline["n_esc"], gline["K"], gline["cap"]
+    say("kernel_time", tier="gated", **gline)
 
     # past the device cap (one phase-2 block row): the first count
     # repairs its escapes on the host and hands the machine to the
@@ -1741,7 +1830,7 @@ def main():
             ("tdfa", "tdfa_scan.cu", "sregex_tpu/ops/tdfa_scan.py:450"),
             ("phi", "phi_scan.cu", "sregex_tpu/ops/pallas_phi.py:410"),
             ("phi_big", "phi_scan.cu", "sregex_tpu/ops/pallas_phi.py:206"),
-            ("gated", "spec_scan.cu",
+            ("gated", "gated_scan.cu",
              "sregex_tpu/ops/pallas_core.py:623")):
         ms, plain_ms, bms, by, shape = timings[tier][:5]
         if tier == "tdfa":
@@ -1752,8 +1841,9 @@ def main():
             name = ("sublane-group phi scan (shape %s; plain_ms at %s, the "
                     "first %d MB)" % (shape, timings[tier][5], plain_mb))
         elif tier == "gated":
-            name = ("gated phase-2 scan (big table, shape %s, %d escaped "
-                    "chunks)" % (shape, nesc))
+            name = ("gated phase-2 scan (%s route, big table, windows read "
+                    "in place, slots %s, %d escaped chunks)"
+                    % (timings[tier][5], shape, nesc))
         elif tier == "narrow":
             name = "two-code spec scan (narrow table, shape %s)" % shape
         elif tier == "big":

@@ -53,55 +53,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "scan_step.cuh"
+
 namespace {
 
-constexpr int kTile = 1024;
+using namespace sre_scan;
+
 constexpr int kWarps = kTile / 32;
-constexpr int kMatchShift = 20;
-constexpr int32_t kStateMask = (1 << kMatchShift) - 1;
-constexpr uint32_t kSidMask = (1u << 14) - 1u;
-constexpr int kSmemMax = 232448;
-
-template <int BITS> struct Packing;
-template <> struct Packing<4> { static constexpr int kCpw = 8; };
-template <> struct Packing<8> { static constexpr int kCpw = 4; };
-
-// a * b + c on the FMA pipe (see affine_scan.cu)
-__device__ __forceinline__ uint32_t mad_lo(uint32_t a, uint32_t b,
-                                           uint32_t c) {
-  uint32_t r;
-  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
-  return r;
-}
-
-// Code k of a word (k is a compile-time constant once the loops are
-// unrolled): an 8-bit code is one byte permute.
-template <int BITS>
-__device__ __forceinline__ uint32_t code(uint32_t word, int k) {
-  if constexpr (BITS == 8) {
-    return __byte_perm(word, 0u, 0x4440u | static_cast<uint32_t>(k));
-  } else {
-    return (word >> (BITS * k)) & ((1u << BITS) - 1u);
-  }
-}
-
-// One 16-bit step: the entry of state id sid on class code c, at byte
-// 2 * c + sid * 2 ncls, two multiply-adds on the FMA pipe.
-__device__ __forceinline__ uint32_t step16(const char* tab, uint32_t sid,
-                                           uint32_t ncls2, uint32_t c) {
-  return *reinterpret_cast<const uint16_t*>(
-      tab + mad_lo(c, 2u, mad_lo(sid, ncls2, 0u)));
-}
-
-// One step through the fused table in global memory, as sre_big_scan.
-__device__ __forceinline__ int32_t step_global(const int32_t* table,
-                                               uint32_t idx, uint32_t n) {
-  return __ldg(table + (idx < n ? idx : (idx & 127u)));
-}
-
-__device__ __forceinline__ bool is_row(int32_t s, int ncls, int rows) {
-  return s >= 0 && s % ncls == 0 && s / ncls < rows;
-}
 
 // One stream of a warp item: where its words and planes are, and its
 // state (premultiplied s on the one-code walk, the id sid on the 16-bit
@@ -158,7 +116,7 @@ __device__ __forceinline__ Stream enter(const Args& a, const char* tab,
       } else {
         const uint32_t cls = (word >> (BITS * k)) & kClassMask;
         const int32_t e =
-            step_global(a.table, static_cast<uint32_t>(s) + cls, a.n);
+            lookup<false>(a.table, static_cast<uint32_t>(s) + cls, a.n);
         if (w * CPW + k >= jz) s = e & kStateMask;
       }
     }
@@ -224,7 +182,7 @@ __device__ __forceinline__ void finish(const Args& a, const char* tab,
     for (int k = 0; k < CPW; ++k) {
       const uint32_t cls = (word >> (BITS * k)) & kClassMask;
       const int32_t e =
-          step_global(a.table, static_cast<uint32_t>(s) + cls, a.n);
+          lookup<false>(a.table, static_cast<uint32_t>(s) + cls, a.n);
       if (COUNT) {
         acc += static_cast<uint32_t>(e >> kMatchShift);
       } else {

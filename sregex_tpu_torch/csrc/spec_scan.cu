@@ -4,8 +4,8 @@
 // (the narrow 128-entry table), ::_kernel_wide (tables of R rows of 128)
 // and their launch ::_dispatch_kernel, and, with the table left in global
 // memory, ops/pallas_big.py::_kernel_big with its row loop _lookup_rows
-// (tables of up to 2^17 entries).  It serves the wide tier, the gated
-// phase 2 and the tables the redesigned kernels do not hold: the narrow
+// (tables of up to 2^17 entries).  It serves the wide tier and the tables
+// the redesigned kernels do not hold: the narrow
 // tier's 3- and 4-bit tables run pair_scan.cu (one lookup per two class
 // codes), the big tables that fit 16 bits an entry big_scan.cu.  It
 // computes what they compute; it does not copy their structure:
@@ -42,17 +42,6 @@
 // loads through L1 and L2: 2.07 ms for the 500-keyword dictionary where
 // the same steps from shared memory take 1.07 (big_scan.cu).
 
-// The gated variants (sre_spec_scan_gated, sre_big_scan_gated) replace
-// ops/pallas_core.py::_dispatch_kernel_gated, the phase-2 launch of the
-// fused two-phase core tier: the full machine redoes the chunks that
-// escaped the core, compacted into a prefix of a static number of chunk
-// slots.  Every block reads the escape count from device memory and a
-// block past ceil(n_esc / (G*1024)) slots, counted by block row b as the
-// TPU's scalar-prefetch gate counts its grid steps, returns before it
-// stages the table: its outputs are left unwritten, and no host sync
-// sizes the grid.  What holds phase 2 back is occupancy, not the gate:
-// at most CAP / 1024 blocks (32 at CAP 32768), a partial wave on 132 SMs.
-//
 // Bounds: a table index is (state + class) and is in range for any
 // input the prep produces.  For any other input the kernel stays inside
 // the table: an index outside [0, table_len) reads entry (index & 127),
@@ -63,48 +52,22 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "scan_step.cuh"
+
 namespace {
 
-constexpr int kTile = 1024;
-constexpr int kMatchShift = 20;
-constexpr int32_t kStateMask = (1 << kMatchShift) - 1;
+using namespace sre_scan;
 
-template <int BITS> struct Packing;
-template <> struct Packing<3> { static constexpr int kCpw = 10; };
-template <> struct Packing<4> { static constexpr int kCpw = 8; };
-template <> struct Packing<8> { static constexpr int kCpw = 4; };
-
-// SMEM: the table was copied to shared memory; else it is read from
-// global memory through the read-only data cache.
-template <bool SMEM>
-__device__ __forceinline__ int32_t lookup(const int32_t* tab, uint32_t idx,
-                                          uint32_t n) {
-  const uint32_t i = idx < n ? idx : (idx & 127u);
-  if constexpr (SMEM) {
-    return tab[i];
-  } else {
-    return __ldg(tab + i);
-  }
-}
-
-// GATED: n_esc points at the escape count; block rows past
-// ceil(n_esc / (G * kTile)) return at once (see the head of the file).
-template <int BITS, bool COUNT, bool SMEM, bool GATED>
+template <int BITS, bool COUNT, bool SMEM>
 __global__ void __launch_bounds__(kTile)
 spec_scan_kernel(const int32_t* __restrict__ data,
                  const int32_t* __restrict__ state0,
                  const int32_t* __restrict__ j0,
                  const int32_t* __restrict__ table, int table_len,
                  int32_t* __restrict__ phi, int32_t* __restrict__ fm,
-                 int32_t* __restrict__ swarm, int Jw, int G, int W_units,
-                 const int32_t* __restrict__ n_esc) {
+                 int32_t* __restrict__ swarm, int Jw, int G, int W_units) {
   constexpr int CPW = Packing<BITS>::kCpw;
   constexpr uint32_t kClassMask = (1u << BITS) - 1u;
-  if constexpr (GATED) {
-    const int64_t slots = static_cast<int64_t>(G) * kTile;
-    const int64_t nblk = (static_cast<int64_t>(*n_esc) + slots - 1) / slots;
-    if (static_cast<int64_t>(blockIdx.x / G) >= nblk) return;
-  }
   extern __shared__ int32_t smem_tab[];
   const int32_t* tab = table;
   if constexpr (SMEM) {
@@ -157,13 +120,12 @@ spec_scan_kernel(const int32_t* __restrict__ data,
                     : (static_cast<int32_t>(acc) >> kMatchShift);
 }
 
-template <int BITS, bool COUNT, bool SMEM, bool GATED>
+template <int BITS, bool COUNT, bool SMEM>
 cudaError_t launch(const int32_t* data, const int32_t* state0,
                    const int32_t* j0, const int32_t* table, int table_len,
                    int32_t* phi, int32_t* fm, int32_t* swarm, int B, int Jw,
-                   int G, int W_units, const int32_t* n_esc,
-                   cudaStream_t stream) {
-  auto kernel = spec_scan_kernel<BITS, COUNT, SMEM, GATED>;
+                   int G, int W_units, cudaStream_t stream) {
+  auto kernel = spec_scan_kernel<BITS, COUNT, SMEM>;
   size_t smem = 0;
   if constexpr (SMEM) {
     smem = static_cast<size_t>(table_len) * sizeof(int32_t);
@@ -173,17 +135,15 @@ cudaError_t launch(const int32_t* data, const int32_t* state0,
     if (err != cudaSuccess) return err;
   }
   kernel<<<B * G, kTile, smem, stream>>>(data, state0, j0, table, table_len,
-                                         phi, fm, swarm, Jw, G, W_units,
-                                         n_esc);
+                                         phi, fm, swarm, Jw, G, W_units);
   return cudaGetLastError();
 }
 
-// GATED launches only the COUNT kernel: phase 2 counts.
-template <bool SMEM, bool GATED>
+template <bool SMEM>
 int dispatch(const void* data, const void* state0, const void* j0,
              const void* table, int table_len, void* phi, void* fm,
              void* swarm, int B, int Jw, int G, int W_units, int CPW,
-             int BITS, int COUNT, const void* n_esc, void* stream) {
+             int BITS, int COUNT, void* stream) {
   const auto* d = static_cast<const int32_t*>(data);
   const auto* s0 = static_cast<const int32_t*>(state0);
   const auto* jz = static_cast<const int32_t*>(j0);
@@ -191,17 +151,14 @@ int dispatch(const void* data, const void* state0, const void* j0,
   auto* p = static_cast<int32_t*>(phi);
   auto* f = static_cast<int32_t*>(fm);
   auto* sw = static_cast<int32_t*>(swarm);
-  const auto* ne = static_cast<const int32_t*>(n_esc);
   auto st = static_cast<cudaStream_t>(stream);
   if (table_len <= 0 || table_len % 128 != 0 || B <= 0 || G <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (GATED && (!COUNT || ne == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-#define SRE_LAUNCH(bits)                                                    \
-  (COUNT ? launch<bits, true, SMEM, GATED>(d, s0, jz, t, table_len, p, f,   \
-                                           sw, B, Jw, G, W_units, ne, st)   \
-         : launch<bits, false, SMEM, false>(d, s0, jz, t, table_len, p, f,  \
-                                            sw, B, Jw, G, W_units, ne, st))
+#define SRE_LAUNCH(bits)                                                  \
+  (COUNT ? launch<bits, true, SMEM>(d, s0, jz, t, table_len, p, f, sw, B,  \
+                                    Jw, G, W_units, st)                    \
+         : launch<bits, false, SMEM>(d, s0, jz, t, table_len, p, f, sw, B, \
+                                     Jw, G, W_units, st))
   cudaError_t err = cudaErrorInvalidValue;
   if (BITS == 3 && CPW == Packing<3>::kCpw) {
     if constexpr (SMEM) err = SRE_LAUNCH(3);   // the big tier packs 4 or 8
@@ -227,9 +184,8 @@ extern "C" int sre_spec_scan(const void* data, const void* state0,
                              int table_len, void* phi, void* fm, void* swarm,
                              int B, int Jw, int G, int W_units, int CPW,
                              int BITS, int COUNT, void* stream) {
-  return dispatch<true, false>(data, state0, j0, table, table_len, phi, fm,
-                               swarm, B, Jw, G, W_units, CPW, BITS, COUNT,
-                               nullptr, stream);
+  return dispatch<true>(data, state0, j0, table, table_len, phi, fm, swarm,
+                        B, Jw, G, W_units, CPW, BITS, COUNT, stream);
 }
 
 extern "C" int sre_big_scan(const void* data, const void* state0,
@@ -237,32 +193,6 @@ extern "C" int sre_big_scan(const void* data, const void* state0,
                             void* phi, void* fm, void* swarm, int B, int Jw,
                             int G, int W_units, int CPW, int BITS, int COUNT,
                             void* stream) {
-  return dispatch<false, false>(data, state0, j0, table, table_len, phi, fm,
-                                swarm, B, Jw, G, W_units, CPW, BITS, COUNT,
-                                nullptr, stream);
-}
-
-// The gated phase-2 launches: COUNT must be 1, n_esc is a device pointer
-// to one int32.  Block rows past ceil(*n_esc / (G*1024)) leave phi, fm and
-// swarm unwritten.
-extern "C" int sre_spec_scan_gated(const void* data, const void* state0,
-                                   const void* j0, const void* table,
-                                   int table_len, void* phi, void* fm,
-                                   void* swarm, int B, int Jw, int G,
-                                   int W_units, int CPW, int BITS, int COUNT,
-                                   const void* n_esc, void* stream) {
-  return dispatch<true, true>(data, state0, j0, table, table_len, phi, fm,
-                              swarm, B, Jw, G, W_units, CPW, BITS, COUNT,
-                              n_esc, stream);
-}
-
-extern "C" int sre_big_scan_gated(const void* data, const void* state0,
-                                  const void* j0, const void* table,
-                                  int table_len, void* phi, void* fm,
-                                  void* swarm, int B, int Jw, int G,
-                                  int W_units, int CPW, int BITS, int COUNT,
-                                  const void* n_esc, void* stream) {
-  return dispatch<false, true>(data, state0, j0, table, table_len, phi, fm,
-                               swarm, B, Jw, G, W_units, CPW, BITS, COUNT,
-                               n_esc, stream);
+  return dispatch<false>(data, state0, j0, table, table_len, phi, fm, swarm,
+                         B, Jw, G, W_units, CPW, BITS, COUNT, stream);
 }

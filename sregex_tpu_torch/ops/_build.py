@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of the package.
 
 The kernels are CUDA C++ with a plain C interface
-(sregex_tpu_torch/csrc/*.cu).  At first use every source is compiled
+(sregex_tpu_torch/csrc/*.cu, with the step helpers they share in
+csrc/*.cuh).  At first use every source is compiled
 with ``nvcc`` for sm_90a, one process per source, all at once; the
 objects are linked into one shared library under build/sregex_tpu_torch/
 at the repository root, named after a hash of the sources so an edit
@@ -20,6 +21,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 _SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
+_HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))
 BUILD_DIR = _PKG.parent / "build" / "sregex_tpu_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -50,7 +52,7 @@ def find_nvcc():
 
 def _library_path():
     h = hashlib.sha256()
-    for src in _SOURCES:
+    for src in _SOURCES + _HEADERS:
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / ("libsregex_kernels-%s.so" % h.hexdigest()[:16])
@@ -107,10 +109,9 @@ def load():
         lib.sre_big_scan_smem.restype = i
         lib.sre_big_scan_smem.argtypes = [p, p, p, p, i, p, p, p, i, i, i,
                                           i, i, i, i, p, i, i, i, p]
-        for fn in (lib.sre_spec_scan_gated, lib.sre_big_scan_gated):
-            fn.restype = i
-            fn.argtypes = [p, p, p, p, i, p, p, p, i, i, i, i, i, i, i, p,
-                           p]
+        lib.sre_gated_scan.restype = i
+        lib.sre_gated_scan.argtypes = [p, p, p, p, i, p, p, p, i, i, i, i, i,
+                                       i, p, p, i, i, p, i, i, i, p]
         lib.sre_affine_scan.restype = i
         lib.sre_affine_scan.argtypes = [p, p, p, p, i, p, p, p, i, i, i, i,
                                         i, i, i, p, p, i, i, p]

@@ -143,17 +143,24 @@ def big_scan(data, state0, j0, table, *, W, CPW, BITS, COUNT, t16=None):
                                (W, CPW, BITS, int(bool(COUNT))))
         big_scan_launches += 1
         return planes
+    tt = check_t16(t16, data, BITS)
+    planes = launch_planes("sre_big_scan_smem", data, state0, j0, table,
+                           (W, CPW, BITS, int(bool(COUNT)), tt.data_ptr(),
+                            tt.numel(), t16.ncls, t16.rows))
+    big_smem_launches += 1
+    return planes
+
+
+def check_t16(t16, data, BITS):
+    """t16's table, or raise where it is not big16_table's Big16 at BITS
+    on the data's device, whole 16-byte units that fit shared memory."""
     tt = t16.table
     if tt.device != data.device or tt.dtype != torch.int16 \
             or tt.numel() % 8 or tt.numel() * 2 > SMEM_BYTES \
             or tt.numel() < (t16.rows - 1) * t16.ncls + (1 << BITS):
         raise ValueError("t16 must be big16_table's Big16 at BITS=%d on "
                          "the data's device" % BITS)
-    planes = launch_planes("sre_big_scan_smem", data, state0, j0, table,
-                           (W, CPW, BITS, int(bool(COUNT)), tt.data_ptr(),
-                            tt.numel(), t16.ncls, t16.rows))
-    big_smem_launches += 1
-    return planes
+    return tt
 
 
 def big_scan_ref(data, state0, j0, table, *, W, CPW, BITS, COUNT):

@@ -23,18 +23,19 @@ Two tiers repair the escaped chunks differently:
     failed chunk with the native engine on the full machine (_Fold);
   - fused two-phase (core_count_fused, core_scan_fused): phase 1 scans
     the corpus on the core; the escaped chunks are compacted on the
-    device into a prefix of FUSED_CAP chunk slots, their windows are
-    gathered from the full machine's prep, and phase 2 redoes them with
-    the full machine's kernel (gated_scan: blocks past the escapes
-    return at once, decided on the device).  The planes merge in full
-    premultiplied state space and one 11-int summary comes back; the
-    host repairs only past the device cap ("overflow") or where the
-    merged chain still broke ("miss").
+    device into a prefix of FUSED_CAP chunk slots (a slot -> chunk
+    map), and phase 2 redoes them with the full machine (gated_scan:
+    it reads each slot's window in place in the full machine's prep
+    through the map, and block rows past the escapes are skipped,
+    decided on the device).  The planes merge in full premultiplied
+    state space and one 11-int summary comes back; the host repairs
+    only past the device cap ("overflow") or where the merged chain
+    still broke ("miss").
 
 Everything here is torch ops on the tables' device and one stream; the
 first host sync of a fused scan is its summary readback.  On the card
-gated_scan launches csrc/spec_scan.cu's gated entry points; on the CPU
-it takes gated_scan_ref.
+gated_scan launches csrc/gated_scan.cu; on the CPU it takes
+gated_scan_ref, which gathers the windows (_gather_windows) first.
 """
 
 import functools
@@ -47,7 +48,7 @@ import torch
 from ..dfa import build_core_dfa, core_from_rows
 from ..native import NativeDfa
 from .big import MAX_ENTRIES as BIG_MAX_ENTRIES
-from .big import SpecTablesBig
+from .big import SpecTablesBig, check_t16
 from .layout import DEFAULT_K, GROUPS, SMEM_TABLE_MAX, TILE, effective_chunk
 from .pair import SpecTablesPair
 from .prep import prepare_auto
@@ -75,8 +76,11 @@ FUSED_CAP = int(os.environ.get("SREGEX_FUSED_CAP", str(32768)))
 # candidate search may drop rare states for a much smaller core
 FUSED_ESCAPE_FRAC = float(os.environ.get("SREGEX_FUSED_ESCAPE", "1e-3"))
 
-# gated kernel launches since the last reset (the CUDA path only)
+# gated kernel launches since the last reset (the CUDA path only), in
+# all and by route (GATED_ROUTES: csrc/gated_scan.cu's route codes 0-2)
+GATED_ROUTES = ("smem", "global", "big16")
 gated_scan_launches = 0
+gated_route_launches = dict.fromkeys(GATED_ROUTES, 0)
 
 
 def _inner_tables(core, narrow_only, no_pair=False, device="cuda"):
@@ -419,60 +423,92 @@ def core_count_bytes(ct, data_np, chunk_len=DEFAULT_K, entry_state=0,
 # ---------------------------------------------------------------------
 
 def gated_scan(data, state0, j0, table, n_esc, *, W, CPW, BITS, big=False,
-               out=None):
-    """The COUNT-mode speculative scan over the phase-2 windows, gated
-    per block row: rows b >= ceil(n_esc / (G*1024)) are skipped and
-    their outputs left unwritten.  data int32 [B2, Jw, G, 8, 128];
-    state0/j0 int32 [B2, G, 8, 128]; table int32 [R*128] (in shared
-    memory, or with ``big`` read from global memory, up to 2**17
-    entries); n_esc an int32 tensor of one element on the same device.
+               t16=None, sel=None, out=None):
+    """The COUNT-mode speculative scan of B2 block rows of chunk slots,
+    gated per block row: rows b >= ceil(n_esc / (G*1024)) are skipped
+    and their outputs left unwritten.  state0/j0 int32 [B2, G, 8, 128];
+    data int32 [B, Jw, G, 8, 128]: with ``sel`` (int32 [B2*G*1024], the
+    slot -> chunk map of _compact_escapes) the full corpus, slot i
+    reading chunk sel[i] in place; without it the windows themselves (B
+    = B2, slot i reading chunk i, the JAX gated launch's input).  table
+    int32 [R*128] (in shared memory, or with ``big`` up to 2**17
+    entries); ``t16`` (``big`` only) None or big16_table's Big16 of
+    ``table``; n_esc an int32 tensor of one element on the same device.
     Returns (phi, fm, swarm): ``out`` when given, else new planes.
 
-    CUDA tensors launch sre_spec_scan_gated / sre_big_scan_gated
-    (csrc/spec_scan.cu) on the current stream, reading n_esc on the
-    device, or raise.  CPU tensors take gated_scan_ref (zeros in the
-    skipped rows, or ``out`` left as it was there)."""
+    CUDA tensors launch sre_gated_scan (csrc/gated_scan.cu) on the
+    current stream, reading n_esc on the device, or raise: the table in
+    shared memory (route "smem"), the 16-bit table where ``t16`` is
+    given ("big16"), else the fused table in global memory ("global").
+    CPU tensors take gated_scan_ref (zeros in the skipped rows, or
+    ``out`` left as it was there)."""
     global gated_scan_launches
+    rows = state0.shape[0] if sel is not None else None
     _check_scan_args(data, state0, j0, table, W, CPW, BITS,
                      max_table=BIG_MAX_ENTRIES if big else SMEM_TABLE_MAX,
-                     extra=(n_esc,) + tuple(out or ()))
+                     extra=(n_esc,) + tuple(out or ())
+                     + (() if sel is None else (sel,)), rows=rows)
     if n_esc.numel() != 1:
         raise ValueError("n_esc must hold one int32")
     if big and BITS not in (4, 8):
         raise ValueError("the big tier packs 4 or 8 bits, got %r" % BITS)
+    if t16 is not None and not big:
+        raise ValueError("t16 serves big tables only")
+    if sel is not None and (sel.dim() != 1
+                            or sel.numel() != state0.numel()):
+        raise ValueError("sel must be int32 [%d], one chunk a slot, got %s"
+                         % (state0.numel(), tuple(sel.shape)))
     if out is not None and any(tuple(o.shape) != tuple(state0.shape)
                                for o in out):
         raise ValueError("out planes must be shaped like state0")
     if data.device.type == "cpu":
         planes = gated_scan_ref(data, state0, j0, table, n_esc, W=W,
-                                CPW=CPW, BITS=BITS)
+                                CPW=CPW, BITS=BITS, sel=sel)
         if out is None:
             return planes
-        nblk = _active_rows(n_esc, data)
+        nblk = _active_rows(n_esc, state0)
         for o, p in zip(out, planes):
             o[:nblk] = p[:nblk]
         return tuple(out)
     if data.device.type != "cuda":
         raise ValueError("gated_scan runs on cuda or cpu tensors, got %s"
                          % data.device)
-    planes = launch_planes(
-        "sre_big_scan_gated" if big else "sre_spec_scan_gated", data,
-        state0, j0, table, (W, CPW, BITS, 1, n_esc.data_ptr()), out=out)
+    if t16 is None:
+        route, t16_args = "global" if big else "smem", (None, 0, 0, 0)
+    else:
+        tt = check_t16(t16, data, BITS)
+        route, t16_args = "big16", (tt.data_ptr(), tt.numel(), t16.ncls,
+                                    t16.rows)
+    if table.data_ptr() % 16 or (t16_args[0] or 0) % 16:
+        raise ValueError("the gated kernel stages 16-byte aligned tables")
+    planes = launch_planes("sre_gated_scan", data, state0, j0, table, (
+        W, CPW, BITS, n_esc.data_ptr(),
+        None if sel is None else sel.data_ptr(), data[:, 0].numel(),
+        GATED_ROUTES.index(route), *t16_args), out=out)
     gated_scan_launches += 1
+    gated_route_launches[route] += 1
     return planes
 
 
-def _active_rows(n_esc, data):
-    """Block rows the gate lets through: min(B, ceil(n_esc/(G*1024)))."""
-    slots = data.shape[2] * TILE
-    return min(data.shape[0], -(-int(n_esc.reshape(())) // slots))
+def _active_rows(n_esc, planes):
+    """Block rows the gate lets through: min(B2, ceil(n_esc/(G*1024)))
+    for planes [B2, G, 8, 128]."""
+    slots = planes.shape[1] * TILE
+    return max(0, min(planes.shape[0], -(-int(n_esc.reshape(())) // slots)))
 
 
-def gated_scan_ref(data, state0, j0, table, n_esc, *, W, CPW, BITS):
-    """The plain torch version of gated_scan: spec_scan_ref (COUNT) on
-    the active block rows, zeros in the others.  Reads n_esc on the
-    host."""
-    nblk = _active_rows(n_esc, data)
+def gated_scan_ref(data, state0, j0, table, n_esc, *, W, CPW, BITS,
+                   sel=None):
+    """The plain torch version of gated_scan: with ``sel`` the windows
+    gathered first (_gather_windows; an entry outside the corpus's
+    chunks reads chunk 0, as the kernel does), then spec_scan_ref
+    (COUNT) on the active block rows, zeros in the others.  Reads n_esc
+    on the host."""
+    if sel is not None:
+        chunks = data[:, 0].numel()
+        sel = torch.where((sel >= 0) & (sel < chunks), sel, 0)
+        data = _gather_windows(data, sel, sel.numel())
+    nblk = _active_rows(n_esc, state0)
     out = tuple(torch.zeros_like(state0) for _ in range(3))
     if nblk:
         planes = spec_scan_ref(data[:nblk], state0[:nblk], j0[:nblk],
@@ -553,23 +589,26 @@ def _gather_windows(full_data, sel_g, CAP):
         .view(B2, Jw, G, 8, TILE // 8)
 
 
-def _phase2(blk, full_tables, n_esc):
-    """The full machine's COUNT scan over the compacted windows; block
-    rows past the escapes hold only padding and are gated off."""
+def _phase2(full_data, sel_g, full_tables, n_esc):
+    """The full machine's COUNT scan of the escaped chunks, read in place
+    through the slot map sel_g; block rows past the escapes hold only
+    padding and are gated off."""
     kind, W, CPW, BITS, _ = _tier_statics(full_tables)
-    z = torch.zeros((blk.shape[0],) + blk.shape[2:], dtype=torch.int32,
-                    device=blk.device)
-    return gated_scan(blk, z, z, full_tables.fused, n_esc.reshape(1), W=W,
-                      CPW=CPW, BITS=BITS, big=kind == "big")
+    z = torch.zeros((sel_g.numel() // (GROUPS * TILE), GROUPS, 8, 128),
+                    dtype=torch.int32, device=full_data.device)
+    return gated_scan(full_data, z, z, full_tables.fused, n_esc.reshape(1),
+                      W=W, CPW=CPW, BITS=BITS, big=kind == "big",
+                      t16=full_tables.t16 if kind == "big" else None,
+                      sel=sel_g)
 
 
 def _fused_phases(core_data, full_data, s01, j01, inner, full_tables,
                   hot2full, live, *, CAP, ESC):
-    """Phase 1 on the core, escape compaction, the full-machine window
-    gather, the gated phase 2 and the merge, all on the device.
-    Returns (phi_m, fm_m, swarm_m) merged in FULL premultiplied space
-    (ESC -> -1 where not redone), the phase-1 core planes (phi1, fm1,
-    swarm1), n_esc (0-d int32) and the overflow flag (0-d bool)."""
+    """Phase 1 on the core, escape compaction, the gated phase 2 over the
+    escaped chunks of the full machine's prep and the merge, all on the
+    device.  Returns (phi_m, fm_m, swarm_m) merged in FULL premultiplied
+    space (ESC -> -1 where not redone), the phase-1 core planes (phi1,
+    fm1, swarm1), n_esc (0-d int32) and the overflow flag (0-d bool)."""
     Cp = core_data.shape[0] * GROUPS * TILE
     _, W1, CPW1, BITS1, _ = _tier_statics(inner)
     phi1, fm1, swarm1 = (p.reshape(Cp) for p in spec_scan(
@@ -577,7 +616,7 @@ def _fused_phases(core_data, full_data, s01, j01, inner, full_tables,
         COUNT=True))
     n_esc, overflow, sel_g, sel_s = _compact_escapes(phi1, live, ESC, CAP)
     phi2, fm2, swarm2 = (p.reshape(CAP) for p in _phase2(
-        _gather_windows(full_data, sel_g, CAP), full_tables, n_esc))
+        full_data, sel_g, full_tables, n_esc))
 
     # core premult -> full premult, ESC -> -1 (the index clamped into
     # hot2full's H+1 entries first)

@@ -163,11 +163,12 @@ class SpecTablesWide(_Tables):
 
 
 def _check_scan_args(data, state0, j0, table, W, CPW, BITS,
-                     max_table=SMEM_TABLE_MAX, extra=()):
+                     max_table=SMEM_TABLE_MAX, extra=(), rows=None):
     """The checks every scan wrapper makes before it launches: int32,
     contiguous, one device, the [B, Jw, G, 8, 128] layout, a table of
     whole 128-entry rows of at most ``max_table`` entries, a packing
-    and a warmup that fit.  ``extra`` are further tensors to check."""
+    and a warmup that fit.  ``extra`` are further tensors to check;
+    ``rows`` the planes' block rows where they are not data's B."""
     tensors = (data, state0, j0, table, *extra)
     for t in tensors:
         if not isinstance(t, torch.Tensor):
@@ -184,6 +185,7 @@ def _check_scan_args(data, state0, j0, table, W, CPW, BITS,
         raise ValueError("data must be [B, Jw, G, 8, 128], got %s"
                          % (tuple(data.shape),))
     B, Jw, G = data.shape[:3]
+    B = B if rows is None else rows
     for name, t in (("state0", state0), ("j0", j0)):
         if tuple(t.shape) != (B, G, 8, TILE // 8):
             raise ValueError("%s must be %s, got %s"
@@ -245,14 +247,14 @@ def launch_planes(entry, data, state0, j0, table, extra, out=None):
     """Launch the C entry point ``entry`` of the kernel library
     (ops/_build.py) on the current stream, without synchronising.
     Every scan entry takes (data, state0, j0, table, table_len, phi,
-    fm, swarm, B, Jw, G, *extra, stream); the three int32 [B, G, 8, 128]
-    output planes are ``out`` or allocated here, and returned.  Raises
-    when the launch fails."""
+    fm, swarm, B, Jw, G, *extra, stream), B the planes' block rows; the
+    three int32 [B, G, 8, 128] output planes are ``out`` or allocated
+    here, and returned.  Raises when the launch fails."""
     from . import _build
     fn = getattr(_build.load(), entry)
     phi, fm, swarm = out if out is not None else (
         torch.empty_like(state0) for _ in range(3))
-    B, Jw, G = data.shape[:3]
+    B, (Jw, G) = state0.shape[0], data.shape[1:3]
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         rc = fn(data.data_ptr(), state0.data_ptr(), j0.data_ptr(),

@@ -348,6 +348,80 @@ def test_gated_wrapper_keeps_gated_rows_of_given_planes():
                          CPW=tt.cpw, BITS=tt.bits)
 
 
+def _mapped_case(n_esc, seed, B2=4, Bc=6):
+    """A corpus of Bc block rows of a{60}b's wide prep words (random class
+    codes), zero entry planes for B2 rows and an ascending random slot
+    map of n_esc chunks, padding slots on chunk 0 (_compact_escapes'
+    layout)."""
+    tt = tscan.SpecTablesWide(_full("a{60}b"), CPU)
+    rng = np.random.default_rng(seed)
+    Jw = (tt.warmup + 128) // tt.cpw
+    cls = rng.integers(0, tt.ncls, (Bc, Jw, GROUPS, 8, 128, tt.cpw),
+                       dtype=np.int64)
+    words = np.zeros(cls.shape[:-1], np.int64)
+    for k in range(tt.cpw):
+        words |= cls[..., k] << (tt.bits * k)
+    corpus = torch.from_numpy(words.astype(np.uint32).view(np.int32))
+    cap, chunks = B2 * GROUPS * TILE, Bc * GROUPS * TILE
+    sel = np.zeros(cap, np.int64)
+    sel[:n_esc] = np.sort(rng.choice(chunks, min(n_esc, cap), replace=False))
+    z = torch.zeros((B2, GROUPS, 8, 128), dtype=torch.int32)
+    return tt, corpus, torch.from_numpy(sel.astype(np.int32)), z
+
+
+@pytest.mark.parametrize("n_esc", [0, 1, GROUPS * TILE, GROUPS * TILE + 1,
+                                   4 * GROUPS * TILE])
+def test_gated_slot_map_equals_gathered_windows(n_esc):
+    """gated_scan over the corpus through a slot map (the card's phase 2,
+    windows read in place) equals _gather_windows + gated_scan_ref, and
+    each active slot equals the plain scan of its chunk's words picked
+    out by numpy; padding slots redo chunk 0."""
+    tt, corpus, sel, z = _mapped_case(n_esc, seed=n_esc)
+    kw = dict(W=tt.warmup, CPW=tt.cpw, BITS=tt.bits)
+    ne = torch.tensor([n_esc], dtype=torch.int32)
+    got = tcore.gated_scan(corpus, z, z, tt.fused, ne, sel=sel, **kw)
+    blk = tcore._gather_windows(corpus, sel, sel.numel())
+    want = tcore.gated_scan_ref(blk, z, z, tt.fused, ne, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # the windows again, gathered by numpy: slot i -> chunk sel[i]
+    Bc, Jw = corpus.shape[:2]
+    flat = corpus.numpy().reshape(Bc, Jw, -1)
+    c = sel.numpy().astype(np.int64)
+    slot_words = flat[c // (GROUPS * TILE), :, c % (GROUPS * TILE)]
+    windows = torch.from_numpy(np.ascontiguousarray(
+        slot_words.reshape(z.shape[0], GROUPS * TILE, Jw)
+        .transpose(0, 2, 1)).reshape(z.shape[0], Jw, GROUPS, 8, 128))
+    ref = tscan.spec_scan_ref(windows, z, z, tt.fused, COUNT=True, **kw)
+    nblk = min(z.shape[0], -(-n_esc // (GROUPS * TILE)))
+    for g, r in zip(got, ref):
+        assert torch.equal(g[:nblk], r[:nblk])
+        assert not g[nblk:].any()
+    if n_esc < nblk * GROUPS * TILE:      # an active padding slot
+        c0 = tscan.spec_scan_ref(corpus[:1], z[:1], z[:1], tt.fused,
+                                 COUNT=True, **kw)
+        for g, c in zip(got, c0):
+            assert int(g.reshape(-1)[n_esc]) == int(c.reshape(-1)[0])
+
+
+def test_gated_wrapper_checks_its_slot_map():
+    """A map of the wrong length, dtype or device raises before any
+    launch; t16 without ``big`` raises."""
+    tt, corpus, sel, z = _mapped_case(5, seed=1)
+    kw = dict(W=tt.warmup, CPW=tt.cpw, BITS=tt.bits)
+    ne = torch.tensor([5], dtype=torch.int32)
+    with pytest.raises(ValueError, match="sel must be int32"):
+        tcore.gated_scan(corpus, z, z, tt.fused, ne, sel=sel[:-1], **kw)
+    with pytest.raises(TypeError, match="int32"):
+        tcore.gated_scan(corpus, z, z, tt.fused, ne, sel=sel.long(), **kw)
+    with pytest.raises(ValueError, match="different devices"):
+        tcore.gated_scan(corpus, z, z, tt.fused, ne,
+                         sel=torch.empty_like(sel, device="meta"), **kw)
+    with pytest.raises(ValueError, match="big tables only"):
+        tcore.gated_scan(corpus, z, z, tt.fused, ne, sel=sel, t16=object(),
+                         **kw)
+
+
 # a machine past the big tier's 2**17 entries that is not piecewise affine
 NO_TIER = "a.{10}b|cdefghijklmnopqrstuvwxyz"
 

@@ -631,44 +631,111 @@ def test_phi_tier_runs_on_the_card(cuda):
     assert sc.stats().tier == "PhiTables" and sc.stats().repaired == 0
 
 
-@pytest.mark.parametrize("bits,rows,ncls,big", [
-    (4, 1, 16, False), (8, 98, 27, False), (8, 821, 27, True),
-    (4, 600, 16, True)])
-@pytest.mark.parametrize("n_esc", [0, 1, 8 * 1024, 8 * 1024 + 1, 32768])
-def test_gated_kernel_equals_plain_version(cuda, bits, rows, ncls, big,
-                                           n_esc):
-    """The gated phase-2 kernel at CAP 32768 (4 block rows of 8 tiles):
-    the active rows equal the plain version, the gated-off rows keep the
-    sentinel the output planes were filled with."""
-    from sregex_tpu_torch.ops import core as tcore
-    rng = np.random.default_rng(bits * 7 + rows + n_esc)
-    cpw = {4: 8, 8: 4}[bits]
-    W = 32
-    B, G, Jw = 4, 8, (W + 256) // cpw
-    cls = rng.integers(0, ncls, (B, Jw, G, 8, 128, cpw))
-    words = np.zeros((B, Jw, G, 8, 128), np.int64)
+def _gated_case(rng, bits, rows, ncls, n_esc, mapped, B2=4, G=8):
+    """Random phase-2 inputs at B2 block rows of G tiles: class codes below
+    ncls, a table of rows*128 entries (next states multiples of ncls,
+    match fields 0-2), entry states a third of them off the rows, random
+    freezes.  ``mapped``: the words are a corpus of B2 + 2 block rows and
+    the slots read chunks of an ascending random map (padding: chunk 0);
+    else the windows themselves.  Returns (args, sel, fused numpy)."""
+    cpw = {3: 10, 4: 8, 8: 4}[bits]
+    W = 4 * cpw
+    Jw = (W + 256 // (2 * cpw) * (2 * cpw)) // cpw
+    Bc = B2 + 2 if mapped else B2
+    cls = rng.integers(0, ncls, (Bc, Jw, G, 8, 128, cpw), dtype=np.int64)
+    words = np.zeros(cls.shape[:-1], np.int64)
     for k in range(cpw):
         words |= cls[..., k] << (bits * k)
-    data = torch.from_numpy(words.astype(np.uint32).view(np.int32))
     S = rows * 128 // ncls
-    table = torch.from_numpy((rng.integers(0, S, rows * 128) * ncls
-                              | rng.integers(0, 3, rows * 128) << 20)
-                             .astype(np.int32))
-    z = torch.zeros((B, G, 8, 128), dtype=torch.int32)
-    args = [t.to(cuda) for t in (data, z, z, table)]
+    fused = (rng.integers(0, S, rows * 128) * ncls
+             | rng.integers(0, 3, rows * 128) << 20).astype(np.int32)
+    s0 = rng.integers(0, S, (B2, G, 8, 128)) * ncls
+    odd = rng.random(s0.shape) < 1 / 3
+    s0[odd] = rng.integers(-300, S * ncls + 3000, int(odd.sum()))
+    j0 = rng.integers(0, W + 1, (B2, G, 8, 128))
+    sel = None
+    if mapped:
+        chunks = Bc * G * 1024
+        m = np.zeros(B2 * G * 1024, np.int64)
+        n = min(n_esc, m.size)
+        m[:n] = np.sort(rng.choice(chunks, n, replace=False))
+        sel = torch.from_numpy(m.astype(np.int32))
+    args = [torch.from_numpy(a.astype(np.int32))
+            for a in (words.astype(np.uint32).view(np.int32), s0, j0,
+                      fused)]
+    return args, sel, fused, dict(W=W, CPW=cpw, BITS=bits)
+
+
+# (bits, rows, ncls, route): narrow and wide tables in shared memory, big
+# ones by the 16-bit table and from global memory
+GATED_ROUTES = [(4, 1, 16, "smem"), (3, 1, 8, "smem"), (8, 98, 27, "smem"),
+                (8, 821, 27, "big16"), (4, 600, 16, "big16"),
+                (8, 821, 27, "global"), (4, 600, 16, "global")]
+
+
+@pytest.mark.parametrize("bits,rows,ncls,route", GATED_ROUTES)
+@pytest.mark.parametrize("mapped", [False, True], ids=["windows", "sel"])
+@pytest.mark.parametrize("n_esc", [0, 1, 8 * 1024, 8 * 1024 + 1, 32768])
+def test_gated_kernel_equals_plain_version(cuda, bits, rows, ncls, route,
+                                           mapped, n_esc):
+    """The gated phase-2 kernel at CAP 32768 (4 block rows of 8 tiles) on
+    each route, reading block-layout windows or the corpus through a slot
+    map: the active rows equal the plain version, the gated-off rows keep
+    the sentinel the output planes were filled with."""
+    from sregex_tpu_torch.ops import core as tcore
+    rng = np.random.default_rng(bits * 7 + rows + n_esc + mapped)
+    args, sel, fused, kw = _gated_case(rng, bits, rows, ncls, n_esc, mapped)
+    args = [t.to(cuda) for t in args]
+    sel = None if sel is None else sel.to(cuda)
+    big = route != "smem"
+    t16 = tbig.big16_table(fused, ncls, rows * 128 // ncls, bits, cuda) \
+        if route == "big16" else None
+    assert (t16 is not None) == (route == "big16")
     ne = torch.tensor([n_esc], dtype=torch.int32, device=cuda)
-    kw = dict(W=W, CPW=cpw, BITS=bits)
-    out = tuple(torch.full((B, G, 8, 128), -7, dtype=torch.int32,
-                           device=cuda) for _ in range(3))
-    before = tcore.gated_scan_launches
-    got = tcore.gated_scan(*args, ne, big=big, out=out, **kw)
+    out = tuple(torch.full_like(args[1], -7) for _ in range(3))
+    before = (tcore.gated_scan_launches, tcore.gated_route_launches[route])
+    got = tcore.gated_scan(*args, ne, big=big, t16=t16, sel=sel, out=out,
+                           **kw)
     torch.cuda.synchronize()
-    assert tcore.gated_scan_launches == before + 1
-    want = tcore.gated_scan_ref(*args, ne, **kw)
-    nblk = min(B, -(-n_esc // (G * 1024)))
+    assert (tcore.gated_scan_launches,
+            tcore.gated_route_launches[route]) == (before[0] + 1,
+                                                   before[1] + 1)
+    want = tcore.gated_scan_ref(*args, ne, sel=sel, **kw)
+    nblk = min(4, -(-n_esc // (8 * 1024)))
     for g, w in zip(got, want):
         assert torch.equal(g[:nblk], w[:nblk])
         assert bool((g[nblk:] == -7).all())
+
+
+def test_fused_count_reads_windows_in_place_on_the_card(cuda, monkeypatch):
+    """A SREGEX_FUSED=1 count of a big machine whose table big16_table
+    holds goes through the gated kernel's 16-bit route, reading the
+    escaped chunks in place: _gather_windows is never called."""
+    import sregex_tpu_torch
+    from sregex_tpu_torch.ops import core as tcore
+    monkeypatch.setenv("SREGEX_FUSED", "1")
+
+    def no_gather(*a, **k):
+        raise AssertionError("the card gathered the phase-2 windows")
+
+    monkeypatch.setattr(tcore, "_gather_windows", no_gather)
+    rng = np.random.default_rng(9)
+    text = rng.choice(np.frombuffer(b"bcdxyz ", np.uint8), 8 << 20)
+    # the a's lie between the Scanner's sample slices (its head and thirds),
+    # so the sampled core leaves their states out and their chunks escape
+    text[rng.integers(1 << 20, 2 << 20, 300)] = ord("a")
+    data = text.tobytes()
+    sc = sregex_tpu_torch.compile_pattern("a.{11}b")
+    host = sregex_tpu_torch.compile_pattern("a.{11}b", device=None)
+    assert sc._spec.t16 is not None
+    before = (tcore.gated_scan_launches,
+              tcore.gated_route_launches["big16"])
+    assert sc.count(data) == host.count(data)
+    assert sc.stats().tier == "CoreTables"
+    assert sc._fusedct.last_escapes[0] > 0
+    assert (tcore.gated_scan_launches,
+            tcore.gated_route_launches["big16"]) == (before[0] + 1,
+                                                     before[1] + 1)
 
 
 def test_core_tiers_run_on_the_card(cuda, monkeypatch):

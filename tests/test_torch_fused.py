@@ -38,6 +38,7 @@ from sregex_tpu_torch.ops import core as tcore
 from sregex_tpu_torch.ops import spec_scan as tscan
 from sregex_tpu_torch.ops.layout import GROUPS, TILE
 from sregex_tpu_torch.ops.pair import SpecTablesPair
+from sregex_tpu_torch.ops.prep import prepare_auto
 
 # The tier-1 run puts several test workers on the machine's cores; torch's
 # own intra-op threads would spin against them and make these small ops
@@ -244,6 +245,25 @@ def test_fused_small_and_tail_edges_equal_jax_and_native(small_pair, n):
     assert got == jcore.core_scan_fused(jct, jfull, data, chunk_len=K)
     exp_f, exp_fst = native.scan_first(data, 0)
     assert got == (exp_fst, exp_f)
+
+
+@pytest.mark.parametrize("case", ["escapes", "big"], indirect=True)
+def test_fused_phase2_reads_escaped_chunks_of_the_full_prep(case):
+    """The merged planes of every escaped chunk (phase 2 through the slot
+    map, the windows read in place in the full machine's prep) equal the
+    full machine's own scan of that chunk entered at state 0, the plain
+    version over the whole prep."""
+    name, jct, tct, jfull, tfull, data, k = case
+    td = tcore._fused_dispatch(tct, tfull, data, k, 0, None, None)
+    full_data = prepare_auto(tfull, data, td["K"])[0]
+    z = torch.zeros((full_data.shape[0], GROUPS, 8, 128), dtype=torch.int32)
+    want = torch.stack([p.reshape(-1) for p in tscan.spec_scan_ref(
+        full_data, z, z, tfull.fused, W=tfull.warmup, CPW=tfull.cpw,
+        BITS=tfull.bits, COUNT=True)])
+    live = torch.arange(td["packed_core"].shape[1]) < td["Cfull"]
+    esc = (td["packed_core"][0] == tct.esc_premult) & live
+    assert int(esc.sum()) > 10, name
+    assert torch.equal(td["merged"][:, esc], want[:, :esc.numel()][:, esc])
 
 
 def test_fused_chunk_aligns_both_preps():

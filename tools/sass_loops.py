@@ -101,9 +101,11 @@ def main():
         for i, arg in enumerate(sys.argv[2:]):
             src, want = arg.rsplit(":", 1)
             cubin = Path(tmp) / ("k%d.cubin" % i)
-            built = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-cubin", "-o",
-                                    str(cubin), src], check=True,
-                                   capture_output=True, text=True)
+            built = subprocess.run(
+                [nvcc, *_build.NVCC_FLAGS, "-I",
+                 str(ROOT / "sregex_tpu_torch" / "csrc"), "-cubin", "-o",
+                 str(cubin), src], check=True, capture_output=True,
+                text=True)
             ptxas = (built.stdout + built.stderr).splitlines()
             sass = subprocess.run([str(bindir / "cuobjdump"), "-sass",
                                    str(cubin)], check=True,

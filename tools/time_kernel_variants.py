@@ -3,7 +3,7 @@ one card, at the main path's shape.
 
     python3 tools/time_kernel_variants.py KERNEL [VARIANT.cu ...]
 
-KERNEL is affine, phi, narrow or big.
+KERNEL is affine, phi, narrow, big or gated.
 
 Builds the tree's source ("tree": sregex_tpu_torch/csrc/affine_scan.cu,
 phi_scan.cu, pair_scan.cu or big_scan.cu) and each VARIANT.cu alone
@@ -23,7 +23,12 @@ and prepares chip_smoke.py's input for the kernel:
     scan mode (the headline's) and COUNT;
   big: the 500-keyword dictionary's tables (16-bit table) over the big
     phase's 1920 MB corpus (SREGEX_BENCH_BIG_MB), entered the same way;
-    timed COUNT (the big phase's) and in scan mode.
+    timed COUNT (the big phase's) and in scan mode;
+  gated: the dictionary's phase 2 on the fused tier (chip_smoke.py's core
+    arm: the 16-bit route, its escapes over the same corpus); timed with
+    the escaped chunks read in place through the slot map ("in_place"),
+    on the same windows gathered first ("windows") and with one escape
+    ("one_row").
 
 For narrow and big the tree's one-lookup kernel (sre_spec_scan or
 sre_big_scan, from the package's library) is timed beside them as the
@@ -33,8 +38,9 @@ each with CUDA events, 20 launches a time, in the order tree, V1, ...
 and back, twice.  Prints the card's name and power limit and one JSON
 line {"kernel", "shape", "ms": {source: {setting: [ms per round]}}}.
 Each VARIANT.cu must export the tree's entry point (sre_affine_scan,
-sre_phi_scan, sre_spec_scan_pair or sre_big_scan_smem) with the tree's
-signature.  Needs a CUDA card.
+sre_phi_scan, sre_spec_scan_pair, sre_big_scan_smem or sre_gated_scan)
+with the tree's signature; it may include the package's csrc/*.cuh.
+Needs a CUDA card.
 """
 
 import ctypes
@@ -59,13 +65,16 @@ from sregex_tpu_torch.ops.prep import prepare_on_device  # noqa: E402
 
 PLAIN_MB = 64
 SOURCES = {"affine": "affine_scan.cu", "phi": "phi_scan.cu",
-           "narrow": "pair_scan.cu", "big": "big_scan.cu"}
+           "narrow": "pair_scan.cu", "big": "big_scan.cu",
+           "gated": "gated_scan.cu"}
+CSRC = ROOT / "sregex_tpu_torch" / "csrc"
 # argument types of each entry point a source may export
 ARGTYPES = {
     "sre_affine_scan": "ppppipppiiiiiiippiip",
     "sre_phi_scan": "ppippiiiiiiiiiipiip",
     "sre_spec_scan_pair": "ppppipppiiiiiiipipip",
     "sre_big_scan_smem": "ppppipppiiiiiiipiiip",
+    "sre_gated_scan": "ppppipppiiiiiippiipiiip",
 }
 
 
@@ -75,7 +84,7 @@ def build(sources, out):
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _build.find_nvcc()
     procs = {name: subprocess.Popen(
-        [nvcc, *_build.NVCC_FLAGS, "-shared", "-o",
+        [nvcc, *_build.NVCC_FLAGS, "-I", str(CSRC), "-shared", "-o",
          str(out / ("%s.so" % name)), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name, src in sources.items()}
@@ -234,6 +243,73 @@ def scan_case(libs, kernel):
     return data, small, runs, plain, None
 
 
+def gated_case(libs):
+    """As scan_case for the gated kernel: the dictionary's fused Scanner
+    over the big phase's corpus, phase 1 and the escape compaction run
+    once; run(name, _) launches source ``name``'s sre_gated_scan on the
+    16-bit route into zeroed planes (the plain version's inactive rows)."""
+    from sregex_tpu_torch.ops import core as tcore
+    words = cs.dictionary(500)
+    corpus = cs.multi_corpus(cs.mb_env("SREGEX_BENCH_BIG_MB"), words)
+    with cs.env("SREGEX_FUSED", "1"):
+        sc = sregex_tpu_torch.compile_pattern(words)
+        prep = sc.prepare(corpus)
+        sc.count(corpus, prepared=prep)
+    fct, full = sc._fusedct, sc._spec
+    inner = fct.inner
+    ck = tcore.fused_chunk(inner, full)
+    cdata, C, K, _, B1 = prep.for_tables(inner, ck)
+    fdata = prep.for_tables(full, ck)[0]
+    n = len(corpus)
+    del corpus
+    Cfull = C - 1 if C * K > n and n - (C - 1) * K != K else C
+    cap = tcore._fused_cap(B1)
+    Cp = B1 * cs.GROUPS * 1024
+    s01, j01 = scan._entry_planes(fct.to_core_premult(0), inner.warmup, B1,
+                                  "cuda")
+    phi1 = scan.spec_scan(cdata, s01, j01, inner.fused, W=inner.warmup,
+                          CPW=inner.cpw, BITS=inner.bits, COUNT=True)[0]
+    live = torch.arange(Cp, device="cuda") < Cfull
+    n_esc, _, sel, _ = tcore._compact_escapes(phi1.reshape(Cp), live,
+                                              fct.esc_premult, cap)
+    del cdata, phi1, s01, j01
+    blk = tcore._gather_windows(fdata, sel, cap)
+    z = torch.zeros((cap // (cs.GROUPS * 1024), cs.GROUPS, 8, 128),
+                    dtype=torch.int32, device="cuda")
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    tt = full.t16
+    kw = dict(W=full.warmup, CPW=full.cpw, BITS=full.bits)
+
+    def runner(d, ne, mapped):
+        def run(name, _):
+            out = tuple(torch.zeros_like(z) for _ in range(3))
+            rc = libs[name].sre_gated_scan(
+                d.data_ptr(), z.data_ptr(), z.data_ptr(),
+                full.fused.data_ptr(), full.fused.numel(),
+                *(o.data_ptr() for o in out), z.shape[0], *d.shape[1:3],
+                full.warmup, full.cpw, full.bits, ne.data_ptr(),
+                sel.data_ptr() if mapped else None, d[:, 0].numel(),
+                tcore.GATED_ROUTES.index("big16"), tt.table.data_ptr(),
+                tt.table.numel(), tt.ncls, tt.rows, stream())
+            if rc:
+                raise RuntimeError("%s: cudaError %d" % (name, rc))
+            return out
+        return run
+
+    runs = {"in_place": runner(fdata, n_esc, True),
+            "windows": runner(blk, n_esc, False),
+            "one_row": runner(fdata, one, True)}
+    ne_of = {"in_place": n_esc, "windows": n_esc, "one_row": one}
+
+    def plain(_, setting):
+        return tcore.gated_scan_ref(fdata, z, z, full.fused,
+                                    ne_of[setting], sel=sel, **kw)
+
+    print(json.dumps({"gated_case": list(fdata.shape),
+                      "n_esc": int(n_esc), "cap": cap}), flush=True)
+    return fdata, fdata, runs, plain, None
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA card")
@@ -245,6 +321,9 @@ def main():
     if kernel in ("narrow", "big"):
         data, small, runs, plain, valid = scan_case(libs, kernel)
         sources["one_lookup"] = None
+        want = {setting: plain(small, setting) for setting in runs}
+    elif kernel == "gated":
+        data, small, runs, plain, valid = gated_case(libs)
         want = {setting: plain(small, setting) for setting in runs}
     else:
         data, small, runs, plain, valid = (affine_case if kernel == "affine"
