@@ -46,7 +46,22 @@ engine:
   - phi_big: the same for b(?:a{499})*b, a residue mod 499 (501 states),
     after eight scans have climbed the warmup ladder 32 -> 128 -> 512 ->
     2048 and switched it from the affine tier (the sublane-group phi
-    kernel).
+    kernel);
+  - stream: StreamScanner in 64 MB chunks over 1920 MB of the
+    headline's text and of multi's filler, one match planted across the
+    last chunk boundary (the narrow and wide tiers entered in the carried
+    states), and the no-static-tier machine over 256 MB (the legacy
+    core), each checked against the plant, the native engine and
+    Scanner.scan of the whole corpus;
+  - finditer: the log-field extractor over 1920 MB of log lines with one
+    match planted every 1 MB: make_index (the reverse machine's COUNT
+    pass over the corpus flipped on the card), finditer and sub through
+    it, every ovector and the sub output held against the generator's,
+    and the host TDFA walker over the same corpus;
+  - index_routes: make_index over 256 MB on the reverse legacy core,
+    the lazy reverse core and, under SREGEX_FUSED=1, the dictionary's
+    fused reverse core, each map held against a native walk of the
+    reversed corpus and its match starts against the generator's.
 
 Every phase prints one line; any failure raises, so the script exits
 non-zero without the final line.  The kernel launch counts are set to
@@ -58,10 +73,12 @@ kernel's launches on its main path, its largest difference from the
 plain version, its time beside the plain version's and its bound at
 the main path's shapes, and last {"ok": true, "device": {...}}.
 
-SREGEX_BENCH_MB, SREGEX_BENCH_MULTI_MB, SREGEX_BENCH_AFFINE_MB,
-SREGEX_BENCH_BIG_MB (the big and core phases), SREGEX_BENCH_FIND_MB,
-SREGEX_BENCH_PHI_MB and SREGEX_BENCH_PHI_BIG_MB size the seven corpora
-(default 1920 each).
+SREGEX_BENCH_MB (the headline and its stream), SREGEX_BENCH_MULTI_MB (the
+90 keywords and their stream), SREGEX_BENCH_AFFINE_MB, SREGEX_BENCH_BIG_MB
+(the big and core phases), SREGEX_BENCH_FIND_MB (find and finditer),
+SREGEX_BENCH_PHI_MB and SREGEX_BENCH_PHI_BIG_MB size the corpora (default
+1920 each); the legacy-core stream and each index route run over
+STREAM_CORE_MB and INDEX_ROUTE_MB.
 """
 
 import contextlib
@@ -77,7 +94,7 @@ import torch
 
 import sregex_tpu_torch
 from sregex_tpu_torch import Scanner, build_dfa, compile_regex, parse
-from sregex_tpu_torch.consts import sre_isword
+from sregex_tpu_torch.consts import SRE_AGAIN, SRE_ERROR, SRE_OK, sre_isword
 from sregex_tpu_torch.dfa import LazyDfa
 from sregex_tpu_torch.native_pike import NativePikeCtx
 from sregex_tpu_torch.ops import _build
@@ -123,6 +140,8 @@ PHI_BIG_PLAIN_MB = 64         # the big-phi plain version's slice
 # past the big tier's 2**17 entries and not piecewise affine: no static
 # tier accepts it
 NO_TIER_PATTERN = "a.{10}b|cdefghijklmnopqrstuvwxyz"
+STREAM_CORE_MB = 256          # the legacy-core stream's corpus
+INDEX_ROUTE_MB = 256          # each other index route's corpus
 # past the eager DFA budget: no dense machine, the lazy one serves
 LAZY_PATTERN = rb"a.{13}b"
 REPS = 5
@@ -134,8 +153,8 @@ def say(phase, **fields):
     print("%s: %s" % (phase, json.dumps(fields)), flush=True)
 
 
-def mb_env(name):
-    return int(os.environ.get(name, "1920"))
+def mb_env(name, default=1920):
+    return int(os.environ.get(name, str(default)))
 
 
 @contextlib.contextmanager
@@ -159,6 +178,25 @@ def drop_preps(prepared, *tables):
     ids = {id(t) for t in tables}
     for key in [k for k in prepared._by_tables if k[0] in ids]:
         del prepared._by_tables[key]
+
+
+def launch_counts(base=None):
+    """Each kernel row's launch count now (less ``base``)."""
+    now = dict(narrow=scan.pair_scan_launches, wide=scan.spec_scan_launches,
+               big=big.big_smem_launches, big_global=big.big_scan_launches,
+               affine=aff.affine_scan_launches,
+               tdfa=tdfa.tdfa_scan_launches, phi=tphi.phi_scan_launches,
+               phi_big=tphi.phi_big_scan_launches,
+               gated=tcore.gated_scan_launches)
+    return now if base is None else {k: now[k] - base[k] for k in now}
+
+
+def tally(launches):
+    """Add the counts since the last reset to each kernel row's
+    launches."""
+    for k, v in launch_counts().items():
+        if k in launches:
+            launches[k] += v
 
 
 def reset_launches():
@@ -765,9 +803,10 @@ def headline_corpus(mb):
     return body[:ofs] + b"xaaabbccb" + body[ofs + 9:]
 
 
-def multi_corpus(mb, words):
+def multi_corpus(mb, words, step=64 << 10, positions=None):
     """Disjoint filler words with a dictionary word planted every 64 KB
-    (the JAX package's bench_multi corpus)."""
+    (the JAX package's bench_multi corpus); ``step`` None plants none.
+    ``positions`` collects each plant's offset (" word " starts there)."""
     rng = random.Random(1234)
     filler = [w.encode() for w in
               ("alpha bravo delta golf hotel juliet kilo lima mike "
@@ -776,10 +815,11 @@ def multi_corpus(mb, words):
     piece = b" ".join(rng.choice(filler) for _ in range(512)) + b" "
     body = piece * (mb * (1 << 20) // len(piece) + 1)
     out = bytearray(body[:mb << 20])
-    step = 64 << 10
-    for pos in range(step, len(out) - 64, step):
+    for pos in range(step, len(out) - 64, step) if step else ():
         w = words[rng.randrange(len(words))]
         out[pos:pos + len(w) + 2] = b" " + w + b" "
+        if positions is not None:
+            positions.append(pos)
     return bytes(out)
 
 
@@ -869,6 +909,344 @@ def dictionary(n, seed=7):
         words.add(bytes(rng.integers(97, 123, int(rng.integers(6, 13)))
                         .astype(np.uint8)))
     return sorted(words)
+
+
+def stream_chunk(mb):
+    """The stream phase's chunk length: 64 MB, or a quarter of a corpus
+    under 256 MB (never under StreamScanner.DEVICE_THRESHOLD)."""
+    return max(sregex_tpu_torch.StreamScanner.DEVICE_THRESHOLD,
+               min(64 << 20, (mb << 20) // 4))
+
+
+def feed_stream(ss, corpus, chunk):
+    """Feed ``corpus`` to StreamScanner ``ss`` in ``chunk``-byte pieces
+    (views, no copies).  Returns (rc, offset, matched_regex, seconds in
+    exec, bytes fed, the entry state of each piece)."""
+    view = memoryview(corpus)
+    secs, fed, states = 0.0, 0, []
+    for lo in range(0, len(corpus), chunk):
+        piece = view[lo:lo + chunk]
+        states.append(int(ss.state))
+        t0 = time.perf_counter()
+        rc, off = ss.exec(piece, eof=lo + chunk >= len(corpus))
+        secs += time.perf_counter() - t0
+        fed += len(piece)
+        if rc != SRE_AGAIN:
+            break
+    return rc, off, ss.matched_regex, secs, fed, states
+
+
+def stream_case(dev, name, sc, corpus, plant_end, rid, chunk):
+    """One StreamScanner run over ``corpus`` with the Scanner's tables,
+    checked against the planted match's end and regex id, the native
+    engine and Scanner.scan of the whole corpus.  Returns its fields."""
+    t0 = time.perf_counter()
+    native_first, _ = sc._native.scan_first(corpus, 0)
+    native_s = time.perf_counter() - t0
+    if native_first != plant_end:
+        raise AssertionError("%s: native first end %d, planted %d"
+                             % (name, native_first, plant_end))
+    ss = sregex_tpu_torch.StreamScanner(sc.dfa, device=dev,
+                                        device_tables=sc._spec or None)
+    p0 = scan.pair_scan_launches + scan.spec_scan_launches
+    rc, off, mrid, secs, fed, states = feed_stream(ss, corpus, chunk)
+    launched = scan.pair_scan_launches + scan.spec_scan_launches - p0
+    if (rc, off, mrid) != (SRE_OK, plant_end, rid):
+        raise AssertionError("%s stream %r != planted %r"
+                             % (name, (rc, off, mrid), (plant_end, rid)))
+    if ss.exec(b"x") != (SRE_ERROR, -1):
+        raise AssertionError("%s: exec after the match" % name)
+    t0 = time.perf_counter()
+    whole = sc.scan(corpus)
+    scan_s = time.perf_counter() - t0
+    if whole != (rid, plant_end):
+        raise AssertionError("%s: Scanner.scan %r" % (name, whole))
+    ct = ss._coret
+    tier = type(ct if ct else ss._tables).__name__
+    in_core = sum(ct.to_core_premult(s) >= 0 for s in states) if ct else 0
+    return dict(bytes=len(corpus), chunk=chunk, chunks=len(states),
+                tier=tier, end=off, matched_regex=mrid,
+                stream_scan_gbps=fed / secs / 1e9, exec_s=secs,
+                nonzero_entries=sum(s != 0 for s in states),
+                entries_in_core=in_core, launches=launched,
+                scanner_scan_s=scan_s, native_s=native_s)
+
+
+def stream_phase(dev, mb, mmb, pats, tmb=STREAM_CORE_MB):
+    """StreamScanner on the headline pattern over ``mb`` MB and the 90
+    keywords over ``mmb`` MB, in 64 MB chunks with one match planted
+    across the last chunk boundary, and on the no-static-tier machine
+    (the legacy core) over ``tmb`` MB.  Returns the phase's fields."""
+    out = {}
+    # headline: abccc never matches; "aaabbccb" ends 5 bytes past the
+    # last chunk boundary
+    chunk = stream_chunk(mb)
+    n = mb << 20
+    body = (b"abccc" * (n // 5 + 1))[:n]
+    p = (n - 1) // chunk * chunk - 4
+    corpus = body[:p] + b"xaaabbccb" + body[p + 9:]
+    del body
+    hsc = sregex_tpu_torch.compile_pattern(HEADLINE, device=dev)
+    out["headline"] = stream_case(dev, "headline", hsc, corpus, p + 9, 0,
+                                  chunk)
+    del corpus, hsc
+    # 90 keywords: the filler alone (no keyword), one keyword planted
+    chunk = stream_chunk(mmb)
+    msc = sregex_tpu_torch.compile_pattern(pats, device=dev)
+    w = b"deadlock"
+    corpus = bytearray(multi_corpus(mmb, pats, step=None))
+    p = ((mmb << 20) - 1) // chunk * chunk - 3
+    corpus[p:p + len(w) + 2] = b" " + w + b" "
+    corpus = bytes(corpus)
+    out["multi"] = stream_case(dev, "multi", msc, corpus, p + 1 + len(w),
+                               pats.index(w), chunk)
+    del corpus, msc
+    # no static tier: the legacy core from the carried states; the filler
+    # has no "b", so only the planted literal matches
+    tchunk = stream_chunk(tmb)
+    tn = tmb << 20
+    tlast = (tn - 1) // tchunk * tchunk
+    nsc = sregex_tpu_torch.compile_pattern(NO_TIER_PATTERN, device=dev)
+    corpus = bytearray(multi_corpus(tmb, pats, step=None).replace(b"b",
+                                                                  b"B"))
+    lit = b"cdefghijklmnopqrstuvwxyz"
+    p = tlast - 10
+    corpus[p:p + len(lit)] = lit
+    corpus = bytes(corpus)
+    out["no_static_tier"] = stream_case(dev, "no_static_tier", nsc, corpus,
+                                        p + len(lit), 0, tchunk)
+    if out["no_static_tier"]["tier"] != "CoreTables" \
+            or not out["no_static_tier"]["entries_in_core"]:
+        raise AssertionError("the no-static-tier stream did not take the "
+                             "legacy core: %r" % out["no_static_tier"])
+    return out
+
+
+def user_name(i):
+    """A distinct [a-z_]+ user for plant i."""
+    return b"u_" + bytes(97 + i // 26 ** k % 26 for k in range(3))
+
+
+def redacted(data, matches):
+    """The expected sub(b"status=$1 user=<redacted>") output, from the
+    matches' ovectors."""
+    out, pos = [], 0
+    for _, ov in matches:
+        out += [data[pos:ov[0]], b"status=", data[ov[2]:ov[3]],
+                b" user=<redacted>"]
+        pos = ov[1]
+    out.append(data[pos:])
+    return b"".join(out)
+
+
+def index_kernel_ms(idx, data, dev):
+    """The reverse tables' COUNT launch (kernel and on-device summary) on
+    the index's prep of ``data``, by CUDA events."""
+    t = idx.tables
+    prep = prepare_on_device(t, torch.flip(
+        torch.from_numpy(np.frombuffer(data, np.uint8)).to(dev), [0]),
+        idx.CHUNK)
+    pdata, C, K, _, B = prep
+    s0, j0 = scan._entry_planes(0, t.warmup, B, dev)
+    ms = time_gpu(lambda: t._scan(pdata, s0, j0, C, -1, t.warmup,
+                                  COUNT=True), 5)
+    return ms, list(pdata.shape)
+
+
+def finditer_phase(dev, mb):
+    """finditer and sub of the log-field extractor over ``mb`` MB of log
+    lines with one full match planted every 1 MB (a distinct user each),
+    through make_index: every ovector and the sub output held against
+    the generator's, and the host walker timed over the same corpus as
+    the second oracle.  Returns (the phase's fields, the index, the
+    corpus)."""
+    fsc = sregex_tpu_torch.compile_pattern(FIND_PATTERN, device=dev)
+    t0 = time.perf_counter()
+    corpus = log_corpus(mb)
+    oracle = []
+    for i in range(mb):
+        user = user_name(i)
+        p = plant_line(corpus, i << 20, FIND_PLANT.replace(b"bob_x", user))
+        oracle.append(find_oracle(corpus, p, user))
+    data = bytes(corpus)
+    del corpus
+    gen_s = time.perf_counter() - t0
+    walker = fsc._tdfa_walker()
+    t0 = time.perf_counter()
+    walked = list(walker.iter_ovectors(data))
+    walker_s = time.perf_counter() - t0
+    if walked != oracle:
+        raise AssertionError("walker: %d matches, planted %d"
+                             % (len(walked), len(oracle)))
+    launches0 = launch_counts()
+    t0 = time.perf_counter()
+    idx = fsc.make_index(data)
+    index_s = time.perf_counter() - t0
+    index_launches = launch_counts(launches0)
+    t0 = time.perf_counter()
+    got = list(fsc.finditer(data, index=idx))
+    finditer_s = time.perf_counter() - t0
+    if got != oracle:
+        bad = next(i for i, (g, w) in enumerate(zip(got + [None] * len(
+            oracle), oracle)) if g != w)
+        raise AssertionError("finditer: %d matches; first difference at "
+                             "%d: %r != %r" % (len(got), bad,
+                                               got[bad:bad + 1],
+                                               oracle[bad]))
+    t0 = time.perf_counter()
+    out, k = fsc.sub(b"status=$1 user=<redacted>", data, index=idx)
+    sub_s = time.perf_counter() - t0
+    if k != len(oracle) or out != redacted(data, oracle):
+        raise AssertionError("sub: %d replacements, output %s"
+                             % (k, "differs" if k == len(oracle) else "-"))
+    del out
+    n = len(data)
+    return dict(mb=mb, bytes=n, pattern=FIND_PATTERN.decode(),
+                matches=len(got), index_gbps=n / index_s / 1e9,
+                finditer_gbps=n / finditer_s / 1e9,
+                sub_gbps=n / sub_s / 1e9, walker_gbps=n / walker_s / 1e9,
+                index_s=index_s, index_timing=idx.timing,
+                reverse_route=idx.route,
+                reverse_tier=type(idx.tables).__name__,
+                reverse_states=fsc._rev_dfa().dfa.nstates,
+                reverse_classes=fsc._rev_dfa().dfa.nclasses,
+                K=idx.CHUNK, chunks=idx.C, repaired=idx.repaired,
+                fired_chunks=len(idx._fires), index_launches=index_launches,
+                finditer_s=finditer_s, sub_s=sub_s, walker_s=walker_s,
+                corpus_s=gen_s), idx, data
+
+
+def brute_map(native, rdata, K):
+    """Entries and counts of a native walk of ``rdata``, chunk by
+    chunk."""
+    entries, counts, s = [], [], 0
+    for lo in range(0, len(rdata), K):
+        entries.append(s)
+        c, s = native.count(rdata[lo:lo + K], s)
+        counts.append(c)
+    return entries, counts
+
+
+def starts_of(loc):
+    """Every match start next_start reports, in order."""
+    out, s = [], loc.next_start(0)
+    while s is not None:
+        out.append(s)
+        s = loc.next_start(s + 1)
+    return out
+
+
+def route_case(sc, data, rev, oracle):
+    """make_index over ``data``: its entries and counts against a native
+    walk of the reversed corpus by ``rev``, its start sequence against
+    ``oracle``.  Returns (fields, the locator)."""
+    t0 = time.perf_counter()
+    loc = sc.make_index(data)
+    index_s = time.perf_counter() - t0
+    if loc is None:
+        raise AssertionError("no index")
+    t0 = time.perf_counter()
+    entries, counts = brute_map(rev, data[::-1], loc.CHUNK)
+    brute_s = time.perf_counter() - t0
+    if not (np.array_equal(loc.entries, entries)
+            and np.array_equal(loc.counts, counts)):
+        raise AssertionError("the index's map differs from the native "
+                             "walk (%s)" % type(loc.tables).__name__)
+    starts = starts_of(loc)
+    if starts != oracle:
+        raise AssertionError("%d starts, oracle %d"
+                             % (len(starts), len(oracle)))
+    return dict(bytes=len(data), tier=type(loc.tables).__name__,
+                index_gbps=len(data) / index_s / 1e9, index_s=index_s,
+                timing=loc.timing, route=loc.route, K=loc.CHUNK,
+                chunks=loc.C, repaired=loc.repaired, starts=len(starts),
+                fired_chunks=len(loc._fires), native_walk_s=brute_s), loc
+
+
+def index_routes_phase(dev, words, pats, mb=INDEX_ROUTE_MB):
+    """make_index on the three other routes over ``mb`` MB each: the
+    legacy reverse core (NO_TIER_PATTERN), the lazy reverse core
+    (LAZY_PATTERN) and, under SREGEX_FUSED=1, the fused reverse core (the
+    500-keyword dictionary).  Returns the phase's fields."""
+    out = {}
+    n = mb << 20
+    filler = multi_corpus(mb, pats, step=None).replace(b"b", b"B")
+    arr = np.frombuffer(filler, np.uint8)
+    if (arr == ord("b")).any():
+        raise AssertionError("a b in the filler")
+    # legacy: a.{10}b planted every 64 KB, the literal every 1 MB
+    data = bytearray(filler)
+    lit = b"cdefghijklmnopqrstuvwxyz"
+    for pos in range(4096, n - 64, 64 << 10):
+        data[pos:pos + 12] = b"a0123456789b"
+    for pos in range(40000, n - 64, 1 << 20):
+        data[pos:pos + len(lit)] = lit
+    data = bytes(data)
+    a = np.frombuffer(data, np.uint8)
+    ia = np.flatnonzero(a[:-11] == ord("a"))
+    oracle = ia[a[ia + 11] == ord("b")].tolist()
+    oracle = sorted(oracle + list(range(40000, n - 64, 1 << 20)))
+    sc = sregex_tpu_torch.compile_pattern(NO_TIER_PATTERN, device=dev)
+    rev = sc._rev_dfa()
+    if sc._rev_spec is not None:
+        raise AssertionError("%s: the reverse machine has a static tier"
+                             % NO_TIER_PATTERN)
+    out["legacy"], _ = route_case(sc, data, rev, oracle)
+    out["legacy"].update(pattern=NO_TIER_PATTERN,
+                         reverse_states=rev.dfa.nstates,
+                         reverse_classes=rev.dfa.nclasses)
+    # lazy: a.{13}b planted every 64 KB
+    data = bytearray(filler)
+    for pos in range(4096, n - 64, 64 << 10):
+        data[pos:pos + 15] = b"a_lazy_machine_b"[:14] + b"b"
+    data = bytes(data)
+    a = np.frombuffer(data, np.uint8)
+    ia = np.flatnonzero(a[:-14] == ord("a"))
+    oracle = ia[a[ia + 14] == ord("b")].tolist()
+    lsc = sregex_tpu_torch.compile_pattern(LAZY_PATTERN, device=dev)
+    if lsc._rev_dfa() is not None:
+        raise AssertionError("%r has a dense reverse machine"
+                             % LAZY_PATTERN)
+    out["lazy"], loc = route_case(lsc, data, lsc._rev_lazy_dfa(), oracle)
+    if not isinstance(loc.tables, tcore.LazyCoreTables):
+        raise AssertionError("lazy index on %r" % loc.tables)
+    out["lazy"].update(pattern=LAZY_PATTERN.decode(), H=loc.tables.H,
+                       lazy_states=lsc._rev_lazy_dfa().nstates)
+    del data, a, lsc, loc
+    # fused: the dictionary, SREGEX_FUSED=1
+    positions = []
+    data = multi_corpus(mb, words, positions=positions)
+    by_len = {}
+    for w in words:
+        by_len.setdefault(len(w), set()).add(w)
+    oracle, ends = [], set()
+    for p in positions:
+        for s in range(p + 1, p + 14):
+            hit = [L for L in by_len if data[s:s + L] in by_len[L]]
+            if hit:
+                oracle.append(s)
+                ends.update(s + L for L in hit)
+    with env("SREGEX_FUSED", "1"):
+        fsc = sregex_tpu_torch.compile_pattern(words, device=dev)
+        fwd_count, _ = fsc._native.count(data, 0)
+        if fwd_count != len(ends):
+            raise AssertionError("the dictionary matches outside its "
+                                 "plants: %d ends, %d planted"
+                                 % (fwd_count, len(ends)))
+        g0 = dict(tcore.gated_route_launches)
+        out["fused"], loc = route_case(fsc, data, fsc._rev_dfa(), oracle)
+    fct = fsc._rev_fusedct
+    if loc.tables is not fct or not isinstance(fct, tcore.CoreTables):
+        raise AssertionError("the fused reverse core did not serve: %r"
+                             % loc.tables)
+    out["fused"].update(
+        keywords=len(words), reverse_states=fsc._rev_dfa().dfa.nstates,
+        full_tier=type(fsc._rev_spec).__name__, H=fct.H,
+        n_esc=fct.last_escapes[0], overflow=fct.last_escapes[1],
+        cause=fct.last_fused_cause,
+        gated_routes={r: tcore.gated_route_launches[r] - g0[r]
+                      for r in g0})
+    return out
 
 
 def main():
@@ -1692,11 +2070,41 @@ def main():
     phi_stats["phi_big"] = (qt, qprep.for_tables(qt))
     del qcorpus
 
+    # --- 12. the stream, finditer and the index's routes ----------------
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    sline = stream_phase(dev, mb, mmb, pats)
+    tally(launches)
+    if min(v["launches"] for v in sline.values()) <= 0:
+        raise AssertionError("a stream ran no kernel: %r" % sline)
+    say("stream", core_mb=STREAM_CORE_MB, **sline,
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    fline, idx, data = finditer_phase(dev, fmb)
+    tally(launches)
+    if sum(fline["index_launches"].values()) <= 0:
+        raise AssertionError("the index ran no kernel: %r" % fline)
+    # timed after the tally: these launches are not the path's
+    fline["count_launch_ms"], fline["count_launch_shape"] = \
+        index_kernel_ms(idx, data, dev)
+    del idx, data
+    say("finditer", **fline, peak_mem_bytes=torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rline = index_routes_phase(dev, words, pats)
+    rlaunch = launch_counts()
+    tally(launches)
+    if rlaunch["gated"] <= 0 or rlaunch["narrow"] + rlaunch["wide"] <= 0:
+        raise AssertionError("the index routes' kernels: %r" % rlaunch)
+    say("index_routes", mb=INDEX_ROUTE_MB, **rline, launches=rlaunch,
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+
     if min(launches.values()) <= 0:
         raise AssertionError("a main path skipped its kernel: %r"
                              % launches)
 
-    # --- 12. kernel vs plain time at the main path's shapes ---------------
+    # --- 13. kernel vs plain time at the main path's shapes ---------------
     # narrow and big: the redesigned kernel the main path ran (the
     # two-code table, the 16-bit table) in the path's mode and the other
     # one, and the one-lookup kernel at the same shape

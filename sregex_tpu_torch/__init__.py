@@ -10,18 +10,35 @@ validation summary and the host folds with native repair.  find() adds
 the tagged-DFA kernel (csrc/tdfa_scan.cu) and its host certification
 fold, the reverse-DFA start locator and the Pike engines (pike_vm.py,
 native_pike.py with csrc/sre_pike.cpp) that resolve captures.
+finditer / sub / split add the native TDFA walker (native_tdfa.py with
+csrc/sre_tdfa.cpp) and the reverse chunk-map index (make_index);
+StreamScanner, StreamEditor, the Thompson VM, serialize and the CLI
+(python -m sregex_tpu_torch.cli) complete the public surface.
 """
 
+from .ast_nodes import dump_str as dump_ast
+from .bytecode import dump_program
 from .compiler import compile_regex
+from .consts import (SRE_AGAIN, SRE_BUSY, SRE_DECLINED, SRE_DONE,
+                     SRE_ERROR, SRE_OK, SRE_REGEX_CASELESS,
+                     SRE_REGEX_NEWLINE)
 from .dfa import build_dfa
 from .ops.spec_scan import spec_scan_last_bytes
 from .ops.tdfa_scan import TdfaSpecTables, tdfa_spec_find
 from .parser import ParseError, parse, parse_multi
-from .pike_vm import PikeCtx
-from .stream import PreparedCorpus, Scanner, compile_pattern
+from .pike_vm import PikeCtx, pike_create_ctx
+from .serialize import load_compiled, save_compiled
+from .stream import (PreparedCorpus, Scanner, StreamEditor, StreamScanner,
+                     compile_pattern)
 from .tdfa import Tdfa, TdfaTooLarge, tdfa_find
+from .thompson_vm import ThompsonCtx, thompson_create_ctx
 
-__all__ = ["parse", "parse_multi", "ParseError", "compile_regex",
-           "build_dfa", "Scanner", "compile_pattern", "PreparedCorpus",
-           "PikeCtx", "Tdfa", "TdfaTooLarge", "tdfa_find",
+__all__ = ["SRE_OK", "SRE_ERROR", "SRE_AGAIN", "SRE_BUSY", "SRE_DONE",
+           "SRE_DECLINED", "SRE_REGEX_CASELESS", "SRE_REGEX_NEWLINE",
+           "parse", "parse_multi", "ParseError", "compile_regex",
+           "PikeCtx", "pike_create_ctx", "ThompsonCtx",
+           "thompson_create_ctx", "dump_ast", "dump_program",
+           "compile_pattern", "Scanner", "StreamScanner", "StreamEditor",
+           "PreparedCorpus", "save_compiled", "load_compiled",
+           "build_dfa", "Tdfa", "TdfaTooLarge", "tdfa_find",
            "TdfaSpecTables", "tdfa_spec_find", "spec_scan_last_bytes"]

@@ -52,9 +52,10 @@ from .big import SpecTablesBig, check_t16
 from .layout import DEFAULT_K, GROUPS, SMEM_TABLE_MAX, TILE, effective_chunk
 from .pair import SpecTablesPair
 from .prep import prepare_auto
-from .spec_scan import (SpecTables, SpecTablesWide, _check_scan_args,
-                        _entry_planes, _host_bytes, _unpack, launch_planes,
-                        resolve_device, spec_scan, spec_scan_ref)
+from .spec_scan import (SpecTables, SpecTablesWide, _chain_ends, _chain_map,
+                        _check_scan_args, _entry_planes, _host_bytes,
+                        _unpack, launch_planes, resolve_device, spec_scan,
+                        spec_scan_ref)
 
 # sampled visit mass allowed OUTSIDE a legacy core (per byte): an escape
 # costs one native chunk re-scan on the host, so the budget is tight
@@ -293,11 +294,8 @@ class _Fold:
         if quiet:
             ok &= self.cnt == 0
         self.ok = ok
-        cont = np.zeros(C, dtype=bool)
-        if C > 1:
-            cont[:C - 1] = ok[1:] & (self.swarm[1:] == self.phi[:C - 1])
         # a trusted run cannot extend past these; C-1 is always one
-        self.breaks = np.flatnonzero(~cont)
+        self.breaks = _chain_ends(self.phi, self.swarm, ok)
         self.cum = np.cumsum(self.cnt.astype(np.int64))
 
     def run_end(self, c):
@@ -416,6 +414,40 @@ def core_count_bytes(ct, data_np, chunk_len=DEFAULT_K, entry_state=0,
         nat += 1
     ct.last_repair = (nat, C)
     return e_full, total
+
+
+def core_chunk_map(ct, data_np, chunk_len=DEFAULT_K, entry_state=0,
+                   prepared=None):
+    """Validated per-chunk scan map on the legacy core tier (CoreTables
+    or LazyCoreTables): (entries [C] FULL plain states, counts [C],
+    final FULL state), all exact.  Contract of spec_chunk_map, the
+    finditer start locator's building block: every trusted run (the
+    validated prefix among them) maps in one vector op; escaped or
+    speculation-missed chunks are re-counted natively on the FULL
+    machine."""
+    n = len(data_np)
+    if n == 0:
+        return (np.zeros(0, np.int64), np.zeros(0, np.int64),
+                entry_state)
+    _, packed, raw, C, K, n = _run(ct, data_np, chunk_len, entry_state,
+                                   prepared, True)
+    fold = _Fold(ct, packed, C, K, n, quiet=False)
+    entries = np.zeros(C, dtype=np.int64)
+    counts = fold.cnt.astype(np.int64).copy()
+    e_full, nat = _fold_map(ct, fold, raw, K, entry_state, entries, counts)
+    ct.last_repair = (nat, C)
+    return entries, counts, e_full
+
+
+def _fold_map(ct, fold, raw, K, e_full, entries, counts):
+    """_chain_map over a core fold's planes, from chunk 0 entered in FULL
+    state e_full: a chunk re-counts natively on the FULL machine.
+    Returns (the final FULL state, the chunks re-counted)."""
+    def recount(c, e):
+        return ct.native.count(raw[c * K:(c + 1) * K].tobytes(), e)
+
+    return _chain_map(fold.phi, fold.swarm, fold.ok, e_full, entries,
+                      counts, ct.to_core_premult, ct.to_full_vec, recount)
 
 
 # ---------------------------------------------------------------------
@@ -945,3 +977,65 @@ def core_scan_fused(ct, full_tables, data_np, chunk_len=DEFAULT_K,
             return st, tail_lo + f
         e_full = st
     return e_full, -1
+
+
+def core_chunk_map_fused(ct, full_tables, data_np, chunk_len=DEFAULT_K,
+                         entry_state=0, prepared_core=None,
+                         prepared_full=None):
+    """Validated per-chunk scan map on the fused two-phase tier:
+    (entries [C] FULL plain states, counts [C], final FULL state), all
+    exact; the contract of core_chunk_map, with escaped chunks redone by
+    the full machine's kernel on the device (the gated phase 2) instead
+    of one native host walk each.  Returns None when the shapes
+    disqualify the fused tier.  The full-chunk region maps through
+    _chain_map over the merged planes, or on an overflow (more escapes
+    than the device cap) over the legacy core planes; the ragged tail
+    finishes natively.  ct.last_fused_cause as in core_count_fused."""
+    d = _fused_dispatch(ct, full_tables, data_np, chunk_len, entry_state,
+                        prepared_core, prepared_full)
+    if d is None:
+        return None
+    if d["n"] == 0:
+        return (np.zeros(0, np.int64), np.zeros(0, np.int64),
+                entry_state)
+    summ, C, Cfull, K = d["summ"], d["C"], d["Cfull"], d["K"]
+    ncls_f = full_tables.ncls
+    raw = _host_bytes(data_np)
+    ct.last_repair = None
+    ct.last_fused_cause = None
+    entries = np.zeros(C, dtype=np.int64)
+    counts = np.zeros(C, dtype=np.int64)
+
+    def recount(c, e):
+        return ct.native.count(raw[c * K:(c + 1) * K].tobytes(), e)
+
+    if summ is not None and bool(summ[7]):
+        # escape overflow: the legacy core-plane fold
+        ct.last_fused_cause = "overflow"
+        fold = _core_fold(ct, d, quiet=False)
+        counts[:Cfull] = fold.cnt
+        e_full, nat = _fold_map(ct, fold, raw, K, entry_state, entries,
+                                counts)
+        ct.last_repair = (nat, Cfull)
+    elif summ is not None:
+        # the merged planes (FULL premult; -1 only where an escape was
+        # not redone)
+        phi_m, fm_m, swarm_m = (
+            d["merged"][:, :Cfull].cpu().numpy().astype(np.int64))
+        counts[:Cfull] = fm_m
+        e_full, nat = _chain_map(
+            phi_m, swarm_m, phi_m >= 0, entry_state, entries[:Cfull],
+            counts[:Cfull], lambda e: e * ncls_f, lambda a: a // ncls_f,
+            recount)
+        if nat:
+            ct.last_fused_cause = "miss"
+        ct.last_repair = (nat, Cfull)
+    else:
+        e_full = entry_state
+        ct.last_repair = (0, 0)
+
+    # the ragged tail chunk: native
+    for c in range(Cfull, C):
+        entries[c] = e_full
+        counts[c], e_full = recount(c, e_full)
+    return entries, counts, e_full

@@ -697,3 +697,86 @@ def spec_scan_last_bytes(tables, data_np, chunk_len=DEFAULT_K,
             e = topm(st)
         c += 1
     return frpm(e), best
+
+
+def _chain_ends(phi, swarm, ok):
+    """The last chunk of every chained run of a scan's planes: chunk c
+    ends one where chunk c+1 is not ok or did not speculate chunk c's
+    exit (C-1 always does)."""
+    C = len(phi)
+    cont = np.zeros(C, dtype=bool)
+    cont[:C - 1] = ok[1:] & (swarm[1:] == phi[:C - 1])
+    return np.flatnonzero(~cont)
+
+
+def _chain_map(phi, swarm, ok, e, entries, counts, key, plain, recount):
+    """The chunk maps' fold: per-chunk entries (plain states) and counts
+    of a scan's planes, written in place from chunk 0 entered in plain
+    state ``e``.
+
+    Chunk c is trusted where ok[c] (its planes are exact for a full
+    chunk) and its speculated entry swarm[c] is key(e), the plane code
+    of its exact entry (key: -1 where e has none).  Its chained run
+    (_chain_ends) is then exact and maps in one vector op (``plain``:
+    plane codes to plain states, over an array).  Every other chunk is
+    re-counted by recount(c, e) -> (count, exit plain state); no
+    unconfirmed speculation is trusted.  ``counts`` holds the planes'
+    counts on entry.  Returns (the final plain state, the chunks
+    re-counted)."""
+    ends = _chain_ends(phi, swarm, ok)
+    c = nat = 0
+    while c < len(phi):
+        entries[c] = e
+        k = key(e)
+        if k >= 0 and ok[c] and swarm[c] == k:
+            b = int(ends[np.searchsorted(ends, c)])
+            entries[c + 1:b + 1] = plain(phi[c:b])
+            e = int(plain(phi[b:b + 1])[0])
+            c = b + 1
+            continue
+        counts[c], e = recount(c, e)
+        c += 1
+        nat += 1
+    return e, nat
+
+
+def spec_chunk_map(tables, data_np, chunk_len=DEFAULT_K, entry_state=0,
+                   prepared=None):
+    """Validated per-chunk scan map: (entries [C], counts [C],
+    final_state), all exact (the finditer start locator's building
+    block).
+
+    entries[c] is the state entering chunk c (plain ids), counts[c] the
+    number of match-ending boundaries inside chunk c.  One COUNT-mode
+    launch, then _chain_map: each chained run whose entry is confirmed
+    (the validated prefix among them) maps in one vector op, so the
+    host work is one native re-count per missed chunk (and the ragged
+    tail), not one step per chunk.  Counts ride 16 bits in the packed
+    planes (effective_chunk keeps K below 65536).  ``data_np`` may be a
+    reversed view of a corpus (the fold only slices it); ``prepared``
+    then gives the prep."""
+    n = len(data_np)
+    if n == 0:
+        return (np.zeros(0, np.int64), np.zeros(0, np.int64),
+                entry_state)
+    _, packed, C, K = _launch(tables, data_np, chunk_len, entry_state,
+                              prepared, COUNT=True)
+    ncls = tables.ncls
+    topm = getattr(tables, "to_premult", None) or (lambda v: v * ncls)
+    frv = getattr(tables, "from_premult_vec", None) or (lambda a: a // ncls)
+    phi, cnt, swarm = _unpack(packed, C)
+    full = np.ones(C, dtype=bool)
+    if C * K > n and n - (C - 1) * K != K:
+        full[C - 1] = False
+    raw = _host_bytes(data_np)
+    native = NativeDfa(tables.dfa)
+
+    def recount(c, e):
+        return native.count(raw[c * K:(c + 1) * K].tobytes(), e)
+
+    entries = np.empty(C, dtype=np.int64)
+    counts = cnt.copy()
+    final, nat = _chain_map(phi, swarm, full, entry_state, entries, counts,
+                            topm, frv, recount)
+    tables.last_repair = (nat, C)
+    return entries, counts, final

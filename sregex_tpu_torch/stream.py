@@ -47,35 +47,56 @@ locator, a Pike pass over the match region).  On the lazy machine the
 prefilter is the lazy scan and the start locator the lazy reverse
 machine, walked on the host.  find's hot-core tagged and reverse tiers
 are not ported yet; the results do not differ.
+
+finditer / findall / sub / split (the substitution loop: the Pike ctx
+re-arms at each match end) take the native TDFA walker
+(native_tdfa.NativeTdfa) on the host, or, on a device corpus or with an
+explicit ``index=``, the reverse chunk map of make_index (_StartLocator:
+one COUNT pass of the REVERSE machine over the reversed corpus, on its
+static tier, its legacy or lazy core, or, under SREGEX_FUSED=1, its
+fused tier), between whose match starts the Pike ctx teleports.
+StreamEditor is the chunk-in / chunk-out substitution filter over the
+Pike engine; StreamScanner the resumable first-match scanner over one
+stream, whose large chunks go to the static tier (or the legacy core)
+from the stream's carried state.
 """
 
 import functools
 import os
 import time
 
+import numpy as np
+import torch
+
 from .compiler import compile_regex
-from .consts import sre_isword
+from .consts import SRE_AGAIN, SRE_DECLINED, SRE_ERROR, SRE_OK, sre_isword
 from .dfa import DfaTooLarge, LazyDfa, build_dfa
 from .diag import ScanStats
 from .native import NativeDfa
 from .native_pike import NativePikeCtx, NativeProgram
+from .native_tdfa import NativeTdfa
 from .ops.affine import SpecTablesAffine
 from .ops.big import SpecTablesBig
 from .ops.core import (FUSED_ESCAPE_FRAC, CoreTables, LazyCoreTables,
+                       core_chunk_map, core_chunk_map_fused,
                        core_count_bytes, core_count_fused, core_scan_bytes,
                        core_scan_fused, fused_chunk)
-from .ops.layout import DEFAULT_K
+from .ops.layout import DEFAULT_K, effective_chunk
 from .ops.pair import SpecTablesPair
 from .ops.phi import (PhiTables, PhiTablesBig, phi_count_bytes,
                       phi_prepare, phi_scan_bytes)
-from .ops.prep import DEVICE_PREP_MIN, _host_u8, prepare_auto
-from .ops.spec_scan import (SpecTables, SpecTablesWide, resolve_device,
+from .ops.prep import (DEVICE_PREP_MIN, _host_u8, prepare_auto,
+                       prepare_on_device)
+from .ops.spec_scan import (SpecTables, SpecTablesWide, _host_bytes,
+                            resolve_device, spec_chunk_map,
                             spec_count_bytes, spec_scan_bytes,
                             spec_scan_last_bytes, with_warmup)
 from .ops.tdfa_scan import TdfaSpecTables, tdfa_spec_find
 from .parser import parse, parse_multi
 from .pike_vm import PikeCtx
 from .reverse import reverse_wrapped_ast
+from .tdfa import TdfaTooLarge
+
 
 def _build_spec_tables(dfa, device):
     """The static tier chain, fastest first, as in the JAX package:
@@ -153,6 +174,109 @@ _TIER_CALLS = {
 }
 
 
+class StreamScanner:
+    """Resumable boolean scanner over one stream (Thompson-equivalent
+    semantics: reports the earliest boundary where any match ends).
+
+    Chunks of at least DEVICE_THRESHOLD bytes go to the device, entered
+    in the stream's carried state: the legacy core where the card's
+    band gives the machine one (no static tier, _core_requirement) and
+    the state is in its core, else the static tier; smaller chunks, and
+    every chunk when device=None, to the native engine.  ``device`` as
+    for Scanner: the card by default (raises without one), "cpu" for
+    the plain versions, None for the host engine alone."""
+
+    DEVICE_THRESHOLD = 1 << 20  # chunks >= 1 MiB go to the device
+    CORE_SAMPLE = 256 << 10     # hot-core sample bytes (chunk head)
+
+    def __init__(self, dfa, device="cuda", device_tables=None):
+        self.dfa = dfa
+        self.state = 0
+        self.processed_bytes = 0
+        self.eof = False
+        # regex id of the match that produced SRE_OK (multi-regex
+        # programs; 0 for single-regex), -1 before any match
+        self.matched_regex = -1
+        self.device = None if device is None else resolve_device(device)
+        self._tables = device_tables
+        self._coret = None   # legacy core tier; False = declined
+        self._native = NativeDfa(dfa)
+
+    def _device_tables(self):
+        """The static tier's tables, built at first use (False: none)."""
+        if self._tables is None:
+            self._tables = _build_spec_tables(self.dfa, self.device) \
+                or False
+        return self._tables
+
+    def _core_tables(self, chunk):
+        """The legacy core, sampled once from the first large chunk's
+        head where the card's band gives the machine one.  Exactness
+        never depends on the sample (escape repair)."""
+        if self._coret is None:
+            self._coret = False
+            req = _core_requirement(self._device_tables() or None)
+            if req is not None:
+                try:
+                    self._coret = CoreTables(
+                        self.dfa, bytes(chunk[:self.CORE_SAMPLE]),
+                        require_fast=req, device=self.device)
+                except ValueError:
+                    self._coret = False
+        return self._coret or None
+
+    def exec(self, chunk, eof=False):
+        """Feed one chunk.  Returns (rc, match_end_abs):
+        rc = SRE_OK (match; match_end_abs = absolute stream offset of
+        the earliest match end), SRE_AGAIN (feed more), SRE_DECLINED
+        (stream ended, no match), SRE_ERROR (stream already finished).
+        On SRE_OK, ``self.matched_regex`` holds the id of the matched
+        regex (multi-regex programs; 0 for single-regex).
+
+        After SRE_OK or SRE_DECLINED the stream is finished: further
+        exec() calls return SRE_ERROR (the reference's misuse contract,
+        sre_vm_pike.c:165-168)."""
+        if self.eof:
+            return SRE_ERROR, -1
+        if chunk is None:
+            chunk = b""
+
+        if len(chunk):
+            first = None
+            if self.device is not None \
+                    and len(chunk) >= self.DEVICE_THRESHOLD:
+                ct = self._core_tables(chunk)
+                if ct is not None \
+                        and ct.to_core_premult(self.state) >= 0:
+                    state, first = core_scan_bytes(
+                        ct, chunk, entry_state=self.state)
+                else:
+                    tables = self._device_tables()
+                    if tables:
+                        state, first = spec_scan_bytes(
+                            tables, chunk, entry_state=self.state)
+            if first is None:
+                first, state = self._native.scan_first(chunk, self.state)
+            if first >= 0:
+                # post-match contract: the scanner is finished, and both
+                # engines return the state AT the boundary, so the
+                # matched regex id is one table lookup
+                self.eof = True
+                self.matched_regex = self.dfa.id_at(state, chunk[first])
+                return SRE_OK, self.processed_bytes + first
+            self.state = state
+            self.processed_bytes += len(chunk)
+
+        if eof:
+            self.eof = True
+            rid = int(self.dfa.match_eof_id[self.state])
+            if rid >= 0:
+                self.matched_regex = rid
+                return SRE_OK, self.processed_bytes
+            return SRE_DECLINED, -1
+        return SRE_AGAIN, -1
+
+
 class PreparedCorpus:
     """Device-resident packed corpus, reusable across scans: prepare
     once, then every match/count/scan over it skips the pre-pass.
@@ -198,16 +322,20 @@ class PreparedCorpus:
 class Scanner:
     """Whole-corpus API over a compiled pattern set.
 
-    match(data)  -> bool (any match)
-    count(data)  -> number of boundaries where a match ends (EOF too)
-    scan(data)   -> (regex_id, end_boundary) of the earliest match end,
-                    or None
-    find(data)   -> (regex_id, ovector) of the leftmost-first match per
-                    full Pike semantics, or None
+    match(data)    -> bool (any match)
+    count(data)    -> number of boundaries where a match ends (EOF too)
+    scan(data)     -> (regex_id, end_boundary) of the earliest match
+                      end, or None
+    find(data)     -> (regex_id, ovector) of the leftmost-first match per
+                      full Pike semantics, or None
+    finditer(data) -> yields successive Pike matches (the re-arm
+                      protocol, including empty-match handling); also
+                      findall, sub, split and editor (StreamEditor)
 
     Corpora of at least DEVICE_THRESHOLD bytes go to the device tiers;
     smaller ones, and every corpus when device=None, to the native
-    engine."""
+    engine.  ``dfa``: prebuilt tables (serialize.load_compiled), which
+    skip subset construction."""
 
     DEVICE_THRESHOLD = 4 << 20   # below this the host engine wins
     CORE_SAMPLE = 256 << 10      # bytes per hot-core sample slice
@@ -230,14 +358,16 @@ class Scanner:
     # Scanner's life.  Only speed is at stake.
     MAX_RECORE = 2
 
-    def __init__(self, prog, device="cuda", ast=None):
+    def __init__(self, prog, device="cuda", ast=None, dfa=None):
         self.program = prog
         self.ast = ast
-        try:
-            dfa = build_dfa(prog)
-        except DfaTooLarge:
-            # past the eager budget: the lazy machine serves (_lazy_dfa)
-            dfa = None
+        if dfa is None:
+            try:
+                dfa = build_dfa(prog)
+            except DfaTooLarge:
+                # past the eager budget: the lazy machine serves
+                # (_lazy_dfa)
+                dfa = None
         self.dfa = dfa
         self._native = None if dfa is None else NativeDfa(dfa)
         self._lazy = None
@@ -263,6 +393,14 @@ class Scanner:
         self._rev = False
         self._rev_spec = None
         self._rev_lz = None        # the lazy reverse machine: None untried
+        # the reverse machine's core tiers (make_index), as _coret and
+        # _fusedct: None untried, False declined
+        self._rev_coret = None
+        self._rev_fusedct = None
+        self._rev_lz_coret = None
+        # the native TDFA walker of finditer's host path: None untried,
+        # False declined (too large, SREGEX_FINDITER=pike, or no g++)
+        self._walker = None
         # the C++ Pike engine resolves captures when it builds
         self._pike_nprog = (NativeProgram(prog)
                             if NativePikeCtx.available() else None)
@@ -338,47 +476,59 @@ class Scanner:
                        max(0, n - w)})
         return b"".join(bytes(data[c:c + w]) for c in cuts)
 
-    def _core_tables(self, data):
-        """The legacy core tier: where the static chain finds no tier at
-        all, sample the corpus once and build a core the pair/narrow/wide
-        kernels run (LazyCoreTables over the lazy machine when there is
-        no dense one).  Escapes repair natively, so a poor core only
-        costs speed.  Cached (False = declined: no core covers the
+    def _new_core(self, dfa, lazy, spec, sample):
+        """A legacy core of the machine ``dfa`` (the lazy machine
+        ``lazy`` where dfa is None) whose static tier is ``spec``, built
+        from ``sample`` where the card's band gives the machine one
+        (_core_requirement); the pair/narrow/wide kernels run it.
+        Escapes repair natively, so a poor core only costs speed.  False
+        = declined (no device, the band, or no core covers the
         sample)."""
+        req = None if self.device is None else _core_requirement(spec)
+        if req is None:
+            return False
+        try:
+            if dfa is not None:
+                return CoreTables(dfa, sample, require_fast=req,
+                                  device=self.device)
+            return LazyCoreTables(lazy, sample, require_fast=req,
+                                  device=self.device)
+        except ValueError:
+            return False
+
+    def _new_fused_core(self, dfa, spec, sample):
+        """The core of the fused two-phase tier over the machine ``dfa``
+        whose static tier is ``spec``: escaped chunks are redone on the
+        device by the static tier's kernel, so a wide core and a loose
+        escape budget are fine.  Built only where _fused_eligible allows
+        it (SREGEX_FUSED=1); False = declined (the static tier
+        serves)."""
+        if self.device is None or not _fused_eligible(spec):
+            return False
+        try:
+            return CoreTables(dfa, sample,
+                              max_escape_frac=FUSED_ESCAPE_FRAC,
+                              require_fast=False, no_pair=True,
+                              prefer_small=True, device=self.device)
+        except ValueError:
+            return False
+
+    def _core_tables(self, data):
+        """The legacy core tier (_new_core; LazyCoreTables over the lazy
+        machine when there is no dense one), sampled from the corpus.
+        Cached (False = declined)."""
         if self._coret is None:
-            self._coret = False
-            req = _core_requirement(self._spec)
-            if req is not None:
-                try:
-                    sample = self._core_sample(data)
-                    self._coret = (
-                        CoreTables(self.dfa, sample, require_fast=req,
-                                   device=self.device)
-                        if self.dfa is not None else
-                        LazyCoreTables(self._lazy_dfa(), sample,
-                                       require_fast=req,
-                                       device=self.device))
-                except ValueError:
-                    self._coret = False
+            self._coret = self._new_core(
+                self.dfa, self.dfa is None and self._lazy_dfa(),
+                self._spec, self._core_sample(data))
         return self._coret or None
 
     def _fused_core_tables(self, data):
-        """The core of the fused two-phase tier: escaped chunks are
-        redone on the device by the static tier's kernel, so a wide
-        core and a loose escape budget are fine.  Built only where
-        _fused_eligible allows it (SREGEX_FUSED=1).  Cached (False =
-        declined: the static tier serves)."""
+        """The fused tier's core (_new_fused_core), sampled from the
+        corpus.  Cached (False = declined)."""
         if self._fusedct is None:
-            self._fusedct = False
-            if not _fused_eligible(self._spec):
-                return None
-            try:
-                self._fusedct = CoreTables(
-                    self.dfa, self._core_sample(data),
-                    max_escape_frac=FUSED_ESCAPE_FRAC, require_fast=False,
-                    no_pair=True, prefer_small=True, device=self.device)
-            except ValueError:
-                self._fusedct = False
+            self._fusedct = self._new_fused_core(
+                self.dfa, self._spec, self._core_sample(data))
         return self._fusedct or None
 
     def _core_note(self, ct):
@@ -710,6 +860,471 @@ class Scanner:
         if self._eof_id(state) >= 0:
             c += 1
         return c
+
+    # -----------------------------------------------------------------
+    # finditer and the substitution loop
+    # -----------------------------------------------------------------
+
+    def _tdfa_walker(self):
+        """The native TDFA walker (native_tdfa.NativeTdfa) or None:
+        built at first use; declined (False) when the tagged automaton
+        exceeds the host budgets (TdfaTooLarge), when
+        SREGEX_FINDITER=pike asks for the Pike loop, or where the
+        walker's library does not build (no g++), as the native Pike
+        engine declines."""
+        if self._walker is None:
+            self._walker = False
+            if os.environ.get("SREGEX_FINDITER") != "pike" \
+                    and NativeTdfa.available():
+                try:
+                    self._walker = NativeTdfa(self.program)
+                except TdfaTooLarge:
+                    self._walker = False
+        return self._walker or None
+
+    def _rev_core_tables(self, data):
+        """The legacy core of the REVERSE machine (the finditer start
+        locator; _new_core over its static tier), sampled from the
+        forward corpus and reversed.  Cached (False = declined)."""
+        if self._rev_coret is None:
+            rev = self._rev_dfa()
+            self._rev_coret = rev is not None and self._new_core(
+                rev.dfa, None, self._rev_spec,
+                self._core_sample(data)[::-1])
+        return self._rev_coret or None
+
+    def _rev_fused_core_tables(self, data):
+        """The fused tier's core of the REVERSE machine (_new_fused_core
+        over its static tier): the start locator's chunk map redoes its
+        escapes on the device (core_chunk_map_fused).  Cached (False =
+        declined)."""
+        if self._rev_fusedct is None:
+            rev = self._rev_dfa()
+            self._rev_fusedct = rev is not None and self._new_fused_core(
+                rev.dfa, self._rev_spec, self._core_sample(data)[::-1])
+        return self._rev_fusedct or None
+
+    def _rev_lazy_core(self, data):
+        """LazyCoreTables over the lazy REVERSE machine (_new_core, no
+        static tier): the start locator of a pattern whose reverse
+        machine is past the eager budget.  Cached (False = declined)."""
+        if self._rev_lz_coret is None:
+            rl = self._rev_lazy_dfa()
+            self._rev_lz_coret = rl is not None and self._new_core(
+                None, rl, None, self._core_sample(data)[::-1])
+        return self._rev_lz_coret or None
+
+    def make_index(self, data):
+        """The reusable corpus index of finditer: one COUNT pass of the
+        REVERSE machine over the reversed corpus, mapping every chunk
+        that holds a completed-match START (_StartLocator).  Build it
+        once and pass it to finditer / sub / split (``index=``) to
+        iterate the same corpus more than once.  Returns None when no
+        device tables exist for the reverse machine (device=None among
+        them); a failed build or launch raises."""
+        rev = self._rev_dfa()
+        if rev is not None:
+            fct = self._rev_fused_core_tables(data)
+            if fct is not None:
+                return _StartLocator(rev, fct, data,
+                                     full_tables=self._rev_spec)
+            tables = self._rev_core_tables(data) or self._rev_spec
+            if tables is None:
+                return None
+            return _StartLocator(rev, tables, data)
+        # reverse machine past the eager budget: the lazy reverse machine
+        # through its lazy core
+        if self.device is None:
+            return None
+        ct = self._rev_lazy_core(data)
+        if ct is None:
+            return None
+        return _StartLocator(self._rev_lazy_dfa(), ct, data)
+
+    def finditer(self, data, index=None):
+        """Iterate successive matches (regex_id, ovector) (the
+        substitution-loop protocol: after each final match the engine
+        re-arms and continues from the match end,
+        sre_vm_pike.c:624-635).
+
+        On a device corpus, or with an explicit ``index``, the reverse
+        fire map (make_index) locates every completed-match START;
+        between matches the Pike ctx teleports across start-free gaps
+        instead of thread-simulating them.  The teleport is exact: no
+        completed match starts in the gap, so no thread alive at the
+        teleport point can ever reach MATCH, and a fresh ctx with the
+        boundary carry is indistinguishable.  Resolution stays
+        byte-exact Pike, fed in geometrically growing windows.  Without
+        an index the native TDFA walker emits every match from its
+        registers, else the Pike loop walks the corpus."""
+        n = len(data)
+        starts = index
+        if starts is None and self._on_device(data):
+            starts = self.make_index(data)
+        if starts is None:
+            walker = self._tdfa_walker()
+            if walker is not None:
+                yield from walker.iter_ovectors(data)
+                return
+        ctx = self._pike_ctx()
+        pos = 0
+        while True:
+            if starts is not None and pos < n:
+                s_star = starts.next_start(pos)
+                if s_star is None:
+                    return
+                if s_star > pos:
+                    # teleport across the start-free gap
+                    ctx = self._pike_ctx()
+                    prev = data[s_star - 1]
+                    ctx.set_carry(s_star, prev == 10, sre_isword(prev))
+                    pos = s_star
+            if starts is not None:
+                rc = self._pike_stream(ctx, data, pos)
+            else:
+                rc, _ = ctx.exec(data[pos:], True)
+            if rc < 0:
+                return
+            ov = [int(v) for v in ctx.ovector]
+            yield rc, ov
+            # the ctx re-armed at the match end (absolute offset)
+            if ov[1] >= len(data) and ov[0] == ov[1]:
+                return
+            pos = ov[1]
+
+    def findall(self, data, index=None):
+        """All matches as a list of (regex_id, ovector): finditer,
+        collected."""
+        return list(self.finditer(data, index=index))
+
+    def sub(self, repl, data, count=0, index=None):
+        """Replace matches (the streaming substitution loop of
+        ngx_replace_filter over the Pike re-arm, sre_vm_pike.c:624-635).
+        Returns (new_bytes, n_replacements).
+
+        repl: bytes template (``$0``..``$9`` / ``${nn}`` substitute
+        capture groups of the matched regex, $0 the whole match, unset
+        groups empty; ``$$`` a literal dollar) or a callable
+        (regex_id, ovector, data) -> bytes.  count limits replacements
+        (0 = all).  Rides finditer, so large corpora take the device
+        index (pass a prebuilt ``index`` to reuse it)."""
+        out = []
+        pos = 0
+        done = 0
+        for rid, ov in self.finditer(data, index=index):
+            if count and done >= count:
+                break
+            out.append(data[pos:ov[0]])
+            if callable(repl):
+                out.append(repl(rid, ov, data))
+            else:
+                out.append(_expand_template(repl, ov, data))
+            pos = ov[1]
+            done += 1
+        out.append(data[pos:])
+        return b"".join(out), done
+
+    def editor(self, repl, count=0):
+        """Streaming substitution: a StreamEditor over this pattern set
+        (chunk-in / chunk-out replace filter)."""
+        return StreamEditor(self, repl, count=count)
+
+    def split(self, data, maxsplit=0, index=None):
+        """Split ``data`` around matches (re.split without group
+        interpolation): the list of between-match segments.  maxsplit
+        limits splits (0 = all).  Rides finditer."""
+        out = []
+        pos = 0
+        done = 0
+        for _rid, ov in self.finditer(data, index=index):
+            if maxsplit and done >= maxsplit:
+                break
+            out.append(data[pos:ov[0]])
+            pos = ov[1]
+            done += 1
+        out.append(data[pos:])
+        return out
+
+    @staticmethod
+    def _pike_stream(ctx, data, pos, first=1 << 16):
+        """Drive the Pike ctx with geometrically growing chunks from
+        ``pos`` until it resolves: the work per match is O(match
+        region), not O(corpus tail)."""
+        n = len(data)
+        win = first
+        while True:
+            hi = min(pos + win, n)
+            rc, _ = ctx.exec(data[pos:hi], hi >= n)
+            if rc != SRE_AGAIN:
+                return rc
+            pos = hi
+            win *= 4
+
+
+def _expand_template(repl, ov, data):
+    """Expand $0..$9 / ${nn} / $$ in a replacement template against
+    one match's ovector (the ngx_replace_filter template dialect)."""
+    out = []
+    i = 0
+    n = len(repl)
+    while i < n:
+        c = repl[i:i + 1]
+        if c != b"$" or i + 1 >= n:
+            out.append(c)
+            i += 1
+            continue
+        nxt = repl[i + 1:i + 2]
+        if nxt == b"$":
+            out.append(b"$")
+            i += 2
+        elif nxt == b"{":
+            j = repl.find(b"}", i + 2)
+            if j < 0 or not repl[i + 2:j].isdigit():
+                out.append(c)
+                i += 1
+                continue
+            out.append(_group(ov, int(repl[i + 2:j]), data))
+            i = j + 1
+        elif nxt.isdigit():
+            out.append(_group(ov, int(nxt), data))
+            i += 2
+        else:
+            out.append(c)
+            i += 1
+    return b"".join(out)
+
+
+def _group(ov, g, data):
+    lo = 2 * g
+    if lo + 1 >= len(ov) or ov[lo] < 0:
+        return b""
+    return data[ov[lo]:ov[lo + 1]]
+
+
+class StreamEditor:
+    """Streaming substitution over an unbounded chunked stream (the
+    reference's production use case: ngx_replace_filter over the Pike
+    re-arm loop, sre_vm_pike.c:624-635; buffering contract from the
+    pending/temp-capture outputs, sre_vm_pike.c:640-658, 692-735).
+
+    feed(chunk, eof=False) -> bytes: consume one input chunk, return
+    the next piece of edited output.  Output is emitted as early as
+    provably final: after every chunk the engine's temp captures (the
+    conservative $0 span over live threads) and the pending-match span
+    bound the bytes that could still belong to a match; everything
+    before that bound is flushed verbatim.  Memory is O(longest
+    potential match), independent of stream length.
+
+    repl: bytes template ($0..$9 / ${nn} / $$, as Scanner.sub) or a
+    callable (regex_id, ovector, window) -> bytes where ``ovector``
+    indexes into ``window`` (the held byte window holding the match).
+    count limits replacements (0 = all); once reached the rest of the
+    stream passes through verbatim.
+
+    The concatenated output equals Scanner.sub(repl, whole_stream) for
+    every chunking."""
+
+    def __init__(self, scanner, repl, count=0):
+        self.scanner = scanner
+        self.repl = repl
+        self.count = count
+        self.n_replacements = 0
+        self._ctx = scanner._pike_ctx()
+        self._held = bytearray()   # input bytes [held_base, total)
+        self._held_base = 0        # == absolute bytes emitted so far
+        self._total = 0            # absolute bytes received
+        self._passthrough = False  # count reached: verbatim tail
+        self._finished = False
+
+    @property
+    def finished(self):
+        return self._finished
+
+    def feed(self, chunk, eof=False):
+        """Feed one chunk (b"" allowed); eof=True on the last call.
+        Returns the output bytes that became final.  Feeding after eof
+        is misuse and raises (the reference's SRE_ERROR contract,
+        sre_vm_pike.c:165-168)."""
+        if self._finished:
+            raise RuntimeError("stream already finished")
+        chunk = bytes(chunk or b"")
+        self._total += len(chunk)
+        if self._passthrough:
+            if eof:
+                self._finished = True
+            self._held_base = self._total
+            return chunk
+        self._held += chunk
+        out = []
+        piece = chunk
+        while True:
+            rc, pending = self._ctx.exec(piece, eof, want_pending=True)
+            if rc >= 0:
+                ov = [int(v) for v in self._ctx.ovector]
+                a, b = ov[0], ov[1]
+                # every final match starts at/after the flush bound
+                assert a >= self._held_base, (a, self._held_base)
+                out.append(bytes(self._held[:a - self._held_base]))
+                window = bytes(self._held)
+                rel = [v - self._held_base if v >= 0 else -1
+                       for v in ov]
+                if callable(self.repl):
+                    out.append(self.repl(rc, rel, window))
+                else:
+                    out.append(_expand_template(self.repl, rel, window))
+                del self._held[:b - self._held_base]
+                self._held_base = b
+                self.n_replacements += 1
+                if self.count and self.n_replacements >= self.count:
+                    out.append(bytes(self._held))
+                    self._held.clear()
+                    self._held_base = self._total
+                    self._passthrough = True
+                    if eof:
+                        self._finished = True
+                    return b"".join(out)
+                # the engine re-armed at b: re-feed the already-received
+                # tail (the reference caller's re-feed loop)
+                piece = bytes(self._held)
+                if not piece and not eof:
+                    break
+            elif rc == SRE_AGAIN:
+                bound = self._total
+                t0 = int(self._ctx.ovector[0])
+                if t0 >= 0:
+                    bound = min(bound, t0)
+                if pending is not None:
+                    bound = min(bound, int(pending[0]))
+                if bound > self._held_base:
+                    out.append(bytes(
+                        self._held[:bound - self._held_base]))
+                    del self._held[:bound - self._held_base]
+                    self._held_base = bound
+                break
+            elif rc == SRE_DECLINED:
+                out.append(bytes(self._held))
+                self._held.clear()
+                self._held_base = self._total
+                self._finished = True
+                break
+            else:
+                self._finished = True
+                raise RuntimeError("pike engine error (SRE_ERROR)")
+        if eof:
+            self._finished = True
+        return b"".join(out)
+
+
+class _StartLocator:
+    """Locates the next completed-match START at or after a position,
+    from one COUNT pass of the REVERSE machine over the reversed corpus
+    (spec_chunk_map on its static tier, core_chunk_map on its legacy or
+    lazy core, core_chunk_map_fused on its fused tier).
+
+    Reverse boundary q fires  <=>  some match starts at n - q
+    (reverse.py; the relation find() uses).  next_start finds the
+    chunks with a non-zero fire count at or below the boundary n - pos
+    by array search, last first, and pins the position with one native
+    chunk scan.
+
+    The fold and the position pins read a reversed view of the forward
+    bytes (no host copy).  A device corpus (prepare_auto's rule:
+    DEVICE_PREP_MIN bytes, or SREGEX_DEVICE_PREP=1) is reversed on the
+    device: the forward bytes are uploaded once and flipped there, and
+    the prep packs the same words as the host prep of the reversed
+    bytes; a host corpus is reversed into one contiguous copy for the
+    host prep.  ``route`` says which, ``timing`` the host-clock seconds
+    of the reversal, the prep and the map (launch, readback, fold),
+    ``tables`` the reverse machine's tables that served the map and
+    ``repaired`` their last_repair after it."""
+
+    CHUNK = DEFAULT_K
+
+    def __init__(self, rev_native, rev_tables, data, full_tables=None):
+        t0 = time.perf_counter()
+        fwd = _host_bytes(data)
+        self.n = n = len(fwd)
+        self.rdata = fwd[::-1]
+        self.rev = rev_native
+        self.tables = rev_tables
+        knob = os.environ.get("SREGEX_DEVICE_PREP")
+        on_dev = n >= DEVICE_PREP_MIN if knob is None else knob == "1"
+        if on_dev:
+            self.route = "device flip"
+            src = torch.flip(_host_u8(fwd).to(rev_tables.device), [0])
+        else:
+            self.route = "host copy"
+            src = np.ascontiguousarray(self.rdata)
+        self.timing = {"reverse_s": time.perf_counter() - t0,
+                       "prep_s": 0.0}
+
+        def prep(tables, ck):
+            t = time.perf_counter()
+            p = (prepare_on_device if on_dev else prepare_auto)(
+                tables, src, ck)
+            self.timing["prep_s"] += time.perf_counter() - t
+            return p
+
+        r = None
+        if full_tables is not None and isinstance(rev_tables, CoreTables):
+            # fused two-phase chunk map: escaped chunks redone by the
+            # full reverse machine's kernel on the device
+            ck = fused_chunk(rev_tables.inner, full_tables, self.CHUNK)
+            if ck is not None:
+                preps = prep(rev_tables.inner, ck), prep(full_tables, ck)
+                t = time.perf_counter()
+                r = core_chunk_map_fused(rev_tables, full_tables,
+                                         self.rdata, ck,
+                                         prepared_core=preps[0],
+                                         prepared_full=preps[1])
+                self.timing["map_s"] = time.perf_counter() - t
+                del preps
+            if r is not None:
+                self.CHUNK = ck
+            # else the shapes disqualified it: the legacy chunk map
+        if r is None:
+            if isinstance(rev_tables, CoreTables):
+                # the locator's position math agrees with the prep's K
+                self.CHUNK = effective_chunk(rev_tables.inner, self.CHUNK)
+                fn, p = core_chunk_map, prep(rev_tables.inner, self.CHUNK)
+            else:
+                self.CHUNK = effective_chunk(rev_tables, self.CHUNK)
+                fn, p = spec_chunk_map, prep(rev_tables, self.CHUNK)
+            t = time.perf_counter()
+            r = fn(rev_tables, self.rdata, self.CHUNK, prepared=p)
+            self.timing["map_s"] = time.perf_counter() - t
+            del p
+        del src
+        self.entries, self.counts, final = r
+        self.repaired = rev_tables.last_repair
+        me = rev_native.match_eof
+        self.start0 = bool(me(final)) if callable(me) else bool(me[final])
+        self.C = len(self.counts)
+        self._fires = np.flatnonzero(self.counts)
+
+    def next_start(self, pos):
+        """Smallest s >= pos such that a completed match starts at s,
+        else None."""
+        n, K = self.n, self.CHUNK
+        if pos <= 0 and self.start0:
+            return 0
+        Q = n - max(pos, 1)          # max reverse boundary of interest
+        if Q < 0:
+            return None
+        c = min(Q // K, self.C - 1)
+        # the firing chunks at or below c, last first
+        i = int(np.searchsorted(self._fires, c, side="right")) - 1
+        while i >= 0:
+            c = int(self._fires[i])
+            lo = c * K
+            hi_b = min(K - 1, Q - lo)
+            q_local, _ = self.rev.scan_last(
+                self.rdata[lo:lo + hi_b + 1].tobytes(),
+                int(self.entries[c]))
+            if q_local >= 0:
+                return n - (lo + q_local)
+            i -= 1
+        return None
 
 
 def compile_pattern(pattern, flags=0, device="cuda"):

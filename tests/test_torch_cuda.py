@@ -806,3 +806,133 @@ def test_lazy_machine_runs_on_the_card(cuda):
     assert sc.scan(data) == host.scan(data)
     assert sc.find(data) == host.find(data)
     assert _spec_launches() >= before + 2
+
+
+def test_stream_scanner_runs_on_the_card(cuda):
+    """StreamScanner in 2 MB chunks from carried states, on the static
+    tier and on the legacy core, equal to the native engine."""
+    import sregex_tpu_torch
+    from sregex_tpu_torch.consts import SRE_AGAIN, SRE_OK
+    rng = np.random.default_rng(9)
+    for pattern, alpha, lit in (
+            ("(?:a|b)aa(?:aa|bb)cc(?:a|b)", b"bcx", b"xaaabbccb"),
+            ("a.{10}b|cdefghijklmnopqrstuvwxyz", b"acdxyz ",
+             b"cdefghijklmnopqrstuvwxyz")):
+        text = rng.choice(np.frombuffer(alpha, np.uint8), 12 << 20)
+        data = bytearray(text.tobytes())
+        data[(10 << 20) - 5:(10 << 20) - 5 + len(lit)] = lit
+        data = bytes(data)
+        host = sregex_tpu_torch.compile_pattern(pattern, device=None)
+        first, _ = host._native.scan_first(data, 0)
+        ss = sregex_tpu_torch.StreamScanner(host.dfa)
+        before = _spec_launches()
+        rc = SRE_AGAIN
+        for lo in range(0, len(data), 2 << 20):
+            rc, off = ss.exec(data[lo:lo + (2 << 20)])
+            if rc != SRE_AGAIN:
+                break
+        assert (rc, off) == (SRE_OK, first) and first > 10 << 20
+        assert ss.matched_regex == host.scan(data)[0]
+        assert _spec_launches() > before
+
+
+def _dictionary(n, seed):
+    """n distinct keywords of 6-12 lowercase letters."""
+    rng = np.random.default_rng(seed)
+    words = set()
+    while len(words) < n:
+        words.add(bytes(rng.integers(97, 123, int(rng.integers(6, 13)))
+                        .astype(np.uint8)))
+    return sorted(words)
+
+
+@pytest.mark.parametrize("tier", ["SpecTablesAffine", "SpecTablesBig"])
+def test_stream_scanner_static_tiers_run_on_the_card(cuda, tier):
+    """StreamScanner in 2 MB chunks on the affine tier (the base64
+    detector, its relaid table) and the big tier (a dictionary past the
+    wide tier, its 16-bit table), most chunks entered in non-zero
+    carried states: equal to the native engine."""
+    import sregex_tpu_torch
+    from sregex_tpu_torch import stream as tstream
+    from sregex_tpu_torch.consts import SRE_AGAIN, SRE_OK
+    rng = np.random.default_rng(11)
+    if tier == "SpecTablesAffine":
+        pattern, alpha = rb"[A-Za-z0-9+/]{400,499}=", b"Ab9+/ "
+        lit = b" " + b"Q" * 450 + b"="
+        launches = lambda: taff.affine_scan_launches
+    else:
+        pattern = _dictionary(100, 5)
+        alpha, lit = b"abcdefgh ", b" " + pattern[37] + b" "
+        launches = lambda: tbig.big_smem_launches
+    text = rng.choice(np.frombuffer(alpha, np.uint8), 12 << 20)
+    data = bytearray(text.tobytes())
+    data[(10 << 20) - 5:(10 << 20) - 5 + len(lit)] = lit
+    data = bytes(data)
+    host = sregex_tpu_torch.compile_pattern(pattern, device=None)
+    first, st = host._native.scan_first(data, 0)
+    ss = sregex_tpu_torch.StreamScanner(host.dfa)
+    states, orig = [], tstream.spec_scan_bytes
+
+    def spy(tables, chunk, **kw):
+        states.append(kw["entry_state"])
+        return orig(tables, chunk, **kw)
+
+    before = launches()
+    tstream.spec_scan_bytes = spy
+    try:
+        rc = SRE_AGAIN
+        for lo in range(0, len(data), 2 << 20):
+            rc, off = ss.exec(data[lo:lo + (2 << 20)])
+            if rc != SRE_AGAIN:
+                break
+    finally:
+        tstream.spec_scan_bytes = orig
+    assert type(ss._tables).__name__ == tier
+    assert (rc, off) == (SRE_OK, first)
+    assert ss.matched_regex == host.dfa.id_at(st, data[first])
+    assert len(states) >= 3 and sum(s != 0 for s in states) >= 2
+    assert launches() >= before + len(states)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_finditer_index_runs_on_the_card(cuda, monkeypatch, fused):
+    """make_index on the card (the reverse static tier, or under
+    SREGEX_FUSED=1 a dictionary's fused reverse core): its map equals a
+    native walk of the reversed corpus, and finditer and sub equal the
+    host walker's."""
+    import sregex_tpu_torch
+    from sregex_tpu_torch.ops import core as tcore
+    rng = np.random.default_rng(10)
+    if fused:
+        monkeypatch.setenv("SREGEX_FUSED", "1")
+        words = sorted({bytes(rng.integers(97, 123, 8).astype(np.uint8))
+                        for _ in range(20)})
+        pattern = words
+    else:
+        pattern = rb"status=([0-9]+) user=([a-z_]+)"
+    text = rng.choice(np.frombuffer(b"abcdefghijklmnop =", np.uint8),
+                      20 << 20)
+    data = bytearray(text.tobytes())
+    plant = b" %s " % (words[7] if fused else b"status=404 user=bob")
+    for pos in range(1000, len(data) - 64, 1 << 18):
+        data[pos:pos + len(plant)] = plant
+    data = bytes(data)
+    sc = sregex_tpu_torch.compile_pattern(pattern)
+    host = sregex_tpu_torch.compile_pattern(pattern, device=None)
+    assert host._tdfa_walker() is not None
+    g0 = tcore.gated_scan_launches
+    idx = sc.make_index(data)
+    assert idx.route == "device flip"
+    if fused:
+        assert idx.tables is sc._rev_fusedct
+        assert tcore.gated_scan_launches > g0
+    rev = sc._rev_dfa()
+    rdata, s = data[::-1], 0
+    for c in range(idx.C):
+        assert idx.entries[c] == s
+        k, s = rev.count(rdata[c * idx.CHUNK:(c + 1) * idx.CHUNK], s)
+        assert idx.counts[c] == k
+    want = host.findall(data)
+    assert len(want) >= 70
+    assert sc.findall(data, index=idx) == want
+    assert sc.sub(b"<$0>", data, index=idx) == host.sub(b"<$0>", data)

@@ -48,6 +48,50 @@ def test_import_and_cpu_count_load_no_jax():
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
 
 
+def test_streaming_surface_and_cli_load_no_jax():
+    """cli, serialize, thompson_vm and native_tdfa, through the CLI run
+    as a module and the finditer / StreamScanner / StreamEditor surface,
+    without jax."""
+    code = (
+        "import io, sys\n"
+        "import sregex_tpu_torch as t\n"
+        "from sregex_tpu_torch import cli, native_tdfa, serialize, "
+        "thompson_vm\n"
+        "sc = t.compile_pattern(b'(a+)(b)', device='cpu')\n"
+        "sc.DEVICE_THRESHOLD = 1\n"
+        "d = b'xaab' * 3000\n"
+        "assert len(sc.findall(d, index=sc.make_index(d))) == 3000\n"
+        "assert sc.sub(b'$2', d)[0] == b'xb' * 3000\n"
+        "assert isinstance(sc._tdfa_walker(), native_tdfa.NativeTdfa)\n"
+        "ed = sc.editor(b'$2')\n"
+        "assert ed.feed(d[:5]) + ed.feed(d[5:], eof=True) == b'xb' * 3000\n"
+        "ss = t.StreamScanner(sc.dfa, device='cpu')\n"
+        "assert ss.exec(d, eof=True) == (t.SRE_OK, 4)\n"
+        "buf = io.BytesIO(); serialize.save_compiled(buf, sc); buf.seek(0)\n"
+        "assert serialize.load_compiled(buf, device=None).count(d) == 3000\n"
+        "assert thompson_vm.ThompsonCtx(sc.program).exec(d, True) == "
+        "t.SRE_OK\n"
+        "assert 'jax' not in sys.modules\n"
+        "ref = [m for m in sys.modules\n"
+        "       if m == 'sregex_tpu' or m.startswith('sregex_tpu.')]\n"
+        "assert not ref, ref\n"
+        "print('ok')\n")
+    env = dict(os.environ)
+    env.pop("JAX_PLATFORMS", None)
+    env["OMP_NUM_THREADS"] = "1"
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+    r = subprocess.run(
+        [sys.executable, "-c", "import runpy, sys; "
+         "sys.argv = ['sregex-cli', '--stdin', 'a|(ab)']; "
+         "runpy.run_module('sregex_tpu_torch.cli', run_name='__main__')"],
+        cwd=ROOT, env=env, input=b"3\nbah", capture_output=True,
+        timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert b"\npike match 0 (1, 2) (-1, -1)\n" in r.stdout
+
+
 SOURCES = sorted(
     str(p.relative_to(ROOT))
     for p in [*(ROOT / "sregex_tpu_torch").rglob("*.py"),

@@ -165,9 +165,10 @@ def test_past_the_wide_cap_raises_on_a_device_path():
 
 
 def test_no_find_on_the_port():
-    """find is ported (tests/test_torch_find.py); finditer, find_many,
-    sub and split are not yet."""
+    """find is ported (tests/test_torch_find.py), and finditer, findall,
+    sub, split and editor (tests/test_torch_finditer.py); find_many is
+    not yet.  The name predates both."""
     sc = sregex_tpu_torch.compile_pattern("abc", device="cpu")
-    assert callable(sc.find)
-    for name in ("finditer", "find_many", "sub", "split"):
-        assert not hasattr(sc, name), name
+    for name in ("find", "finditer", "findall", "sub", "split", "editor"):
+        assert callable(getattr(sc, name)), name
+    assert not hasattr(sc, "find_many")
