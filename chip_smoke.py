@@ -58,6 +58,19 @@ engine:
     pass over the corpus flipped on the card), finditer and sub through
     it, every ovector and the sub output held against the generator's,
     and the host TDFA walker over the same corpus;
+  - pipeline: Scanner.count_stream, scan_stream and match_stream (the
+    pipelined stream: each 64 MB segment staged in pinned memory and
+    uploaded on a copy stream while the segment before it is scanned)
+    over the stream phase's three corpora and 256 MB of the dictionary's
+    (the static big tier), given as memoryviews over the host buffer as
+    a file reader yields them, each count held against Scanner.count of
+    the whole corpus and the native count, each scan against the plant;
+    multi's count again from one refilled buffer at in_flight=3; then
+    finditer_stream and sub_stream over the finditer corpus, held
+    against finditer and sub through the index; and one segment's
+    stages (the copy into pinned memory, the upload, beside it a
+    pageable upload, the prep, the kernel, the fold) timed one after
+    another, whose slower copy rate bounds the stream;
   - index_routes: make_index over 256 MB on the reverse legacy core,
     the lazy reverse core and, under SREGEX_FUSED=1, the dictionary's
     fused reverse core, each map held against a native walk of the
@@ -102,6 +115,7 @@ from sregex_tpu_torch.ops import affine as aff
 from sregex_tpu_torch.ops import big
 from sregex_tpu_torch.ops import core as tcore
 from sregex_tpu_torch.ops import phi as tphi
+from sregex_tpu_torch.ops import pipeline as tpipe
 from sregex_tpu_torch.ops import spec_scan as scan
 from sregex_tpu_torch.ops import tdfa_scan as tdfa
 from sregex_tpu_torch.ops.layout import GROUPS
@@ -141,6 +155,8 @@ PHI_BIG_PLAIN_MB = 64         # the big-phi plain version's slice
 # tier accepts it
 NO_TIER_PATTERN = "a.{10}b|cdefghijklmnopqrstuvwxyz"
 STREAM_CORE_MB = 256          # the legacy-core stream's corpus
+PIPE_SEGMENT = 64 << 20       # the pipeline phase's segments
+PIPE_DICT_MB = 256            # the dictionary's stream in that phase
 INDEX_ROUTE_MB = 256          # each other index route's corpus
 # past the eager DFA budget: no dense machine, the lazy one serves
 LAZY_PATTERN = rb"a.{13}b"
@@ -976,8 +992,10 @@ def stream_phase(dev, mb, mmb, pats, tmb=STREAM_CORE_MB):
     """StreamScanner on the headline pattern over ``mb`` MB and the 90
     keywords over ``mmb`` MB, in 64 MB chunks with one match planted
     across the last chunk boundary, and on the no-static-tier machine
-    (the legacy core) over ``tmb`` MB.  Returns the phase's fields."""
-    out = {}
+    (the legacy core) over ``tmb`` MB.  Returns the phase's fields and,
+    by name, each stream's (Scanner, corpus, planted end, regex id) for
+    the pipeline phase."""
+    out, cases = {}, {}
     # headline: abccc never matches; "aaabbccb" ends 5 bytes past the
     # last chunk boundary
     chunk = stream_chunk(mb)
@@ -989,7 +1007,7 @@ def stream_phase(dev, mb, mmb, pats, tmb=STREAM_CORE_MB):
     hsc = sregex_tpu_torch.compile_pattern(HEADLINE, device=dev)
     out["headline"] = stream_case(dev, "headline", hsc, corpus, p + 9, 0,
                                   chunk)
-    del corpus, hsc
+    cases["headline"] = (hsc, corpus, p + 9, 0)
     # 90 keywords: the filler alone (no keyword), one keyword planted
     chunk = stream_chunk(mmb)
     msc = sregex_tpu_torch.compile_pattern(pats, device=dev)
@@ -1000,7 +1018,7 @@ def stream_phase(dev, mb, mmb, pats, tmb=STREAM_CORE_MB):
     corpus = bytes(corpus)
     out["multi"] = stream_case(dev, "multi", msc, corpus, p + 1 + len(w),
                                pats.index(w), chunk)
-    del corpus, msc
+    cases["multi"] = (msc, corpus, p + 1 + len(w), pats.index(w))
     # no static tier: the legacy core from the carried states; the filler
     # has no "b", so only the planted literal matches
     tchunk = stream_chunk(tmb)
@@ -1015,11 +1033,12 @@ def stream_phase(dev, mb, mmb, pats, tmb=STREAM_CORE_MB):
     corpus = bytes(corpus)
     out["no_static_tier"] = stream_case(dev, "no_static_tier", nsc, corpus,
                                         p + len(lit), 0, tchunk)
+    cases["no_static_tier"] = (nsc, corpus, p + len(lit), 0)
     if out["no_static_tier"]["tier"] != "CoreTables" \
             or not out["no_static_tier"]["entries_in_core"]:
         raise AssertionError("the no-static-tier stream did not take the "
                              "legacy core: %r" % out["no_static_tier"])
-    return out
+    return out, cases
 
 
 def user_name(i):
@@ -1059,7 +1078,8 @@ def finditer_phase(dev, mb):
     through make_index: every ovector and the sub output held against
     the generator's, and the host walker timed over the same corpus as
     the second oracle.  Returns (the phase's fields, the index, the
-    corpus)."""
+    corpus, the Scanner, its finditer events and its sub output over the
+    index)."""
     fsc = sregex_tpu_torch.compile_pattern(FIND_PATTERN, device=dev)
     t0 = time.perf_counter()
     corpus = log_corpus(mb)
@@ -1099,7 +1119,6 @@ def finditer_phase(dev, mb):
     if k != len(oracle) or out != redacted(data, oracle):
         raise AssertionError("sub: %d replacements, output %s"
                              % (k, "differs" if k == len(oracle) else "-"))
-    del out
     n = len(data)
     return dict(mb=mb, bytes=n, pattern=FIND_PATTERN.decode(),
                 matches=len(got), index_gbps=n / index_s / 1e9,
@@ -1113,7 +1132,199 @@ def finditer_phase(dev, mb):
                 K=idx.CHUNK, chunks=idx.C, repaired=idx.repaired,
                 fired_chunks=len(idx._fires), index_launches=index_launches,
                 finditer_s=finditer_s, sub_s=sub_s, walker_s=walker_s,
-                corpus_s=gen_s), idx, data
+                corpus_s=gen_s), idx, data, fsc, got, out
+
+
+def segments(corpus, size=PIPE_SEGMENT):
+    """``corpus`` as a file reader yields it: memoryviews of ``size``
+    bytes over the host buffer."""
+    view = memoryview(corpus)
+    return [view[lo:lo + size] for lo in range(0, len(corpus), size)]
+
+
+def refilled(corpus, size=PIPE_SEGMENT):
+    """``corpus`` through one bytearray refilled between yields (the
+    readinto pattern)."""
+    view, buf = memoryview(corpus), memoryview(bytearray(size))
+    for lo in range(0, len(corpus), size):
+        m = min(size, len(corpus) - lo)
+        buf[:m] = view[lo:lo + m]    # one memcpy, as readinto makes
+        yield buf[:m]
+
+
+def pipe_oracles(cases, dsc, words):
+    """Each pipeline case's oracles, computed before the phase's
+    launches are counted: Scanner.count of the whole corpus (a launch on
+    the one-shot path, not the pipeline's) and the native count, held
+    equal.  Adds to ``cases`` the dictionary's stream (PIPE_DICT_MB of
+    its corpus, its native first match planted by the filler).  Returns
+    (count, Scanner.count seconds, native seconds) by case."""
+    dcorpus = multi_corpus(PIPE_DICT_MB, words)
+    dfirst, dst = dsc._native.scan_first(dcorpus, 0)
+    cases["dictionary"] = (dsc, dcorpus, dfirst,
+                           dsc._id_at(dst, dcorpus[dfirst]))
+    out = {}
+    for name, (sc, corpus, _end, _rid) in cases.items():
+        t0 = time.perf_counter()
+        whole = sc.count(corpus)
+        whole_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = native_count(sc, corpus)
+        native_s = time.perf_counter() - t0
+        if whole != want:
+            raise AssertionError("%s: Scanner.count %d != native %d"
+                                 % (name, whole, want))
+        out[name] = (want, whole_s, native_s)
+    return out
+
+
+def pipe_case(name, sc, corpus, plant_end, rid, tier, oracle, repairs):
+    """count_stream (twice: the first call's time apart), scan_stream and
+    match_stream of ``sc`` over ``corpus`` in PIPE_SEGMENT memoryviews,
+    each held against its oracle: the count against ``oracle`` (the
+    pipe_oracles triple), the scan against the planted end and regex id.
+    ``tier``: the tables that must serve the streams; ``repairs``: the
+    most chunks the count may repair natively (a wrong warmup tail or
+    entry across segments would repair chunk 0 of every segment).
+    Returns the case's fields."""
+    n = len(corpus)
+    want, whole_s, native_s = oracle
+    # the first call pins the staging ring's host memory; torch's host
+    # allocator keeps it for the calls after it
+    counts, secs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        counts.append(sc.count_stream(segments(corpus)))
+        secs.append(time.perf_counter() - t0)
+        st = sc.stats()
+        if counts[-1] != want or st.tier != tier or st.nbytes != n \
+                or st.repaired > repairs:
+            raise AssertionError("%s: count_stream %d (native %d) on %r"
+                                 % (name, counts[-1], want, st))
+    got, (first_count_s, count_s) = counts[-1], secs
+    t0 = time.perf_counter()
+    first = sc.scan_stream(segments(corpus))
+    scan_s = time.perf_counter() - t0
+    sst = sc.stats()
+    if first != (rid, plant_end) or sst.tier != tier:
+        raise AssertionError("%s: scan_stream %r != planted %r on %r"
+                             % (name, first, (rid, plant_end), sst))
+    if not sc.match_stream(segments(corpus)):
+        raise AssertionError("%s: match_stream missed the plant" % name)
+    segs = -(-n // PIPE_SEGMENT)
+    return dict(bytes=n, segments=segs, tier=tier, count=got, end=first[1],
+                pipe_count_gbps=n / count_s / 1e9,
+                pipe_scan_gbps=n / scan_s / 1e9, count_s=count_s,
+                first_count_s=first_count_s, scan_s=scan_s,
+                wall_ms_per_segment=count_s / segs * 1e3,
+                repaired=st.repaired, chunks=st.chunks,
+                scanner_count_s=whole_s, native_s=native_s)
+
+
+# the tier that serves each pipeline case, and the most chunks its count
+# may repair natively: the static tiers validate every chunk (64 MB
+# segments are whole chunks), the legacy core re-scans the two chunks
+# around the last segment boundary, where the planted literal leaves
+# the core
+PIPE_TIERS = {"headline": ("SpecTables", 0),   # two-code: pair_scan.cu
+              "multi": ("SpecTablesWide", 0),
+              "no_static_tier": ("CoreTables", 2),
+              "dictionary": ("SpecTablesBig", 0)}
+
+
+def pipeline_phase(cases, oracles, fsc, fdata, fevents, fsub):
+    """The pipelined stream surface: count_stream / scan_stream /
+    match_stream over the stream phase's corpora (the headline's and
+    multi's, the no-static-tier machine's on the legacy core) and the
+    dictionary's (the static big tier), in PIPE_SEGMENT memoryviews,
+    against ``oracles`` (pipe_oracles); multi's count again from a
+    producer that refills one buffer, at in_flight=3; finditer_stream
+    and sub_stream of the log-field extractor over the finditer phase's
+    corpus, held against its finditer events and sub output.  Returns
+    the phase's fields."""
+    out = {}
+    for name, (sc, corpus, end, rid) in cases.items():
+        tier, repairs = PIPE_TIERS[name]
+        out[name] = pipe_case(name, sc, corpus, end, rid, tier,
+                              oracles[name], repairs)
+    msc, mcorpus = cases["multi"][:2]
+    t0 = time.perf_counter()
+    got = msc.count_stream(refilled(mcorpus), in_flight=3)
+    reuse_s = time.perf_counter() - t0
+    if got != out["multi"]["count"] or msc.stats().repaired:
+        raise AssertionError("multi from a refilled buffer: %d != %d on %r"
+                             % (got, out["multi"]["count"], msc.stats()))
+    out["multi"]["refilled_in_flight_3_gbps"] = len(mcorpus) / reuse_s / 1e9
+    n = len(fdata)
+    t0 = time.perf_counter()
+    events = list(fsc.finditer_stream(segments(fdata)))
+    fi_s = time.perf_counter() - t0
+    if events != fevents:
+        raise AssertionError("finditer_stream: %d events, finditer %d"
+                             % (len(events), len(fevents)))
+    t0 = time.perf_counter()
+    edited = b"".join(fsc.sub_stream(b"status=$1 user=<redacted>",
+                                     segments(fdata)))
+    sub_s = time.perf_counter() - t0
+    if edited != fsub:
+        raise AssertionError("sub_stream differs from sub")
+    out["finditer"] = dict(bytes=n, events=len(events),
+                           finditer_stream_gbps=n / fi_s / 1e9,
+                           sub_stream_gbps=n / sub_s / 1e9,
+                           finditer_stream_s=fi_s, sub_stream_s=sub_s)
+    return out
+
+
+def stage_times(dev, sc, corpus, reps=3):
+    """One PIPE_SEGMENT segment's stages timed one after another through
+    the pipeline's own steps, each ended by a synchronise (best of
+    ``reps``, a new first segment each time): the host copy into the
+    slot's pinned memory (stage), its upload on the copy stream (and,
+    beside it, the upload of the same bytes from pageable memory), the
+    device prep, the kernel with the planes' packing, and the planes'
+    readback with the segment's fold.  Returns the rates and the stages'
+    seconds."""
+    raw = np.frombuffer(memoryview(corpus)[:PIPE_SEGMENT], np.uint8).copy()
+    n = len(raw)
+    src = torch.from_numpy(raw)
+    want, _ = sc._native.count(raw.tobytes(), 0)
+    times = {k: [] for k in ("stage", "pageable", "upload", "prep",
+                             "kernel", "fold")}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        times[key].append(time.perf_counter() - t0)
+        return r
+
+    for _ in range(reps):
+        pipe = tpipe._Pipeline(sc._spec, tpipe.DEFAULT_K, 0, True, 1)
+        slot = pipe.free.popleft()
+        slot.reserve(n)
+        host = timed("stage", lambda: pipe.stage(slot, [raw], n))
+        timed("pageable", lambda: src.to(dev))
+        data = timed("upload", lambda: pipe.upload(slot, n))
+        prepared = timed("prep", lambda: pipe.prep(slot, data))
+        packed, C, K = timed("kernel", lambda: pipe.launch(prepared, n))
+
+        def fold():
+            pipe.enqueue(slot, packed, host, C, K, n)
+            pipe.drain()
+
+        timed("fold", fold)
+        if (pipe.total, pipe.base) != (want, n):
+            raise AssertionError("the timed segment's count %d != native "
+                                 "%d" % (pipe.total, want))
+    best = {k: min(v) for k, v in times.items()}
+    return dict(segment_bytes=n, stage_gbps=n / best["stage"] / 1e9,
+                h2d_pinned_gbps=n / best["upload"] / 1e9,
+                h2d_pageable_gbps=n / best["pageable"] / 1e9,
+                serial_ms={k: v * 1e3 for k, v in best.items()
+                           if k != "pageable"},
+                serial_sum_ms=sum(v for k, v in best.items()
+                                  if k != "pageable") * 1e3)
 
 
 def brute_map(native, rdata, K):
@@ -2073,7 +2284,7 @@ def main():
     # --- 12. the stream, finditer and the index's routes ----------------
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    sline = stream_phase(dev, mb, mmb, pats)
+    sline, scases = stream_phase(dev, mb, mmb, pats)
     tally(launches)
     if min(v["launches"] for v in sline.values()) <= 0:
         raise AssertionError("a stream ran no kernel: %r" % sline)
@@ -2081,15 +2292,38 @@ def main():
         peak_mem_bytes=torch.cuda.max_memory_allocated())
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    fline, idx, data = finditer_phase(dev, fmb)
+    fline, idx, data, fsc, fevents, fsub = finditer_phase(dev, fmb)
     tally(launches)
     if sum(fline["index_launches"].values()) <= 0:
         raise AssertionError("the index ran no kernel: %r" % fline)
     # timed after the tally: these launches are not the path's
     fline["count_launch_ms"], fline["count_launch_shape"] = \
         index_kernel_ms(idx, data, dev)
-    del idx, data
+    del idx
     say("finditer", **fline, peak_mem_bytes=torch.cuda.max_memory_allocated())
+    # the pipelined stream surface over the stream and finditer corpora;
+    # the oracles' launches (Scanner.count) come before the reset
+    poracles = pipe_oracles(scases, bsc, words)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    pline = pipeline_phase(scases, poracles, fsc, data, fevents, fsub)
+    pipe_s = time.perf_counter() - t0
+    plaunch = launch_counts()
+    tally(launches)
+    if min(plaunch["narrow"], plaunch["wide"], plaunch["big"]) <= 0:
+        raise AssertionError("the pipeline's kernels: %r" % plaunch)
+    # timed after the tally: these launches are not the path's
+    stages = stage_times(dev, scases["headline"][0], scases["headline"][1])
+    bound_gbps = min(stages["stage_gbps"], stages["h2d_pinned_gbps"])
+    for name in ("headline", "multi", "no_static_tier", "dictionary"):
+        pline[name]["bound_s"] = pline[name]["bytes"] / bound_gbps / 1e9
+    say("pipeline", segment_mb=PIPE_SEGMENT >> 20, **pline, **stages,
+        bound_gbps=bound_gbps,
+        stream_scan_gbps={k: sline[k]["stream_scan_gbps"] for k in sline},
+        launches=plaunch, seconds=pipe_s,
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+    del scases, data, fsc, fevents, fsub
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     rline = index_routes_phase(dev, words, pats)

@@ -244,12 +244,13 @@ class SpecTablesAffine(_Tables):
         a = np.asarray(arr) // self.ncls
         return a if self.perm is None else self.inv[a]
 
-    def _scan(self, data, state0, j0, C, bad_tail, W, COUNT=False):
+    def _scan(self, data, state0, j0, C, bad_tail, W, COUNT=False,
+              summary=True):
         planes = affine_scan(data, state0, j0, self.fused, self.bp, W=W,
                              CPW=self.cpw, BITS=self.bits, NCLS=self.ncls,
                              OFF=self.off, COUNT=COUNT, relaid=self.relaid)
         return _summary_and_planes(planes, state0, C, bad_tail, COUNT,
-                                   wide=True)
+                                   wide=True, summary=summary)
 
 
 def relay_table(fused, bp, ncls, bits, off, device):

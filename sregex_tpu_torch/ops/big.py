@@ -79,11 +79,11 @@ class SpecTablesBig(_Tables):
                                self.device)
 
     def _scan(self, data, state0, j0, C, bad_tail, W, COUNT=False,
-              esc=None):
+              esc=None, summary=True):
         planes = big_scan(data, state0, j0, self.fused, W=W, CPW=self.cpw,
                           BITS=self.bits, COUNT=COUNT, t16=self.t16)
         return _summary_and_planes(planes, state0, C, bad_tail, COUNT,
-                                   wide=True, ESC=esc)
+                                   wide=True, ESC=esc, summary=summary)
 
 
 def big16_table(fused, ncls, nstates, bits, device):

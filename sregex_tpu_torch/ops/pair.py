@@ -57,9 +57,9 @@ class SpecTablesPair(_Tables):
         self._finish(dfa, fused, device)
 
     def _scan(self, data, state0, j0, C, bad_tail, W, COUNT=False,
-              esc=None):
+              esc=None, summary=True):
         # W and j0 arrive in bytes; the kernel steps in pairs
         return _spec_scan(data, state0, j0 // 2, self.fused, C, bad_tail,
                           W=W // 2, CPW=self.cpw, BITS=self.bits,
                           COUNT=COUNT, wide=self.wide, ESC=esc,
-                          pair=self.pair)
+                          pair=self.pair, summary=summary)

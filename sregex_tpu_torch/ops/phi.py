@@ -236,8 +236,7 @@ def _class_chunks(tables, data, C, K, Cp):
     (on the device already: then nothing crosses)."""
     if not isinstance(data, torch.Tensor):
         data = _host_u8(data)
-    return _class_ids(tables, data, C * K, Cp * K,
-                      np.zeros(0, dtype=np.uint8))
+    return _class_ids(tables, data, C * K, Cp * K, 0, None)
 
 
 def _phi_prepare(tables, data, chunk_len):

@@ -112,15 +112,31 @@ def _prepare(tables, data_np, chunk_len, b_multiple=1,
     return torch.from_numpy(packed).to(tables.device), C, K, J, B
 
 
-def _class_ids(tables, data, n, length, tail_cls):
-    """uint8 [W + length] on tables.device: chunk 0's warmup classes,
+def _class_lut(tables):
+    """tables.class_map as a uint8 tensor on tables.device, uploaded at
+    the first call and kept on the tables object (a copy made by
+    with_warmup shares it: the class map is the same)."""
+    lut = getattr(tables, "_class_lut_dev", None)
+    if lut is None:
+        lut = torch.from_numpy(tables.class_map.astype(np.uint8)) \
+            .to(tables.device)
+        tables._class_lut_dev = lut
+    return lut
+
+
+def _class_ids(tables, data, n, length, W, tail_cls):
+    """uint8 [W + length] on tables.device: chunk 0's W warmup classes,
     the class ids of the n corpus bytes, then class 0 (the padding,
-    whatever class byte 0 maps to)."""
+    whatever class byte 0 maps to).  tail_cls: None (class 0, as the
+    padding), a uint8 numpy [W], or a uint8 tensor [W] already on
+    tables.device (the pipeline stages it through pinned memory, so
+    nothing here waits on the device)."""
     device = tables.device
-    W = len(tail_cls)
     out = torch.zeros(W + length, dtype=torch.uint8, device=device)
-    out[:W] = torch.from_numpy(tail_cls).to(device)
-    lut = torch.from_numpy(tables.class_map.astype(np.uint8)).to(device)
+    if tail_cls is not None:
+        out[:W] = (tail_cls if isinstance(tail_cls, torch.Tensor)
+                   else torch.from_numpy(tail_cls).to(device))
+    lut = _class_lut(tables)
     for lo in range(0, n, _MAP_SLICE):
         hi = min(n, lo + _MAP_SLICE)
         # a uint8 index would be a boolean mask: index with int32
@@ -165,7 +181,10 @@ def prepare_on_device(tables, data, chunk_len, b_multiple=1,
     """Device-side analogue of _prepare: the same (packed, C, K, J, B)
     tuple and bit-identical words, but only raw bytes cross to the
     device.  ``data`` may be bytes, a uint8 ndarray or a uint8 tensor
-    (already on the device: then nothing crosses)."""
+    (already on the device: then nothing crosses).  ``prev_tail_cls``
+    as for _prepare, or, below 2 GiB of padded corpus (where the device
+    prep runs; the pipeline cuts its segments to stay there), a uint8
+    tensor on the device."""
     n = len(data)
     K = effective_chunk(tables, chunk_len)
     W = tables.warmup
@@ -184,9 +203,10 @@ def prepare_on_device(tables, data, chunk_len, b_multiple=1,
                         prev_tail_cls=prev_tail_cls)
     if not isinstance(data, torch.Tensor):
         data = _host_u8(data)
-    tail = (np.zeros(W, dtype=np.uint8) if prev_tail_cls is None
-            else np.asarray(prev_tail_cls, dtype=np.uint8))
-    cls = _class_ids(tables, data, n, L, tail)
+    tail = prev_tail_cls
+    if tail is not None and not isinstance(tail, torch.Tensor):
+        tail = np.asarray(tail, dtype=np.uint8)
+    cls = _class_ids(tables, data, n, L, W, tail)
     if getattr(tables, "bpu", 1) == 2:
         dev = _device_pack_pair(cls, tables.byte_ncls, K=K, J=W + K,
                                 B=B, CPW=tables.cpw, BITS=tables.bits)

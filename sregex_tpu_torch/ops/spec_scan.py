@@ -102,11 +102,11 @@ class _Tables:
                                    self.bits, self.device)
 
     def _scan(self, data, state0, j0, C, bad_tail, W, COUNT=False,
-              esc=None):
+              esc=None, summary=True):
         return _spec_scan(data, state0, j0, self.fused, C, bad_tail,
                           W=W, CPW=self.cpw, BITS=self.bits,
                           COUNT=COUNT, wide=self.wide, ESC=esc,
-                          pair=self.pair)
+                          pair=self.pair, summary=summary)
 
 
 class SpecTables(_Tables):
@@ -441,32 +441,43 @@ def _summarize(phi, fm, swarm, state0, C, bad_tail, COUNT, ESC=None):
         all_ok.to(torch.int32).reshape(1), fb.reshape(1), at(entries, fb),
         at(phi_f, fb), at(swarm_f, fb), at(fm_f, fb), phi_f[C - 1:C],
         prefix_cnt.reshape(1), last_fire.reshape(1), at(entries, lf)])
+    return summary, _pack_planes(phi, fm, swarm, False)
+
+
+def _pack_planes(phi, fm, swarm, wide):
+    """The repair planes as the host reads them back: for wide tables
+    (states past 255) int32 [3, ...] (phi, fm, swarm), else uint8
+    [4, ...] (phi, fm & 0xFF, swarm, fm >> 8 & 0xFF)."""
+    if wide:
+        return torch.stack([phi, fm, swarm])
     u8 = torch.uint8
-    packed = torch.stack([phi.to(u8), (fm & 0xFF).to(u8), swarm.to(u8),
-                          ((fm >> 8) & 0xFF).to(u8)])
-    return summary, packed
+    return torch.stack([phi.to(u8), (fm & 0xFF).to(u8), swarm.to(u8),
+                        ((fm >> 8) & 0xFF).to(u8)])
 
 
 def _spec_scan(data, state0, j0, table, C, bad_tail, *, W, CPW, BITS,
-               COUNT=False, wide=False, ESC=None, pair=None):
+               COUNT=False, wide=False, ESC=None, pair=None, summary=True):
     """Kernel + summary.  Returns (summary int32 [10], packed)."""
     planes = spec_scan(data, state0, j0, table, W=W, CPW=CPW, BITS=BITS,
                        COUNT=COUNT, pair=pair)
     return _summary_and_planes(planes, state0, C, bad_tail, COUNT, wide,
-                               ESC)
+                               ESC, summary)
 
 
 def _summary_and_planes(planes, state0, C, bad_tail, COUNT, wide,
-                        ESC=None):
-    """A scan kernel's (phi, fm, swarm) -> (summary int32 [10], packed):
-    packed is the narrow uint8 [4, ...] planes, or for wide tables
-    (states past 255) the int32 [3, ...] planes (phi, fm, swarm)."""
+                        ESC=None, summary=True):
+    """A scan kernel's (phi, fm, swarm) -> (summary int32 [10], packed),
+    packed as _pack_planes packs it.  summary=False skips the summary
+    (None in its place): the pipeline folds every segment from its
+    planes."""
     phi, fm, swarm = planes
-    summary, packed = _summarize(phi, fm, swarm, state0, C, bad_tail,
-                                 COUNT, ESC)
+    if not summary:
+        return None, _pack_planes(phi, fm, swarm, wide)
+    summ, packed = _summarize(phi, fm, swarm, state0, C, bad_tail, COUNT,
+                              ESC)
     if wide:
-        packed = torch.stack([phi, fm, swarm])
-    return summary, packed
+        packed = _pack_planes(phi, fm, swarm, True)
+    return summ, packed
 
 
 def _unpack(outs, C):
@@ -490,8 +501,10 @@ def _entry_planes(entry_premult, w, B, device):
     s0 = torch.zeros((B, GROUPS, 8, TILE // 8), dtype=torch.int32,
                      device=device)
     j0 = torch.zeros_like(s0)
-    s0[0, 0, 0, 0] = entry_premult
-    j0[0, 0, 0, 0] = w
+    # fill_ takes the value as a kernel argument: no host copy, so the
+    # pipeline's dispatch never waits on the device here
+    s0.view(-1)[:1].fill_(int(entry_premult))
+    j0.view(-1)[:1].fill_(int(w))
     return s0, j0
 
 

@@ -58,10 +58,16 @@ fused tier), between whose match starts the Pike ctx teleports.
 StreamEditor is the chunk-in / chunk-out substitution filter over the
 Pike engine; StreamScanner the resumable first-match scanner over one
 stream, whose large chunks go to the static tier (or the legacy core)
-from the stream's carried state.
+from the stream's carried state.  count_stream / scan_stream /
+match_stream take a segmented stream through the pipeline
+(ops/pipeline.py: each segment staged in pinned memory and uploaded
+while the one before it is scanned), and finditer_stream / sub_stream
+through the events engine (events.py: a forward fire map, the Pike
+engine only around its fires).
 """
 
 import functools
+import itertools
 import os
 import time
 
@@ -72,6 +78,7 @@ from .compiler import compile_regex
 from .consts import SRE_AGAIN, SRE_DECLINED, SRE_ERROR, SRE_OK, sre_isword
 from .dfa import DfaTooLarge, LazyDfa, build_dfa
 from .diag import ScanStats
+from .events import StreamEvents
 from .native import NativeDfa
 from .native_pike import NativePikeCtx, NativeProgram
 from .native_tdfa import NativeTdfa
@@ -85,6 +92,7 @@ from .ops.layout import DEFAULT_K, effective_chunk
 from .ops.pair import SpecTablesPair
 from .ops.phi import (PhiTables, PhiTablesBig, phi_count_bytes,
                       phi_prepare, phi_scan_bytes)
+from .ops.pipeline import IN_FLIGHT, pipelined_count, pipelined_scan
 from .ops.prep import (DEVICE_PREP_MIN, _host_u8, prepare_auto,
                        prepare_on_device)
 from .ops.spec_scan import (SpecTables, SpecTablesWide, _host_bytes,
@@ -862,6 +870,123 @@ class Scanner:
         return c
 
     # -----------------------------------------------------------------
+    # segmented streams: the pipelined count / scan
+    # -----------------------------------------------------------------
+
+    def _stream_tables(self, segments):
+        """Tables and segment iterator for the pipelined stream calls.
+        Peeks segments until DEVICE_THRESHOLD bytes have come (below it
+        the host carry loop wins, as for a whole corpus).  Where the
+        card's band gives the machine the legacy core (_core_tables: no
+        static tier, the dense or the lazy machine) and the first
+        segment holds CORE_SAMPLE bytes, the core is sampled from it and
+        rides the pipeline; else the static tier.  Never the fused or
+        the phi tier.  A producer may refill its read buffer once the
+        next segment is asked for, so each peeked segment but the last
+        is snapshotted.  Returns (tables or None, iterator, whether the
+        tables are the legacy core)."""
+        it = iter(segments)
+        peeked = []
+        total = 0
+        for seg in it:
+            total += memoryview(seg).nbytes
+            if total >= self.DEVICE_THRESHOLD:
+                peeked.append(seg)
+                break
+            peeked.append(bytes(seg))   # the next pull may refill it
+        rest = itertools.chain(peeked, it)
+        if total < self.DEVICE_THRESHOLD:
+            return None, rest, False
+        if memoryview(peeked[0]).nbytes >= self.CORE_SAMPLE:
+            ct = self._core_tables(peeked[0])
+            if ct is not None:
+                return ct, rest, True
+        return self._spec, rest, False
+
+    def _stream_noted(self, api, tables, is_core, t0):
+        """After a pipelined scan: the serving tier's post-scan note and
+        the stats."""
+        if is_core:
+            self._core_note(tables)
+        else:
+            self._spec_note()
+        self._note_stats(api, tables, tables.last_fold_bytes, t0)
+
+    def count_stream(self, segments, chunk_len=DEFAULT_K,
+                     in_flight=IN_FLIGHT):
+        """Pipelined streaming count: ``count(b"".join(segments))``
+        without ever joining them.  On the device path each segment's
+        upload overlaps the previous segment's kernel (ops/pipeline.py);
+        cross-segment exactness rides the speculation-validation chain
+        of in-segment chunks.  Segments are bytes-like (a producer may
+        refill its buffer once the next segment is asked for).  With
+        device=None, or below DEVICE_THRESHOLD, the native (or lazy)
+        engine carries the state from segment to segment."""
+        t0 = time.perf_counter()
+        if self.device is not None:
+            tables, segments, is_core = self._stream_tables(segments)
+            if tables is not None:
+                state, c = pipelined_count(tables, segments,
+                                           chunk_len=chunk_len,
+                                           in_flight=in_flight)
+                self._stream_noted("count_stream", tables, is_core, t0)
+                return c + (1 if self._eof_id(state) >= 0 else 0)
+        eng = self._host()
+        state, c, nbytes = 0, 0, 0
+        for seg in segments:
+            if len(seg) == 0:
+                continue
+            k, state = eng.count(seg, state)
+            c += k
+            nbytes += len(seg)
+        self._note_stats("count_stream", None, nbytes, t0)
+        return c + (1 if self._eof_id(state) >= 0 else 0)
+
+    def match_stream(self, segments, chunk_len=DEFAULT_K,
+                     in_flight=IN_FLIGHT):
+        """True iff the joined stream holds a match
+        (``match(b"".join(segments))``); stops dispatching shortly after
+        the first match of an unbounded stream."""
+        return self.scan_stream(segments, chunk_len=chunk_len,
+                                in_flight=in_flight) is not None
+
+    def scan_stream(self, segments, chunk_len=DEFAULT_K,
+                    in_flight=IN_FLIGHT):
+        """Pipelined streaming earliest-match scan:
+        ``scan(b"".join(segments))``, (regex_id, end_boundary) or None;
+        an end equal to the stream's length is a match ending at EOF.
+        Segments dispatched past the match are dropped unfolded, so an
+        unbounded stream ends shortly after its first match."""
+        t0 = time.perf_counter()
+        if self.device is not None:
+            tables, segments, is_core = self._stream_tables(segments)
+            if tables is not None:
+                state, first, byte, nbytes = pipelined_scan(
+                    tables, segments, chunk_len=chunk_len,
+                    in_flight=in_flight)
+                # a scan-only workload on a drifted corpus must still
+                # reach the re-core / warmup logic
+                self._stream_noted("scan_stream", tables, is_core, t0)
+                if first >= 0:
+                    return self._id_at(state, byte), first
+                rid = self._eof_id(state)
+                return (rid, nbytes) if rid >= 0 else None
+        eng = self._host()
+        state, base = 0, 0
+        for seg in segments:
+            if len(seg) == 0:
+                continue
+            f, st = eng.scan_first(seg, state)
+            if f >= 0:
+                self._note_stats("scan_stream", None, base + f, t0)
+                return self._id_at(st, seg[f]), base + f
+            state = st
+            base += len(seg)
+        self._note_stats("scan_stream", None, base, t0)
+        rid = self._eof_id(state)
+        return (rid, base) if rid >= 0 else None
+
+    # -----------------------------------------------------------------
     # finditer and the substitution loop
     # -----------------------------------------------------------------
 
@@ -1044,6 +1169,146 @@ class Scanner:
             done += 1
         out.append(data[pos:])
         return out
+
+    def _events_engine(self, chunk_len, map_window):
+        """The fire-map events engine over this pattern set (None without
+        a dense DFA: the Pike re-arm loop serves)."""
+        if self.dfa is None:
+            return None
+        return StreamEvents(self, chunk_len=chunk_len,
+                            map_window=map_window)
+
+    def finditer_stream(self, segments, chunk_len=DEFAULT_K,
+                        map_window=8 << 20):
+        """finditer over a segmented (or unbounded) stream: yields
+        (regex_id, ovector) with ABSOLUTE stream offsets, identical to
+        finditer(b"".join(segments)) for every segmentation, in
+        O(map_window + teleport lookback) memory.
+
+        The events engine (events.py): a forward per-chunk fire map
+        (spec_chunk_map on the static tier for windows of at least
+        DEVICE_THRESHOLD bytes, the native engine below) locates every
+        chunk that can hold a match end; the Pike VM runs only around
+        those fires and teleports across fire-free gaps: bounded
+        patterns seed max_match_len before a fire, unbounded ones at
+        sterile chunk boundaries (dfa.sterile).  Patterns past the eager
+        DFA budget stream through the Pike re-arm loop directly."""
+        eng = self._events_engine(chunk_len, map_window)
+        if eng is None:
+            yield from self._finditer_stream_pike(segments)
+            return
+        for seg in segments:
+            yield from eng.push(seg)
+        yield from eng.push(b"", eof=True)
+
+    def _finditer_stream_pike(self, segments):
+        """The lazy machine's stream: the bare streaming re-arm loop
+        (the Pike ctx as a stream consumer).  Memory is the
+        pending-match bound, as StreamEditor's."""
+        ctx = self._pike_ctx()
+        held = bytearray()
+        hb = 0          # absolute offset of held[0] == ctx feed point
+        total = 0
+        segs = iter(segments)
+        eof = False
+        piece = b""
+        while True:
+            if not piece and not eof:
+                nxt = next(segs, None)
+                if nxt is None:
+                    eof = True
+                    piece = b""
+                else:
+                    piece = bytes(nxt)
+                    held += piece
+                    total += len(piece)
+            rc, pending = ctx.exec(piece, eof, want_pending=True)
+            piece = b""
+            if rc >= 0:
+                ov = [int(v) for v in ctx.ovector]
+                yield rc, ov
+                if ov[1] >= total and ov[0] == ov[1] and eof:
+                    return
+                del held[:ov[1] - hb]
+                hb = ov[1]
+                piece = bytes(held)
+                if not piece and eof:
+                    # drain the re-armed engine at eof
+                    continue
+            elif rc == SRE_AGAIN:
+                if eof:
+                    return
+                # release bytes no future re-feed can need: re-feeds
+                # start at match ends >= any pending/candidate start
+                bound = total
+                t0 = int(ctx.ovector[0])
+                if t0 >= 0:
+                    bound = min(bound, t0)
+                if pending is not None:
+                    bound = min(bound, int(pending[0]))
+                if bound > hb:
+                    del held[:bound - hb]
+                    hb = bound
+            else:
+                return
+
+    def sub_stream(self, repl, segments, count=0, chunk_len=DEFAULT_K,
+                   map_window=8 << 20):
+        """Streaming replace over a segmented stream: yields output
+        pieces whose concatenation equals sub(repl, b"".join(segments))
+        for every segmentation (the reference's replace filter over the
+        fire-map events engine of finditer_stream).  repl: a template or
+        a callable (regex_id, ovector, window) -> bytes, ovector relative
+        to ``window``, as StreamEditor's; count limits replacements (0 =
+        all), after which the stream passes through verbatim."""
+        eng = self._events_engine(chunk_len, map_window)
+        if eng is None:
+            ed = StreamEditor(self, repl, count=count)
+            for seg in segments:
+                out = ed.feed(seg)
+                if out:
+                    yield out
+            if not ed.finished:
+                out = ed.feed(b"", eof=True)
+                if out:
+                    yield out
+            return
+        emitted = 0
+        done = 0
+        passthrough = False
+        eng.keep_from = 0
+
+        def render(events, eof):
+            nonlocal emitted, done, passthrough
+            out = []
+            for rid, ov in events:
+                if passthrough:
+                    continue
+                out.append(eng.read(emitted, ov[0]))
+                window = eng.read(ov[0], ov[1])
+                rel = [v - ov[0] if v >= 0 else -1 for v in ov]
+                if callable(repl):
+                    out.append(repl(rid, rel, window))
+                else:
+                    out.append(_expand_template(repl, rel, window))
+                emitted = ov[1]
+                done += 1
+                if count and done >= count:
+                    passthrough = True
+            bound = eng.total if (eof or passthrough) else eng.final
+            if bound > emitted:
+                out.append(eng.read(emitted, bound))
+                emitted = bound
+            eng.keep_from = emitted
+            return b"".join(out)
+
+        for seg in segments:
+            out = render(eng.push(seg), False)
+            if out:
+                yield out
+        out = render(eng.push(b"", eof=True), True)
+        if out:
+            yield out
 
     @staticmethod
     def _pike_stream(ctx, data, pos, first=1 << 16):

@@ -936,3 +936,145 @@ def test_finditer_index_runs_on_the_card(cuda, monkeypatch, fused):
     assert len(want) >= 70
     assert sc.findall(data, index=idx) == want
     assert sc.sub(b"<$0>", data, index=idx) == host.sub(b"<$0>", data)
+
+
+def _reusing(data, size):
+    """A producer that refills one bytearray between yields."""
+    buf = bytearray(size)
+    for i in range(0, len(data), size):
+        chunk = data[i:i + size]
+        buf[:len(chunk)] = chunk
+        yield memoryview(buf)[:len(chunk)]
+
+
+@pytest.mark.parametrize("in_flight", [1, 2, 3])
+def test_pipeline_on_the_card_equals_the_cpu_path(cuda, in_flight):
+    """pipelined_count / pipelined_scan staged through pinned slots on a
+    copy stream equal the same pipeline on CPU tensors (the plain
+    versions) and the native engine, from a producer that refills one
+    buffer, on the narrow (two-code) and the wide tier."""
+    import sregex_tpu_torch
+    from sregex_tpu_torch.ops import pipeline as tpipe
+    rng = np.random.default_rng(in_flight)
+    # alphabets in which only the planted literal matches
+    for pattern, alpha, lit in (
+            ("(?:a|b)aa(?:aa|bb)cc(?:a|b)", b"bcx", b"xaaabbccb"),
+            ([b"cat", b"dog(s)?", b"bird", b"fishes"], b"caobirfsh x",
+             b" fishes ")):
+        host = sregex_tpu_torch.compile_pattern(pattern, device=None)
+        card = sregex_tpu_torch.Scanner(host.program, dfa=host.dfa)
+        cpu = sregex_tpu_torch.Scanner(host.program, device="cpu",
+                                       dfa=host.dfa)
+        text = rng.choice(np.frombuffer(alpha, np.uint8), 5 << 20)
+        data = bytearray(text.tobytes())
+        data[(3 << 20) + 1:(3 << 20) + 1 + len(lit)] = lit
+        data = bytes(data)
+        size = (1 << 20) + 333
+        before = _spec_launches()
+        got = tpipe.pipelined_count(card._spec, _reusing(data, size),
+                                    in_flight=in_flight)
+        assert _spec_launches() > before
+        assert got == tpipe.pipelined_count(cpu._spec, _reusing(data, size),
+                                             in_flight=in_flight)
+        k, st = host._native.count(data, 0)
+        assert got == (st, k)
+        got = tpipe.pipelined_scan(card._spec, _reusing(data, size),
+                                   in_flight=in_flight)
+        assert got == tpipe.pipelined_scan(cpu._spec, _reusing(data, size),
+                                           in_flight=in_flight)
+        f, st = host._native.scan_first(data, 0)
+        assert got[:2] == (st, f) and f > 3 << 20
+
+
+def test_pipeline_ring_grows_and_stages_in_pinned_memory(cuda):
+    """Every slot's host buffers are pinned and its raw bytes are on the
+    card; a segment larger than the ring's buffers grows them, and the
+    count stays exact."""
+    import sregex_tpu_torch
+    from sregex_tpu_torch.ops import pipeline as tpipe
+    sc = sregex_tpu_torch.compile_pattern("(?:a|b)aa(?:aa|bb)cc(?:a|b)")
+    rng = np.random.default_rng(5)
+    data = bytearray(rng.choice(np.frombuffer(b"abcx", np.uint8),
+                                9 << 20).tobytes())
+    for pos in range(1000, len(data) - 16, 1 << 19):
+        data[pos:pos + 9] = b"xaaabbccb"
+    data = bytes(data)
+    pipe = tpipe._Pipeline(sc._spec, 2048, 0, True, 2)
+    slots, sizes = [], []
+    for lo, hi in ((0, 1 << 20), (1 << 20, 2 << 20), (2 << 20, 3 << 20),
+                   (3 << 20, 9 << 20)):
+        pipe.dispatch([np.frombuffer(data[lo:hi], np.uint8)])
+        slot = pipe.pending[-1][0]
+        assert slot.host.is_pinned() and slot.tail.is_pinned()
+        assert slot.planes.is_pinned()
+        assert slot.dev.device.type == "cuda"
+        slots.append(slot)
+        sizes.append(slot.host.numel())
+    # the fourth segment reuses the first slot, freed by its fold
+    assert slots[3] is slots[0]
+    assert sizes[3] >= 6 << 20 > sizes[0] == 1 << 20
+    pipe.drain()
+    k, _ = sc._native.count(data, 0)
+    assert pipe.total == k and not pipe.pending
+    assert len(pipe.free) == 3
+
+
+def test_stream_methods_run_on_the_card(cuda):
+    """count_stream / scan_stream / finditer_stream / sub_stream on the
+    card equal the whole-corpus calls."""
+    import sregex_tpu_torch
+    pattern = rb"status=([0-9]+) user=([a-z_]+)"
+    rng = np.random.default_rng(12)
+    text = rng.choice(np.frombuffer(b"abcdefghijklmnop =", np.uint8),
+                      20 << 20)
+    data = bytearray(text.tobytes())
+    plant = b" status=404 user=bob "
+    for pos in range(1000, len(data) - 64, 1 << 18):
+        data[pos:pos + len(plant)] = plant
+    data = bytes(data)
+    sc = sregex_tpu_torch.compile_pattern(pattern)
+    segs = [data[i:i + (3 << 20) + 1] for i in range(0, len(data),
+                                                     (3 << 20) + 1)]
+    before = _spec_launches()
+    assert sc.count_stream(segs) == sc.count(data)
+    assert sc.scan_stream(iter(segs)) == sc.scan(data)
+    assert sc.match_stream(segs)
+    assert _spec_launches() > before
+    want = sc.findall(data)
+    assert len(want) >= 70
+    assert list(sc.finditer_stream(segs)) == want
+    assert b"".join(sc.sub_stream(b"<$1>", segs)) == \
+        sc.sub(b"<$1>", data)[0]
+
+
+def test_pipeline_cuts_large_segments_on_the_card(cuda, monkeypatch):
+    """A segment past MAX_SEGMENT goes in whole-chunk pieces, one launch
+    each, all through the device prep (the host prep, which would read
+    the segment back from the card, is never reached), and counts and
+    repairs as the uncut segment does."""
+    import sregex_tpu_torch
+    from sregex_tpu_torch.ops import pipeline as tpipe
+    from sregex_tpu_torch.ops import prep as tprep
+    from sregex_tpu_torch.ops.layout import effective_chunk
+    sc = sregex_tpu_torch.compile_pattern("(?:a|b)aa(?:aa|bb)cc(?:a|b)")
+    rng = np.random.default_rng(8)
+    data = bytearray(rng.choice(np.frombuffer(b"abcx", np.uint8),
+                                (7 << 20) + 5).tobytes())
+    for pos in range(1000, len(data) - 16, 1 << 19):
+        data[pos:pos + 9] = b"xaaabbccb"
+    data = bytes(data)
+    want = tpipe.pipelined_count(sc._spec, [data])
+    whole = sc._spec.last_repair
+
+    def no_host_prep(*args, **kw):
+        raise AssertionError("the pipeline reached the host prep")
+
+    monkeypatch.setattr(tprep, "_prepare", no_host_prep)
+    monkeypatch.setattr(tpipe, "MAX_SEGMENT", 1 << 20)
+    before = _spec_launches()
+    assert tpipe.pipelined_count(sc._spec, [data]) == want
+    K = effective_chunk(sc._spec, tpipe.DEFAULT_K)
+    assert _spec_launches() - before == -(-len(data) // ((1 << 20) // K * K))
+    assert sc._spec.last_repair == whole
+    k, st = sc._native.count(data, 0)
+    assert want == (st, k)

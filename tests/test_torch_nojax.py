@@ -51,7 +51,8 @@ def test_import_and_cpu_count_load_no_jax():
 def test_streaming_surface_and_cli_load_no_jax():
     """cli, serialize, thompson_vm and native_tdfa, through the CLI run
     as a module and the finditer / StreamScanner / StreamEditor surface,
-    without jax."""
+    and the pipelined count_stream and the events engine's
+    finditer_stream, without jax."""
     code = (
         "import io, sys\n"
         "import sregex_tpu_torch as t\n"
@@ -65,6 +66,11 @@ def test_streaming_surface_and_cli_load_no_jax():
         "assert isinstance(sc._tdfa_walker(), native_tdfa.NativeTdfa)\n"
         "ed = sc.editor(b'$2')\n"
         "assert ed.feed(d[:5]) + ed.feed(d[5:], eof=True) == b'xb' * 3000\n"
+        "segs = [d[i:i + 5001] for i in range(0, len(d), 5001)]\n"
+        "assert sc.count_stream(segs) == 3000\n"
+        "assert sc.stats().api == 'count_stream'\n"
+        "assert sc.stats().tier != 'native', sc.stats()\n"
+        "assert list(sc.finditer_stream(segs)) == sc.findall(d)\n"
         "ss = t.StreamScanner(sc.dfa, device='cpu')\n"
         "assert ss.exec(d, eof=True) == (t.SRE_OK, 4)\n"
         "buf = io.BytesIO(); serialize.save_compiled(buf, sc); buf.seek(0)\n"
