@@ -71,6 +71,21 @@ engine:
     stages (the copy into pinned memory, the upload, beside it a
     pageable upload, the prep, the kernel, the fold) timed one after
     another, whose slower copy rate bounds the stream;
+  - batch: the batched document surface (Scanner.count_many, scan_many,
+    match_many, find_many, finditer_many, sub_many) over document sets
+    cut from the corpora above (lengths log-uniform in 512 B - 4 MB,
+    each below DEVICE_THRESHOLD, with empty and sub-chunk documents):
+    the 90 keywords over BATCH_MB (the wide tier; a keyword across every
+    tenth document boundary, which must not count), the headline over
+    BATCH_MB (the two-code kernel), the dictionary over BATCH_DICT_MB on
+    the static big tier, on the fused batch (SREGEX_FUSED=1, phase 2 on
+    the gated kernel) and past its device cap (the per-document overflow
+    fold), the no-static-tier machine on the legacy core, and the
+    log-field extractor over BATCH_FIND_MB of the finditer corpus (the
+    tagged kernel; BATCH_SUB_MB for finditer_many and sub_many), every
+    document's result against its native count or scan, the generator's
+    ovector, or the host Scanner's findall and sub; each call timed
+    first, then over a prepare_many handle, beside the per-document loop;
   - index_routes: make_index over 256 MB on the reverse legacy core,
     the lazy reverse core and, under SREGEX_FUSED=1, the dictionary's
     fused reverse core, each map held against a native walk of the
@@ -91,7 +106,8 @@ SREGEX_BENCH_MB (the headline and its stream), SREGEX_BENCH_MULTI_MB (the
 (the big and core phases), SREGEX_BENCH_FIND_MB (find and finditer),
 SREGEX_BENCH_PHI_MB and SREGEX_BENCH_PHI_BIG_MB size the corpora (default
 1920 each); the legacy-core stream and each index route run over
-STREAM_CORE_MB and INDEX_ROUTE_MB.
+STREAM_CORE_MB and INDEX_ROUTE_MB, the batch phase's sets over the
+BATCH_*_MB constants.
 """
 
 import contextlib
@@ -112,6 +128,7 @@ from sregex_tpu_torch.dfa import LazyDfa
 from sregex_tpu_torch.native_pike import NativePikeCtx
 from sregex_tpu_torch.ops import _build
 from sregex_tpu_torch.ops import affine as aff
+from sregex_tpu_torch.ops import batch as tbatch
 from sregex_tpu_torch.ops import big
 from sregex_tpu_torch.ops import core as tcore
 from sregex_tpu_torch.ops import phi as tphi
@@ -158,6 +175,15 @@ STREAM_CORE_MB = 256          # the legacy-core stream's corpus
 PIPE_SEGMENT = 64 << 20       # the pipeline phase's segments
 PIPE_DICT_MB = 256            # the dictionary's stream in that phase
 INDEX_ROUTE_MB = 256          # each other index route's corpus
+BATCH_MB = 1024               # the batch phase's keyword and headline sets
+BATCH_DICT_MB = 256           # its dictionary and no-static-tier sets
+BATCH_FIND_MB = 256           # its find_many set, cut from finditer's corpus
+BATCH_SUB_MB = 64             # its finditer_many / sub_many set
+# the dictionary set's words: one every 64 KB, as in the big phase, and
+# past each document's first 64 KB (where the batch's core sample never
+# reads) one every 12 KB more, whose chunks escape the core: more than
+# one phase-2 block row of escapes, so a cap of one row overflows
+BATCH_DICT_STEP = 12 << 10
 # past the eager DFA budget: no dense machine, the lazy one serves
 LAZY_PATTERN = rb"a.{13}b"
 REPS = 5
@@ -1460,6 +1486,304 @@ def index_routes_phase(dev, words, pats, mb=INDEX_ROUTE_MB):
     return out
 
 
+def doc_lengths(mb, seed, K=2048):
+    """The lengths of the documents cut from ``mb`` MB: a seeded
+    log-uniform draw in 512 B - 4 MB (every one below
+    Scanner.DEVICE_THRESHOLD), 8 empty documents and 8 shorter than one
+    chunk at seeded places, the last document cut so they sum to mb
+    MB."""
+    rng = np.random.default_rng(seed)
+    total = mb << 20
+    draw = np.exp(rng.uniform(np.log(512), np.log(4 << 20),
+                              total // 4096 + 64)).astype(np.int64)
+    cum = np.cumsum(draw)
+    lens = list(draw[:int(np.searchsorted(cum, total)) + 1])
+    for n in [0] * 8 + list(rng.integers(1, K, 8)):
+        lens.insert(int(rng.integers(0, len(lens))), int(n))
+    lens[-1] = 0
+    lens[-1] = total - sum(lens)
+    if lens[-1] <= 0:
+        raise AssertionError("document lengths overran %d MB" % mb)
+    return lens
+
+
+def cut_docs(corpus, lens):
+    ends = np.cumsum(lens)
+    return [bytes(corpus[e - n:e]) for e, n in zip(ends, lens)]
+
+
+def straddle(corpus, lens, word, every=10):
+    """``corpus`` (a bytearray, edited) with ``word`` planted across every
+    ``every``-th document boundary, its first half ending one document
+    and its rest starting the next, where both hold 32 bytes.  Returns
+    the boundaries' indices (the document before each)."""
+    ends = np.cumsum(lens)
+    h = len(word) // 2
+    out = []
+    for j in range(every - 1, len(lens) - 1, every):
+        if lens[j] >= 32 and lens[j + 1] >= 32:
+            b = int(ends[j])
+            corpus[b - h:b - h + len(word)] = word
+            out.append(j)
+    return out
+
+
+def plant_past_heads(corpus, lens, words, step, head=64 << 10):
+    """Plant a dictionary word every ``step`` bytes of each document past
+    its first ``head`` bytes (edits the bytearray ``corpus``)."""
+    rng = random.Random(99)
+    ends = np.cumsum(lens)
+    for e, n in zip(ends, lens):
+        for pos in range(int(e) - n + head, int(e) - 64, step):
+            w = words[rng.randrange(len(words))]
+            corpus[pos:pos + len(w) + 2] = b" " + w + b" "
+
+
+def batch_check(name, got, want):
+    if got != want:
+        i = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+        raise AssertionError("%s: document %d: %r != %r (%d documents)"
+                             % (name, i, got[i], want[i], len(want)))
+
+
+def batch_case(name, sc, api, docs, want, loop, tier):
+    """Scanner.<api> over ``docs``: the first call (the pack and upload
+    included), then REPS calls over a prepare_many handle, each held
+    against ``want``; then one timed per-document loop (``loop``, what a
+    user pays without batching) held against it too.  ``tier``: the
+    tables that must serve.  Returns the case's fields and the launches
+    of its batch calls."""
+    fn = getattr(sc, api)
+    n = sum(map(len, docs))
+    base = launch_counts()
+    t0 = time.perf_counter()
+    batch_check(name, fn(docs), want)
+    first_s = time.perf_counter() - t0
+    st = sc.stats()
+    if (st.api, st.tier) != (api, tier):
+        raise AssertionError("%s: %s served by %r" % (name, api, st))
+    t0 = time.perf_counter()
+    handle = sc.prepare_many(docs, for_find=api == "find_many")
+    prepare_s = time.perf_counter() - t0
+    if handle is None:
+        raise AssertionError("%s: no prepare_many handle" % name)
+    reps = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        got = fn(docs, prepared=handle)
+        reps.append(time.perf_counter() - t0)
+        batch_check(name, got, want)
+    timing = dict(tbatch.last_timing)
+    launched = launch_counts(base)
+    t0 = time.perf_counter()
+    batch_check(name + " loop", [loop(d) for d in docs], want)
+    loop_s = time.perf_counter() - t0
+    key = api.replace("_many", "")
+    return dict(
+        docs=len(docs), bytes=n, tier=st.tier, chunks=st.chunks,
+        repaired=st.repaired, **{key + "_many_gbps": n / min(reps) / 1e9,
+                                 key + "_many_first_gbps": n / first_s / 1e9},
+        loop_gbps=n / loop_s / 1e9, rep_ms=min(reps) * 1e3,
+        dispatch_ms=timing["dispatch_s"] * 1e3,
+        readback_ms=timing["readback_s"] * 1e3,
+        fold_ms=timing["fold_s"] * 1e3, prepare_s=prepare_s,
+        first_s=first_s, loop_s=loop_s,
+        launches={k: v for k, v in launched.items() if v}), launched
+
+
+def find_oracle_docs(docs, lens, matches, hsc):
+    """Each document's first find() result from the generator's matches
+    (ovectors over the corpus the documents were cut from): the first
+    match wholly inside the document, moved to its offsets, else None;
+    a document that a match only partly overlaps (a cut plant) is found
+    by the host Scanner ``hsc``."""
+    ends = np.cumsum(lens)
+    spans = [(ov[0], ov[1], ov) for _, ov in matches]
+    out, k, host = [], 0, 0
+    for d, e, n in zip(docs, ends, lens):
+        s = e - n
+        while k < len(spans) and spans[k][1] <= s:
+            k += 1
+        hit = None
+        if k < len(spans) and spans[k][0] < e:
+            lo, hi, ov = spans[k]
+            if lo >= s and hi <= e:
+                hit = (0, [v - s for v in ov])
+            else:
+                hit = hsc.find(d)
+                host += 1
+        out.append(hit)
+    return out, host
+
+
+def batch_phase(dev, pats, words, bsc, fsc, fdata, fmatches):
+    """The batched document surface (Scanner.*_many, ops/batch.py) on
+    document sets cut from the script's corpora (doc_lengths: ~2,300
+    documents a GB, each below DEVICE_THRESHOLD), every document's
+    result held against its oracle:
+
+      - the 90 keywords over BATCH_MB (the wide tier): count_many,
+        scan_many and match_many against each document's native count
+        and scan, a keyword planted across every tenth document boundary
+        (it must not count: each document starts at the seed);
+      - the headline over BATCH_MB: scan_many (the two-code kernel);
+      - the dictionary over BATCH_DICT_MB (more words past each
+        document's head, BATCH_DICT_STEP):
+        count_many on the static big tier, then by a Scanner with
+        SREGEX_FUSED=1 on the fused batch (phase 2 on the gated kernel),
+        then with tcore.FUSED_CAP at one block row, under the set's
+        escapes, so the per-document overflow fold serves;
+      - the no-static-tier machine over the dictionary's documents:
+        count_many on the legacy core;
+      - the log-field extractor over BATCH_FIND_MB of the finditer
+        corpus: find_many (the tagged kernel), each ovector against the
+        generator's; finditer_many and sub_many over BATCH_SUB_MB of
+        those documents against each document's host findall and sub.
+
+    Returns the phase's fields and the launches by kernel."""
+    out = {}
+    launched = dict.fromkeys(launch_counts(), 0)
+
+    def run(name, *args, **kw):
+        fields, lc = batch_case(name, *args, **kw)
+        for k, v in lc.items():
+            launched[k] += v
+        return fields
+
+    # the 90 keywords, with keywords across document boundaries
+    t0 = time.perf_counter()
+    lens = doc_lengths(BATCH_MB, 5)
+    corpus = bytearray(multi_corpus(BATCH_MB, pats))
+    bounds = straddle(corpus, lens, b"throughput")
+    docs = cut_docs(corpus, lens)
+    del corpus
+    msc = sregex_tpu_torch.compile_pattern(pats, device=dev)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts = [native_count(msc, d) for d in docs]
+    scans = []
+    for d in docs:
+        f, st = msc._native.scan_first(d, 0)
+        scans.append((msc._id_at(st, d[f]), f) if f >= 0 else None)
+    native_s = time.perf_counter() - t0
+    # each planted boundary's two halves match only together
+    for j in bounds:
+        tail, head = docs[j][-24:], docs[j + 1][:24]
+        if native_count(msc, tail + head) <= (native_count(msc, tail)
+                                              + native_count(msc, head)):
+            raise AssertionError("no match across boundary %d" % j)
+    out["multi"] = run("multi count_many", msc, "count_many", docs, counts,
+                       msc.count, "SpecTablesWide")
+    out["multi"]["scan"] = run("multi scan_many", msc, "scan_many", docs,
+                               scans, msc.scan, "SpecTablesWide")
+    batch_check("multi match_many", msc.match_many(docs),
+                [s is not None for s in scans])
+    out["multi"].update(straddles=len(bounds), corpus_s=gen_s,
+                        native_s=native_s,
+                        matching_docs=sum(c > 0 for c in counts))
+    del docs, msc
+
+    # the headline: scan_many on the two-code kernel
+    lens = doc_lengths(BATCH_MB, 6)
+    corpus = bytearray(headline_corpus(BATCH_MB))
+    for pos in range(1 << 20, len(corpus) - 16, 8 << 20):
+        corpus[pos:pos + 9] = b"xaaabbccb"
+    docs = cut_docs(corpus, lens)
+    del corpus
+    hsc = sregex_tpu_torch.compile_pattern(HEADLINE, device=dev)
+    scans = []
+    for d in docs:
+        f, st = hsc._native.scan_first(d, 0)
+        scans.append((hsc._id_at(st, d[f]), f) if f >= 0 else None)
+    out["headline"] = run("headline scan_many", hsc, "scan_many", docs,
+                          scans, hsc.scan, "SpecTables")
+    out["headline"]["matching_docs"] = sum(s is not None for s in scans)
+    del docs, hsc
+
+    # the dictionary: static big, fused, the fused overflow; the legacy
+    # core over the same documents
+    lens = doc_lengths(BATCH_DICT_MB, 7)
+    corpus = bytearray(multi_corpus(BATCH_DICT_MB, words))
+    plant_past_heads(corpus, lens, words, BATCH_DICT_STEP)
+    docs = cut_docs(corpus, lens)
+    del corpus
+    counts = [native_count(bsc, d) for d in docs]
+    out["dictionary"] = run("dictionary count_many", bsc, "count_many",
+                            docs, counts, bsc.count, "SpecTablesBig")
+    with env("SREGEX_FUSED", "1"):
+        t0 = time.perf_counter()
+        usc = sregex_tpu_torch.Scanner(bsc.program, device=dev, dfa=bsc.dfa)
+        build_s = time.perf_counter() - t0
+        out["fused"] = run("fused count_many", usc, "count_many", docs,
+                           counts, usc.count, "CoreTables")
+        fct = usc._fusedct
+        n_esc, over = fct.last_escapes
+        ocap = GROUPS * 1024
+        if over or n_esc <= ocap:
+            raise AssertionError("fused batch escapes %d (overflow %r): "
+                                 "not past one block row" % (n_esc, over))
+        out["fused"].update(n_esc=n_esc, H=fct.H, scanner_build_s=build_s,
+                            inner=type(fct.inner).__name__)
+        cap0, tcore.FUSED_CAP = tcore.FUSED_CAP, ocap
+        try:
+            base = launch_counts()
+            t0 = time.perf_counter()
+            batch_check("fused overflow", usc.count_many(docs), counts)
+            o_s = time.perf_counter() - t0
+            for k, v in launch_counts(base).items():
+                launched[k] += v
+        finally:
+            tcore.FUSED_CAP = cap0
+        ost = usc.stats()
+        if not fct.last_escapes[1] or ost.tier != "CoreTables":
+            raise AssertionError("the capped fused batch did not overflow: "
+                                 "%r %r" % (fct.last_escapes, ost))
+        out["fused"]["overflow_arm"] = dict(
+            cap=ocap, count_many_gbps=sum(map(len, docs)) / o_s / 1e9,
+            repaired=ost.repaired, chunks=ost.chunks,
+            fold_ms=tbatch.last_timing["fold_s"] * 1e3)
+    del usc, fct
+    nsc = sregex_tpu_torch.compile_pattern(NO_TIER_PATTERN, device=dev)
+    ncounts = [native_count(nsc, d) for d in docs]
+    out["no_static_tier"] = run("no-static-tier count_many", nsc,
+                                "count_many", docs, ncounts, nsc.count,
+                                "CoreTables")
+    del docs, nsc
+
+    # the log-field extractor: find_many, then finditer_many and sub_many
+    lens = doc_lengths(BATCH_FIND_MB, 8)
+    docs = cut_docs(fdata, lens)
+    hsc = sregex_tpu_torch.compile_pattern(FIND_PATTERN, device=None)
+    want, cut = find_oracle_docs(docs, lens, fmatches, hsc)
+    if sum(w is not None for w in want) < BATCH_FIND_MB // 2:
+        raise AssertionError("find_many: %d documents hold a match"
+                             % sum(w is not None for w in want))
+    out["find"] = run("find_many", fsc, "find_many", docs, want, fsc.find,
+                      "TdfaSpecTables")
+    out["find"].update(matching_docs=sum(w is not None for w in want),
+                       cut_plants=cut)
+    sub_n = int(np.searchsorted(np.cumsum(lens), BATCH_SUB_MB << 20))
+    sdocs = docs[:sub_n]
+    base = launch_counts()
+    t0 = time.perf_counter()
+    found = fsc.finditer_many(sdocs)
+    fi_s = time.perf_counter() - t0
+    batch_check("finditer_many", found, [hsc.findall(d) for d in sdocs])
+    repl = b"status=$1 user=<redacted>"
+    t0 = time.perf_counter()
+    subbed = fsc.sub_many(repl, sdocs)
+    sub_s = time.perf_counter() - t0
+    batch_check("sub_many", subbed, [hsc.sub(repl, d) for d in sdocs])
+    for k, v in launch_counts(base).items():
+        launched[k] += v
+    sn = sum(map(len, sdocs))
+    out["find"].update(sub_docs=len(sdocs), sub_bytes=sn,
+                       matches=sum(map(len, found)),
+                       finditer_many_gbps=sn / fi_s / 1e9,
+                       sub_many_gbps=sn / sub_s / 1e9)
+    return out, launched
+
+
 def main():
     t_start = time.perf_counter()
     # --- 1. environment -------------------------------------------------
@@ -2322,6 +2646,19 @@ def main():
         bound_gbps=bound_gbps,
         stream_scan_gbps={k: sline[k]["stream_scan_gbps"] for k in sline},
         launches=plaunch, seconds=pipe_s,
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+    # the batched document surface, over sets cut from the corpora
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    bline, blaunch = batch_phase(dev, pats, words, bsc, fsc, data, fevents)
+    tally(launches)
+    if min(blaunch[k] for k in ("narrow", "wide", "big", "gated",
+                                "tdfa")) <= 0:
+        raise AssertionError("the batch phase's kernels: %r" % blaunch)
+    say("batch", mb=BATCH_MB, dict_mb=BATCH_DICT_MB, find_mb=BATCH_FIND_MB,
+        sub_mb=BATCH_SUB_MB, **bline, launches=blaunch,
+        seconds=time.perf_counter() - t0,
         peak_mem_bytes=torch.cuda.max_memory_allocated())
     del scases, data, fsc, fevents, fsub
     torch.cuda.reset_peak_memory_stats()

@@ -13,7 +13,9 @@ native_pike.py with csrc/sre_pike.cpp) that resolve captures.
 finditer / sub / split add the native TDFA walker (native_tdfa.py with
 csrc/sre_tdfa.cpp) and the reverse chunk-map index (make_index);
 StreamScanner, StreamEditor, the Thompson VM, serialize and the CLI
-(python -m sregex_tpu_torch.cli) complete the public surface.
+(python -m sregex_tpu_torch.cli) complete the public surface, with the
+Scanner's segmented-stream calls (*_stream) and its calls over a set of
+documents in one kernel pass (*_many, ops/batch.py).
 """
 
 from .ast_nodes import dump_str as dump_ast

@@ -1,8 +1,8 @@
 """Adaptive hot-core tiers: big automata at the small tables' speed.
 
 Counterpart of the JAX package's ops/pallas_core.py (the single-device
-count and first-match parts, over the dense or the lazy machine; its
-batch, mesh, chunk-map and last-match parts are not ported yet).
+count, first-match, chunk-map and batch parts, over the dense or the
+lazy machine; its mesh and last-match parts are not ported yet).
 
 A DFA scan over real data visits a small, skewed subset of its states.
 The core tiers sample the corpus, count the visits per state with the
@@ -621,26 +621,37 @@ def _gather_windows(full_data, sel_g, CAP):
         .view(B2, Jw, G, 8, TILE // 8)
 
 
-def _phase2(full_data, sel_g, full_tables, n_esc):
+def _phase2(full_data, sel_g, full_tables, n_esc, p2_j0=None):
     """The full machine's COUNT scan of the escaped chunks, read in place
     through the slot map sel_g; block rows past the escapes hold only
-    padding and are gated off."""
+    padding and are gated off.  Every slot speculates from the seed at
+    j0 = 0, or, with ``p2_j0`` (int32 [Cp], one j0 a chunk), at its
+    chunk's j0, gathered through the slot map."""
     kind, W, CPW, BITS, _ = _tier_statics(full_tables)
     z = torch.zeros((sel_g.numel() // (GROUPS * TILE), GROUPS, 8, 128),
                     dtype=torch.int32, device=full_data.device)
-    return gated_scan(full_data, z, z, full_tables.fused, n_esc.reshape(1),
+    j0 = z if p2_j0 is None else \
+        p2_j0.index_select(0, sel_g).view(z.shape)
+    return gated_scan(full_data, z, j0, full_tables.fused, n_esc.reshape(1),
                       W=W, CPW=CPW, BITS=BITS, big=kind == "big",
                       t16=full_tables.t16 if kind == "big" else None,
                       sel=sel_g)
 
 
 def _fused_phases(core_data, full_data, s01, j01, inner, full_tables,
-                  hot2full, live, *, CAP, ESC):
+                  hot2full, live, *, CAP, ESC, p2_j0=None):
     """Phase 1 on the core, escape compaction, the gated phase 2 over the
     escaped chunks of the full machine's prep and the merge, all on the
     device.  Returns (phi_m, fm_m, swarm_m) merged in FULL premultiplied
     space (ESC -> -1 where not redone), the phase-1 core planes (phi1,
-    fm1, swarm1), n_esc (0-d int32) and the overflow flag (0-d bool)."""
+    fm1, swarm1), n_esc (0-d int32) and the overflow flag (0-d bool).
+
+    ``p2_j0``: None, or int32 [Cp] on the device, the phase-2 j0 of each
+    chunk.  The batched documents (ops/batch.py) freeze the redo's
+    warmup (j0 = W2) at every document-start chunk, whose warmup window
+    holds the previous document's tail.  A padding slot of the slot map
+    reads chunk 0 and so takes p2_j0[0]; its result goes to the dump
+    slot Cp."""
     Cp = core_data.shape[0] * GROUPS * TILE
     _, W1, CPW1, BITS1, _ = _tier_statics(inner)
     phi1, fm1, swarm1 = (p.reshape(Cp) for p in spec_scan(
@@ -648,7 +659,7 @@ def _fused_phases(core_data, full_data, s01, j01, inner, full_tables,
         COUNT=True))
     n_esc, overflow, sel_g, sel_s = _compact_escapes(phi1, live, ESC, CAP)
     phi2, fm2, swarm2 = (p.reshape(CAP) for p in _phase2(
-        full_data, sel_g, full_tables, n_esc))
+        full_data, sel_g, full_tables, n_esc, p2_j0))
 
     # core premult -> full premult, ESC -> -1 (the index clamped into
     # hot2full's H+1 entries first)
@@ -719,6 +730,59 @@ def _fused_count(core_data, full_data, inner, full_tables, hot2full, C,
     merged = torch.stack([phi_m, fm_m, swarm_m])
     packed_core = torch.stack([phi1, fm1, swarm1])
     return summary, merged, packed_core
+
+
+def _fused_batch(core_data, full_data, s01, j01, p2_j0, inner, full_tables,
+                 hot2full, C, doc_id, fullv, doc_startv, last_full, *, CAP,
+                 ESC, NDOCS):
+    """The fused two-phase dispatch over a batched document stream
+    (ops/batch.py): both phases, the escape redo and the per-document
+    validation fold, all on the device, so the common case reads back
+    2 + 2*NDOCS ints and no planes.
+
+    A full chunk is ok when its speculated entry equals its
+    predecessor's exit (a document start's entry is the seed); all_ok
+    says every full chunk of every document validated and nothing
+    overflowed; a document's count is the segment sum of its ok chunks'
+    counts over doc_id, and its final state the merged exit of its last
+    full chunk.  Ragged tails finish on the host from those exits.
+
+    s01/j01: phase-1 entry planes (the seed everywhere, j0 = W1 at
+    document starts); p2_j0 int32 [Cp], the phase-2 j0 of each chunk
+    (W2 at document starts); doc_id int32 [Cp] (padding NDOCS, dropped),
+    fullv / doc_startv int32 [Cp] 0/1, last_full int32 [NDOCS] (each
+    document's last full chunk; -1 where it has none, which the host
+    masks).
+
+    Returns (summary int32 [2 + 2*NDOCS] = [all_ok, n_esc | counts |
+    finals], merged int32 [3, Cp] in FULL premult space, the phase-1
+    core planes int32 [3, Cp], flags int32 [2] = [n_esc, overflow]), on
+    the device: read only the summary unless all_ok is 0."""
+    Cp = core_data.shape[0] * GROUPS * TILE
+    dev = core_data.device
+    i32 = torch.int32
+    live = torch.arange(Cp, dtype=i32, device=dev) < C
+    (phi_m, fm_m, swarm_m, phi1, fm1, swarm1, n_esc,
+     overflow) = _fused_phases(core_data, full_data, s01, j01, inner,
+                               full_tables, hot2full, live, CAP=CAP,
+                               ESC=ESC, p2_j0=p2_j0)
+    # the per-document chains: a document start is entered at the seed
+    prev = torch.cat([torch.zeros(1, dtype=i32, device=dev), phi_m[:-1]])
+    entries = torch.where(doc_startv == 1, 0, prev)
+    full = fullv == 1
+    okv = (swarm_m == entries) & full
+    all_ok = (okv | ~full).all() & ~overflow
+    # the padding id NDOCS lands in one extra slot, dropped (int32 sums
+    # are exact; the host keeps the fast path below 2**31 bytes)
+    dcounts = torch.zeros(NDOCS + 1, dtype=i32, device=dev).index_add_(
+        0, doc_id, torch.where(okv, fm_m, 0))[:NDOCS]
+    dfinals = phi_m.index_select(0, last_full.clamp(0, Cp - 1))
+    summary = torch.cat([all_ok.to(i32).reshape(1), n_esc.reshape(1),
+                         dcounts, dfinals])
+    merged = torch.stack([phi_m, fm_m, swarm_m])
+    packed = torch.stack([phi1, fm1, swarm1])
+    flags = torch.stack([n_esc, overflow.to(i32)])
+    return summary, merged, packed, flags
 
 
 def _fused_cap(B1):

@@ -4,9 +4,9 @@ match WITH its captures in one pass.
 
 Counterpart of the JAX package's ops/tdfa_scan.py (TdfaSpecTables,
 the kernel _tdfa_kernel with _resolve, the device summary of
-_tdfa_scan, the host folds _host_walk/_walk_chunk/_chunk_repair and
-tdfa_spec_find).  The host TDFA (tdfa.py) determinizes one Pike step
-into, per (state, byte class):
+_tdfa_scan, the host folds _host_walk/_walk_chunk/_chunk_repair,
+tdfa_spec_find and the batched tdfa_find_many).  The host TDFA
+(tdfa.py) determinizes one Pike step into, per (state, byte class):
 
   - a next state,
   - a register rebuild: new_reg[k] = one of {old reg j, UNSET,
@@ -41,12 +41,15 @@ overrides, in table entries, as in the JAX package.
 
 import ctypes
 import os
+import time
 
 import numpy as np
 import torch
 
 from ..tdfa import (CTX_BOS, SRC_CUR, SRC_NEXT, SRC_UNSET, Tdfa,
                     TdfaTooLarge)
+from . import batch
+from .batch import _batch_entry_planes, _fits, batch_prepare
 from .layout import DEFAULT_K, GROUPS, TILE, max_chunk_bytes
 from .spec_scan import resolve_device
 
@@ -626,6 +629,62 @@ def _chunk_repair(tables, phi_f, swarm_f, bank_f, regs_f, data_np,
     # resolution when the covered region completed
     return _host_walk(tables, sid, regs, bank, rid, data_np,
                       min(c * K, n), n)
+
+
+def tdfa_find_many(tables, docs, chunk_len=DEFAULT_K, prepared=None):
+    """Batched one-pass tagged find over a document set: one kernel
+    launch, per-document results; the capture analogue of ops/batch.py.
+    Document starts enter at the seed with the warmup frozen (j0 = W),
+    as chunk 0 does, and every document folds on its own through
+    _chunk_repair, whose positions are document-local by construction
+    (the whole-stream summary cannot serve per-document results).
+    ``prepared``: a PreparedBatch of these documents for ``tables``
+    (Scanner.prepare_many(docs, for_find=True)); any other is re-prepped.
+    Returns a list of (rid, bank) | None (certified no-match) |
+    "fallback" per document, and sets tables.last_repair to (chunks
+    walked on the host in all documents, chunks).  Raises
+    BatchUnsupported where no byte maps to class 0."""
+    t0 = time.perf_counter()
+    docs = [d if isinstance(d, (bytes, bytearray)) else bytes(d)
+            for d in docs]
+    t = tables.tdfa
+    W = tables.warmup
+
+    def seed_entry():
+        sid = t.seed_state(CTX_BOS)
+        return sid, [0] * t.nregs(sid)
+
+    if not _fits(prepared, tables, docs):
+        prepared = batch_prepare(tables, docs, chunk_len)
+    K, spans = prepared.K, prepared.spans
+    data, C, _, _, B = prepared.prepared
+    state0, j0 = _batch_entry_planes(W, prepared.starts,
+                                     tables.seed_premult, B)
+    _, *planes = _tdfa_scan(tables, data, state0, j0, C)
+    t1 = time.perf_counter()
+    phi, swarm, bank, regs = (p.cpu().numpy() for p in planes)
+    t2 = time.perf_counter()
+    out = []
+    walked = 0
+    for (c0, cd, n), doc in zip(spans, docs):
+        full_C = cd if cd * K == n else cd - 1
+        if full_C <= 0:
+            # empty, or shorter than one chunk: the host walks it all
+            sid, rg = seed_entry()
+            out.append(_host_walk(tables, sid, rg, None, -1, doc, 0, n))
+            continue
+        try:
+            r = _chunk_repair(tables, phi[c0:c0 + cd], swarm[c0:c0 + cd],
+                              bank[:, c0:c0 + cd], regs[:, c0:c0 + cd],
+                              doc, full_C, K, W, n)
+            walked += tables.last_repair[0]
+        except TdfaTooLarge:
+            r = "fallback"
+        out.append(r)
+    tables.last_repair = (walked, C)
+    batch.last_timing = {"dispatch_s": t1 - t0, "readback_s": t2 - t1,
+                         "fold_s": time.perf_counter() - t2}
+    return out
 
 
 def tdfa_spec_find(tables, data_np, chunk_len=DEFAULT_K, prepared=None):

@@ -63,7 +63,12 @@ match_stream take a segmented stream through the pipeline
 (ops/pipeline.py: each segment staged in pinned memory and uploaded
 while the one before it is scanned), and finditer_stream / sub_stream
 through the events engine (events.py: a forward fire map, the Pike
-engine only around its fires).
+engine only around its fires).  count_many / scan_many / match_many /
+find_many / finditer_many / sub_many take a set of documents, each
+possibly below DEVICE_THRESHOLD, through one kernel pass over them all
+(ops/batch.py: the documents packed into one chunk stream, each start
+entered at the seed, each document folded on its own); prepare_many
+packs a set once for reuse.
 """
 
 import functools
@@ -83,6 +88,10 @@ from .native import NativeDfa
 from .native_pike import NativePikeCtx, NativeProgram
 from .native_tdfa import NativeTdfa
 from .ops.affine import SpecTablesAffine
+from .ops.batch import (BatchUnsupported, batch_prepare, core_count_many,
+                        core_count_many_fused, core_scan_many,
+                        core_scan_many_fused, spec_count_many,
+                        spec_scan_many)
 from .ops.big import SpecTablesBig
 from .ops.core import (FUSED_ESCAPE_FRAC, CoreTables, LazyCoreTables,
                        core_chunk_map, core_chunk_map_fused,
@@ -99,11 +108,17 @@ from .ops.spec_scan import (SpecTables, SpecTablesWide, _host_bytes,
                             resolve_device, spec_chunk_map,
                             spec_count_bytes, spec_scan_bytes,
                             spec_scan_last_bytes, with_warmup)
-from .ops.tdfa_scan import TdfaSpecTables, tdfa_spec_find
+from .ops.tdfa_scan import TdfaSpecTables, tdfa_find_many, tdfa_spec_find
 from .parser import parse, parse_multi
 from .pike_vm import PikeCtx
 from .reverse import reverse_wrapped_ast
 from .tdfa import TdfaTooLarge
+
+
+def _as_docs(docs):
+    """A document set as a list of bytes-like documents."""
+    return [d if isinstance(d, (bytes, bytearray)) else bytes(d)
+            for d in docs]
 
 
 def _build_spec_tables(dfa, device):
@@ -868,6 +883,225 @@ class Scanner:
         if self._eof_id(state) >= 0:
             c += 1
         return c
+
+    # -----------------------------------------------------------------
+    # document sets: one kernel pass over many documents (ops/batch.py)
+    # -----------------------------------------------------------------
+
+    def _batch_on_device(self, docs):
+        """Whether a document set goes to the device: the whole set, not
+        each document, must reach DEVICE_THRESHOLD (batching exists so
+        that documents below it share a launch).  The lazy machine has
+        no batch path: its set loops over the single-buffer calls."""
+        return self.device is not None and self.dfa is not None \
+            and sum(len(d) for d in docs) >= self.DEVICE_THRESHOLD
+
+    def _batch_eligible(self, docs):
+        """The static tier serves a batched scan when the set goes to the
+        device and the machine has one."""
+        return self._spec is not None and self._batch_on_device(docs)
+
+    @staticmethod
+    def _batch_sample(docs):
+        """The core sample of a document set: the heads of its first 256
+        documents."""
+        return b"".join(bytes(d[:1 << 16]) for d in docs[:256])
+
+    def _batch_core(self, docs):
+        """The legacy core tier for a batched scan: the single-buffer
+        selector (_core_tables: the card's band, the Scanner's cache),
+        its sample spread over the document set.  None where the core
+        stays out (the static batch path or the loop serves)."""
+        if not self._batch_on_device(docs):
+            return None
+        if self._coret is not None:
+            return self._coret or None      # cached: no sample needed
+        return self._core_tables(self._batch_sample(docs))
+
+    def _batch_fused_core(self, docs):
+        """The fused tier's core for a batched scan (_fused_core_tables,
+        SREGEX_FUSED=1): the set's escaped chunks are redone by the full
+        machine's kernel inside the one batch dispatch, not walked on the
+        host one each.  None where the fused tier stays out.
+
+        The JAX package declines the fused batch on a mesh Scanner (its
+        batches take the legacy sharded paths there).  The port has no
+        mesh yet, so there is nothing to decline; the Scanner that brings
+        one must keep that decline."""
+        if not self._batch_on_device(docs):
+            return None
+        if self._fusedct is not None:
+            return self._fusedct or None
+        return self._fused_core_tables(self._batch_sample(docs))
+
+    def prepare_many(self, docs, chunk_len=DEFAULT_K, for_find=False):
+        """Pack and upload a document set once (ops/batch.PreparedBatch)
+        for reuse across count_many / scan_many calls over the same
+        documents, the batch analogue of prepare().  ``for_find=True``
+        packs for the tagged tables instead (find_many's; the packings
+        differ where the machines' class maps do).  Under the fused batch
+        the handle carries the full machine's prep too (``full``), both
+        on one chunk length.  None where the set cannot take the device
+        path (the *_many calls then loop)."""
+        docs = _as_docs(docs)
+        full = None
+        if for_find:
+            tables = self._tdfa_spec
+        else:
+            fct = self._batch_fused_core(docs)
+            ct = fct or self._batch_core(docs)
+            tables = ct.inner if ct is not None else self._spec
+            if fct is not None:
+                ck = fused_chunk(fct.inner, self._spec, chunk_len)
+                if ck is not None:
+                    full, chunk_len = self._spec, ck
+        if tables is None or not self._batch_on_device(docs):
+            return None
+        try:
+            pb = batch_prepare(tables, docs, chunk_len)
+            if full is not None:
+                pb.full = batch_prepare(full, docs, chunk_len)
+            return pb
+        except BatchUnsupported:
+            return None
+
+    def _batch_scan(self, api, docs, chunk_len, prepared):
+        """One batched count (api "count_many") or first-match scan
+        ("scan_many") through the tiers in the JAX order: the fused batch,
+        the legacy core, the static tier.  None of them takes a
+        post-scan note, and the phi tier is never taken.  A tier without
+        a zero-class pad byte (BatchUnsupported) or shapes the fused tier
+        cannot take hand the set to the next; a failed launch raises.
+        Returns the tier's (results..., nat, C), recording last_repair and
+        the stats, or None where no tier served (the caller loops)."""
+        t0 = time.perf_counter()
+        fused_fn, core_fn, spec_fn = (
+            (core_count_many_fused, core_count_many, spec_count_many)
+            if api == "count_many" else
+            (core_scan_many_fused, core_scan_many, spec_scan_many))
+
+        def served(tier, run):
+            try:
+                r = run()
+            except BatchUnsupported:
+                return None
+            if r is not None:
+                tier.last_repair = r[-2:]
+                self._note_stats(api, tier, sum(len(d) for d in docs), t0)
+            return r
+
+        fct = self._batch_fused_core(docs)
+        if fct is not None:
+            r = served(fct, lambda: fused_fn(
+                fct, self._spec, docs, chunk_len, prepared_core=prepared,
+                prepared_full=getattr(prepared, "full", None)))
+            if r is not None:
+                return r
+        ct = self._batch_core(docs)
+        if ct is not None:
+            r = served(ct, lambda: core_fn(ct, docs, chunk_len,
+                                           prepared=prepared))
+            if r is not None:
+                return r
+        if self._batch_eligible(docs):
+            return served(self._spec, lambda: spec_fn(
+                self._spec, docs, chunk_len, prepared=prepared))
+        return None
+
+    def count_many(self, docs, chunk_len=DEFAULT_K, prepared=None):
+        """Per-document count() over a document set in one device
+        dispatch: every document is packed into one chunk stream
+        (document starts enter at the seed through the per-chunk entry
+        planes; no kernel change, ops/batch.py) and one kernel pass scans
+        them all; each document's chain folds on its own, so the result
+        is exactly [self.count(d) for d in docs].  A document shorter
+        than one chunk folds natively: a lower chunk_len (quantum 16
+        bytes) gives small documents device coverage.  ``prepared``: a
+        prepare_many() handle built from the same documents."""
+        docs = _as_docs(docs)
+        r = self._batch_scan("count_many", docs, chunk_len, prepared)
+        if r is None:
+            return [self.count(d) for d in docs]
+        counts, finals = r[:2]
+        return [c + (1 if self._eof_id(s) >= 0 else 0)
+                for c, s in zip(counts, finals)]
+
+    def scan_many(self, docs, chunk_len=DEFAULT_K, prepared=None):
+        """Per-document scan() in one device dispatch: [self.scan(d) for
+        d in docs], each (regex_id, end_boundary) or None."""
+        docs = _as_docs(docs)
+        r = self._batch_scan("scan_many", docs, chunk_len, prepared)
+        if r is None:
+            return [self.scan(d) for d in docs]
+        out = []
+        for (st, b), d in zip(r[0], docs):
+            if b >= 0:
+                out.append((self._id_at(st, d[b]), b))
+            else:
+                rid = self._eof_id(st)
+                out.append((rid, len(d)) if rid >= 0 else None)
+        return out
+
+    def match_many(self, docs, chunk_len=DEFAULT_K, prepared=None):
+        """Per-document match() in one device dispatch."""
+        return [r is not None
+                for r in self.scan_many(docs, chunk_len, prepared)]
+
+    def finditer_many(self, docs, chunk_len=DEFAULT_K, prepared=None):
+        """Per-document findall() over a document set: [self.findall(d)
+        for d in docs].  One batched scan (scan_many) drops the
+        match-free documents exactly (a document whose scan never reaches
+        a match boundary, EOF included, has no Pike match anywhere), so
+        only the matching documents are resolved on the host: the
+        sparse grep-over-many-files shape, where the card reads every
+        byte once and the host only the matching documents."""
+        docs = _as_docs(docs)
+        firsts = self.scan_many(docs, chunk_len, prepared)
+        return [[] if f is None else self.findall(d)
+                for f, d in zip(firsts, docs)]
+
+    def sub_many(self, repl, docs, count=0, chunk_len=DEFAULT_K,
+                 prepared=None):
+        """Per-document sub() over a document set: [(new_bytes,
+        n_replacements), ...].  Match-free documents, found by one
+        batched scan, come back unchanged without host resolution; the
+        matching ones take the exact sub loop."""
+        docs = _as_docs(docs)
+        firsts = self.scan_many(docs, chunk_len, prepared)
+        return [(bytes(d), 0) if f is None
+                else self.sub(repl, d, count=count)
+                for f, d in zip(firsts, docs)]
+
+    def find_many(self, docs, chunk_len=DEFAULT_K, prepared=None):
+        """Per-document find() (leftmost-first match with captures) in
+        one tagged-kernel launch (ops/tdfa_scan.tdfa_find_many): every
+        document's chunk chain folds through the chunk-repair walk, so the
+        result is exactly [self.find(d) for d in docs]; a document the
+        kernel cannot certify takes its own exact multi-pass find.
+        ``prepared``: prepare_many(docs, for_find=True)."""
+        docs = _as_docs(docs)
+        t0 = time.perf_counter()
+        tables = self._tdfa_spec
+        if tables is not None and self._batch_on_device(docs):
+            try:
+                rs = tdfa_find_many(tables, docs, chunk_len,
+                                    prepared=prepared)
+            except BatchUnsupported:
+                rs = None
+            if rs is not None:
+                out = []
+                for r, d in zip(rs, docs):
+                    m = None
+                    if r is not None and r != "fallback":
+                        # None: the windowed Pike resolution could not
+                        # certify
+                        m = self._tdfa_resolve(tables, r, d)
+                    out.append(None if r is None
+                               else m if m is not None else self.find(d))
+                self._note_stats("find_many", tables,
+                                 sum(len(d) for d in docs), t0)
+                return out
+        return [self.find(d) for d in docs]
 
     # -----------------------------------------------------------------
     # segmented streams: the pipelined count / scan

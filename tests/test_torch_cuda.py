@@ -1078,3 +1078,119 @@ def test_pipeline_cuts_large_segments_on_the_card(cuda, monkeypatch):
     assert sc._spec.last_repair == whole
     k, st = sc._native.count(data, 0)
     assert want == (st, k)
+
+
+def _batch_docs(rng, alpha, plants, n_docs, lo=512, hi=256 << 10):
+    """n_docs documents of log-uniform lengths in [lo, hi) bytes of
+    ``alpha``, each with one of ``plants`` at a random place where it
+    fits, and an empty and a 13-byte document."""
+    docs = []
+    for i in range(n_docs):
+        n = int(np.exp(rng.uniform(np.log(lo), np.log(hi))))
+        d = bytearray(rng.choice(np.frombuffer(alpha, np.uint8), n)
+                      .tobytes())
+        p = plants[i % len(plants)]
+        if n > len(p) and i % 3:
+            at = int(rng.integers(0, n - len(p)))
+            d[at:at + len(p)] = p
+        docs.append(bytes(d))
+    return docs + [b"", bytes(alpha[:1]) * 13]
+
+
+def test_batch_methods_run_on_the_card(cuda):
+    """count_many, scan_many and find_many on the card equal the native
+    engine's per-document results, each in one launch of its kernel."""
+    import sregex_tpu_torch
+    rng = np.random.default_rng(41)
+    pattern = rb"status=([0-9]+) user=([a-z_]+)"
+    docs = _batch_docs(rng, b"abcdefghijklmnop =", [b" status=404 user=bob "],
+                       120)
+    assert sum(map(len, docs)) >= 4 << 20
+    sc = sregex_tpu_torch.compile_pattern(pattern)
+    host = sregex_tpu_torch.compile_pattern(pattern, device=None)
+    before = _spec_launches()
+    assert sc.count_many(docs) == [host.count(d) for d in docs]
+    assert sc.stats().api == "count_many"
+    assert sc.scan_many(docs) == [host.scan(d) for d in docs]
+    assert _spec_launches() == before + 2
+    before = ttdfa.tdfa_scan_launches
+    assert sc.find_many(docs) == [host.find(d) for d in docs]
+    assert ttdfa.tdfa_scan_launches == before + 1
+    assert sc.stats().api == "find_many"
+
+
+def test_fused_batch_on_the_card_equals_the_cpu(cuda, monkeypatch):
+    """_fused_batch on CUDA tensors (phase 2 on the gated kernel, the
+    per-document fold in torch ops) equals _fused_batch on the same CPU
+    tensors, escapes at document starts among them; count_many through it
+    equals the native engine."""
+    import sregex_tpu_torch
+    from sregex_tpu_torch.ops import batch as tbatch
+    from sregex_tpu_torch.ops import core as tcore
+    monkeypatch.setenv("SREGEX_FUSED", "1")
+    words = _dictionary(300, 4)
+    rng = np.random.default_rng(42)
+    docs = _batch_docs(rng, b"bcdefgh ", [b" " + w + b" " for w in words],
+                       200)
+    for i in range(0, 200, 7):      # keywords in document-start chunks
+        docs[i] = words[i] + docs[i][len(words[i]):]
+    scs = {d: sregex_tpu_torch.compile_pattern(words, device=d)
+           for d in ("cpu", "cuda")}
+    seen = {}
+    real = tcore._fused_batch
+
+    def keep(*args, **kw):
+        out = real(*args, **kw)
+        seen["args"], seen["kw"], seen["out"] = args, kw, out
+        return out
+
+    monkeypatch.setattr(tbatch, "_fused_batch", keep)
+    fct = scs["cpu"]._batch_fused_core(docs)
+    assert fct is not None and type(scs["cpu"]._spec).__name__ \
+        == "SpecTablesBig"
+    d = tbatch._fused_batch_dispatch(fct, scs["cpu"]._spec, docs, 2048,
+                                     None, None)
+    assert d["n_esc"] > 0
+    args, kw, want = seen["args"], seen["kw"], seen["out"]
+    gct = scs["cuda"]._batch_fused_core(docs)
+    assert np.array_equal(gct.hot2full, fct.hot2full)
+    cargs = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    cargs[5], cargs[6] = gct.inner, scs["cuda"]._spec
+    cargs[7] = fct._h2f_dev.to(cuda)
+    before = tcore.gated_scan_launches
+    got = real(*cargs, **kw)
+    torch.cuda.synchronize()
+    assert tcore.gated_scan_launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    host = sregex_tpu_torch.compile_pattern(words, device=None)
+    assert scs["cuda"].count_many(docs) == [host.count(d) for d in docs]
+    assert scs["cuda"].stats().tier == "CoreTables"
+
+
+@pytest.mark.parametrize("bits,rows,ncls,route", [
+    (4, 1, 16, "smem"), (8, 98, 27, "smem"), (8, 821, 27, "big16"),
+    (8, 821, 27, "global")])
+def test_gated_kernel_with_frozen_slots_in_a_slot_map(cuda, bits, rows, ncls,
+                                                      route):
+    """Phase 2 of the fused batch: slots read in place through a slot map,
+    j0 = W (the warmup frozen, the entry the seed) at random slots and 0
+    elsewhere, equal to the plain version."""
+    from sregex_tpu_torch.ops import core as tcore
+    rng = np.random.default_rng(bits + rows)
+    n_esc = 3 * 8 * 1024 + 5
+    args, sel, fused, kw = _gated_case(rng, bits, rows, ncls, n_esc, True)
+    j0 = np.where(rng.random(tuple(args[2].shape)) < 0.2, kw["W"], 0)
+    args[1] = torch.zeros_like(args[1])
+    args[2] = torch.from_numpy(j0.astype(np.int32))
+    args = [t.to(cuda) for t in args]
+    sel = sel.to(cuda)
+    t16 = tbig.big16_table(fused, ncls, rows * 128 // ncls, bits, cuda) \
+        if route == "big16" else None
+    ne = torch.tensor([n_esc], dtype=torch.int32, device=cuda)
+    got = tcore.gated_scan(*args, ne, big=route != "smem", t16=t16, sel=sel,
+                           **kw)
+    torch.cuda.synchronize()
+    want = tcore.gated_scan_ref(*args, ne, sel=sel, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g[:4], w[:4])

@@ -23,6 +23,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def test_import_and_cpu_count_load_no_jax():
+    """count, find, count_many and find_many on the CPU plain versions,
+    without jax."""
     code = (
         "import sys\n"
         "import sregex_tpu_torch\n"
@@ -35,6 +37,12 @@ def test_import_and_cpu_count_load_no_jax():
         "assert fs.find(b'xx' * 1500 + b'aab') == (0, [3000, 3003, 3000, "
         "3002, 3002, 3003])\n"
         "assert fs.stats().tier == 'TdfaSpecTables', fs.stats()\n"
+        "docs = [b'xxab' * 700, b'', b'ab', b'xaabx' * 900]\n"
+        "assert sc.count_many(docs) == [700, 0, 1, 900]\n"
+        "assert sc.stats().api == 'count_many', sc.stats()\n"
+        "assert fs.find_many(docs) == [(0, [2, 4, 2, 3, 3, 4]), None,"
+        " (0, [0, 2, 0, 1, 1, 2]), (0, [1, 4, 1, 3, 3, 4])]\n"
+        "assert fs.stats().api == 'find_many', fs.stats()\n"
         "assert 'jax' not in sys.modules\n"
         "ref = [m for m in sys.modules\n"
         "       if m == 'sregex_tpu' or m.startswith('sregex_tpu.')]\n"

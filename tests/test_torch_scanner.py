@@ -166,9 +166,11 @@ def test_past_the_wide_cap_raises_on_a_device_path():
 
 def test_no_find_on_the_port():
     """find is ported (tests/test_torch_find.py), and finditer, findall,
-    sub, split and editor (tests/test_torch_finditer.py); find_many is
-    not yet.  The name predates both."""
+    sub, split and editor (tests/test_torch_finditer.py), and find_many
+    with the other batched document methods (tests/test_torch_batch.py).
+    The name predates all of them: the test now checks that they exist."""
     sc = sregex_tpu_torch.compile_pattern("abc", device="cpu")
-    for name in ("find", "finditer", "findall", "sub", "split", "editor"):
+    for name in ("find", "finditer", "findall", "sub", "split", "editor",
+                 "find_many", "count_many", "scan_many", "match_many",
+                 "finditer_many", "sub_many", "prepare_many"):
         assert callable(getattr(sc, name)), name
-    assert not hasattr(sc, "find_many")
