@@ -39,6 +39,23 @@ engine:
     chunk window and the chunk-repair budget, which the multi-pass path
     serves (the scan kernel forward, spec_scan_last_bytes on the
     reversed corpus, the Pike engine over the match);
+  - find_core: find past the static tiers: Scanner.find of a log-field
+    extractor whose tagged DFA is past the card's dense budget,
+    user=([a-z_]{1,40}) id=([0-9]{4,12}), over SREGEX_BENCH_FIND_MB of
+    log lines whose ids have 1-3 digits, one match planted near the end
+    (the hot core, TdfaCoreTables: certified in one tagged launch, the
+    host repair fold over every chunk), a certified no-match over the
+    corpus without the plant, and beside them the multi-pass route of a
+    Scanner whose tagged budget declines the core; find of
+    a.{10}b|cdefghijklmnopqrstuvwxyz and of a.{13}b|cdefgh...xyz over
+    INDEX_ROUTE_MB of filler with one match near the end, whose start
+    locators run on the reverse machine's legacy core and on the lazy
+    reverse core (core_scan_last_bytes), each beside the host walk it
+    replaces; find of a.{13}b on its hot core; then precompile and a
+    first count of the 90 keywords over the multi corpus on the static
+    wide tier and (SREGEX_FUSED=1, a sample of its head) the fused tier,
+    beside a first count without it, each exact against the native
+    count;
   - phi: Scanner.count and Scanner.scan of the run-parity machine
     b(?:aa)*b over 1920 MB of a-runs, after two repair-heavy scans of a
     64 MB corpus have switched it from the pair tier to the exact
@@ -186,6 +203,22 @@ BATCH_SUB_MB = 64             # its finditer_many / sub_many set
 BATCH_DICT_STEP = 12 << 10
 # past the eager DFA budget: no dense machine, the lazy one serves
 LAZY_PATTERN = rb"a.{13}b"
+# a log-field extractor whose tagged DFA is past the card's dense budget
+# (2048 entries): find keeps its one pass on the hot core
+FIND_CORE_PATTERN = rb"user=([a-z_]{1,40}) id=([0-9]{4,12})"
+# log lines whose ids have 1-3 digits, near misses of FIND_CORE_PATTERN,
+# each ending in a newline, so no line and no suffix of one matches
+FIND_CORE_LINES = [b"2026-10-16T14:05:28Z INFO auth user=alice id=41 ok\n",
+                   b"2026-10-16T14:05:29Z WARN auth user=bob_x id=7 n=3\n",
+                   b"2026-10-16T14:05:30Z INFO api user=carol_s id=123 /a\n",
+                   b"2026-10-16T14:05:31Z DEBUG api user= id=9 token\n",
+                   b"2026-10-16T14:05:32Z INFO cache user=dave id=x12\n"]
+FIND_CORE_PLANT = b"2026-10-16T14:05:33Z ERROR auth user=mallory id=31337 x\n"
+# the hot-core find's timed reps: its host fold decodes every chunk
+FIND_CORE_REPS = 2
+# past the eager budget forward and reversed, and on text full of a's no
+# hot tagged core fits it: find's start locator is the lazy reverse core
+LAZY_FIND_PATTERN = "a.{13}b|cdefghijklmnopqrstuvwxyz"
 REPS = 5
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 SCALAR_OPS_PER_S = 67e12      # H100 SXM, non-tensor 32-bit rate
@@ -444,6 +477,44 @@ def random_tdfa_case(rng, dev, *, bits, rows, code, R, T, B=2, G=8, K=256,
     args = [torch.from_numpy(a).to(dev) for a in
             (data, s0, j0, t_next, planes(R, identity), planes(T), t_cmeta)]
     return args, dict(W=W, CPW=cpw, BITS=bits, CODE=code, R=R, T=T)
+
+
+def hot_core_tdfa_cases(rng, dev):
+    """The tagged kernel's inputs on hot-core planes (the ESC sink's row
+    block: a self-loop, UNSET rebuilds, no commits): FIND_CORE_PATTERN's
+    core sampled from its log lines, over lines with random letters
+    spliced in (escapes) and the plant, and (a{150,300})b's two-state core
+    over text with a-runs; each entered as tdfa_spec_find enters it and
+    from random kernel states, ESC among them.  Returns [(args, kw)]."""
+    out = []
+    logs = bytes(log_corpus(1, lines=FIND_CORE_LINES))
+    text = bytearray(log_corpus(4, seed=5, lines=FIND_CORE_LINES))
+    for at in rng.integers(0, len(text) - 64, 400).tolist():
+        text[at:at + 8] = rng.choice(np.frombuffer(
+            b"abcdefghijklmnopqrstuvwxyz_0123456789 =", np.uint8), 8).tobytes()
+    plant_line(text, 3 << 20, FIND_CORE_PLANT)
+    xyz = rng.choice(np.frombuffer(b"xyz mnpq", np.uint8), 4 << 20)
+    runs = bytearray(xyz.tobytes())
+    for at in rng.integers(0, len(runs) - 300, 300).tolist():
+        k = int(rng.integers(100, 250))
+        runs[at:at + k + 1] = b"a" * k + b"b"
+    for pat, sample, corpus in (
+            (FIND_CORE_PATTERN, logs, bytes(text)),
+            (rb"(a{150,300})b", xyz[:1 << 16].tobytes(), bytes(runs))):
+        ct = tdfa.TdfaCoreTables(compile_regex(parse(pat)[0]), sample, dev)
+        data, _, _, _, B = prepare_on_device(ct, corpus, 2048)
+        shape = (B, GROUPS, 8, 128)
+        tabs, kw = ct.planes()
+        s0 = torch.full(shape, ct.seed_premult, dtype=torch.int32, device=dev)
+        j0 = torch.zeros_like(s0)
+        j0[0, 0, 0, 0] = ct.warmup
+        out.append(([data, s0, j0, *tabs], kw))
+        s0 = torch.from_numpy((rng.integers(0, ct.H + 1, shape)
+                               * ct.ncls).astype(np.int32)).to(dev)
+        j0 = torch.from_numpy(rng.integers(0, ct.warmup + 1, shape)
+                              .astype(np.int32)).to(dev)
+        out.append(([data, s0, j0, *tabs], kw))
+    return out
 
 
 def random_phi_case(rng, dev, *, S, bits, ncls, big, B=2, G=8, K=512,
@@ -810,6 +881,36 @@ def lazy_phase(corpus, mb, dev):
                 peak_mem_bytes=torch.cuda.max_memory_allocated())
 
 
+def tdfa_times(t, data, dev, errs):
+    """The tagged kernel over tables ``t`` and their prep ``data``, entered
+    as tdfa_spec_find enters it (every stream at the seed, the true entry
+    frozen below W): held against its plain version (errs["tdfa"]),
+    timed (20 launches; the plain version once) beside its bound.
+    Returns the kernel_time line's fields."""
+    s0 = torch.full((data.shape[0], GROUPS, 8, 128), t.seed_premult,
+                    dtype=torch.int32, device=dev)
+    j0 = torch.zeros_like(s0)
+    j0[0, 0, 0, 0] = t.warmup
+    tabs, kw = t.planes()
+    args = [data, s0, j0, *tabs]
+    errs["tdfa"] = max(errs["tdfa"], compare(tdfa.tdfa_scan,
+                                             tdfa.tdfa_scan_ref, args, kw))
+    ms = time_gpu(lambda: tdfa.tdfa_scan(*args, **kw), 20)
+    plain_ms = time_gpu(lambda: tdfa.tdfa_scan_ref(*args, **kw), 1)
+    # bytes: the inputs once and the T+R+3 output planes once; operations:
+    # one per byte step and one per register rebuilt at each step
+    moved = sum(a.numel() * a.element_size() for a in args) \
+        + (t.ntags + t.nregs + 3) * s0.numel() * 4
+    steps = s0.numel() * data.shape[1] * t.cpw * (1 + t.nregs)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = steps / SCALAR_OPS_PER_S * 1e3
+    bms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return dict(shape=list(data.shape), ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by,
+                corpus_gbps=s0.numel() * (data.shape[1] * t.cpw - t.warmup)
+                / ms / 1e6, R=t.nregs, T=t.ntags, CODE=t.code_bits)
+
+
 def tdfa_step_shares(t, corpus, nbytes=1 << 20):
     """Over the first ``nbytes`` of ``corpus``, walked from the seed state
     through the tagged tables ``t``: the share of steps whose
@@ -903,14 +1004,14 @@ def base64_corpus(mb, seed=11, block_mb=32):
     return (block * reps)[:mb << 20]
 
 
-def log_corpus(mb, seed=17, block_mb=32):
-    """Log lines drawn from FIND_LINES: one seeded block of block_mb MB,
+def log_corpus(mb, seed=17, block_mb=32, lines=FIND_LINES):
+    """Log lines drawn from ``lines``: one seeded block of block_mb MB,
     repeated to mb MB."""
     rng = np.random.default_rng(seed)
     n = min(mb, block_mb) << 20
-    mean = sum(map(len, FIND_LINES)) / len(FIND_LINES)
-    idx = rng.integers(0, len(FIND_LINES), int(n / mean) + 64)
-    block = b"".join(FIND_LINES[i] for i in idx)[:n]
+    mean = sum(map(len, lines)) / len(lines)
+    idx = rng.integers(0, len(lines), int(n / mean) + 64)
+    block = b"".join(lines[i] for i in idx)[:n]
     reps = -(-(mb << 20) // len(block))
     return bytearray((block * reps)[:mb << 20])
 
@@ -1486,6 +1587,211 @@ def index_routes_phase(dev, words, pats, mb=INDEX_ROUTE_MB):
     return out
 
 
+def core_find_oracle(corpus, p):
+    """The planted match's ovector, from the generator: the line at p
+    holds "user=mallory id=31337"."""
+    u = p + FIND_CORE_PLANT.index(b"user=")
+    i = p + FIND_CORE_PLANT.index(b"31337")
+    return (0, [u, i + 5, u + 5, u + 12, i, i + 5])
+
+
+def timed_find(sc, corpus, want, prepared=None):
+    """One Scanner.find, held against ``want``: (seconds, stats)."""
+    t0 = time.perf_counter()
+    got = sc.find(corpus, prepared=prepared)
+    dt = time.perf_counter() - t0
+    if got != want:
+        raise AssertionError("find %r != %r" % (got, want))
+    return dt, sc.stats()
+
+
+def hot_core_find(dev, mb):
+    """Scanner.find of FIND_CORE_PATTERN over ``mb`` MB of log lines with
+    one match planted near the end, on the hot core (TdfaCoreTables):
+    the first call (the sample walk, the tables, the prep), then
+    FIND_CORE_REPS reps over the prepared corpus, each certified and
+    equal to the generator's ovector; a certified no-match over the
+    corpus without the plant; beside them the multi-pass route that
+    served this pattern before the hot core (a Scanner whose tagged
+    budget, SREGEX_TDFA_MAX=64, declines every tagged table).  Returns
+    (fields, the core tables, their prep of the corpus)."""
+    sc = sregex_tpu_torch.compile_pattern(FIND_CORE_PATTERN, device=dev)
+    if sc._tdfa_spec is not None:
+        raise AssertionError("%r fits the dense tagged tables"
+                             % FIND_CORE_PATTERN)
+    t0 = time.perf_counter()
+    clean = log_corpus(mb, seed=23, lines=FIND_CORE_LINES)
+    corpus = bytearray(clean)
+    p = plant_line(corpus, len(corpus) - 8192, FIND_CORE_PLANT)
+    corpus, clean = bytes(corpus), bytes(clean)
+    gen_s = time.perf_counter() - t0
+    n = len(corpus)
+    exp = core_find_oracle(corpus, p)
+    # the native DFA's first match end is the boundary after the id's
+    # fourth digit, and the native Pike engine over a window that begins
+    # 64 KB before the line agrees with the generator
+    first, _ = sc._native.scan_first(corpus, 0)
+    if first != exp[1][4] + 4:
+        raise AssertionError("first match end %d, planted id at %d"
+                             % (first, exp[1][4]))
+    if pike_window(sc.program, corpus, p - 65536) != exp:
+        raise AssertionError("Pike window != the planted match %r" % (exp,))
+    l0 = launch_counts()
+    prep = sc.prepare(corpus)
+    first_s, st = timed_find(sc, corpus, exp, prep)
+    ct = sc._tdfa_coret
+    if not isinstance(ct, tdfa.TdfaCoreTables) or (
+            st.tier, st.certified) != ("TdfaCoreTables", True):
+        raise AssertionError("the hot core did not serve find: %r" % (st,))
+    reps = []
+    for _ in range(FIND_CORE_REPS):
+        dt, st = timed_find(sc, corpus, exp, prep)
+        if (st.tier, st.certified) != ("TdfaCoreTables", True):
+            raise AssertionError("a hot-core rep: %r" % (st,))
+        reps.append((dt, dict(ct.last_timing)))
+    dt, split = min(reps, key=lambda r: r[0])
+    cprep = sc.prepare(clean)
+    nomatch_s, nst = timed_find(sc, clean, None, cprep)
+    if (nst.tier, nst.certified) != ("TdfaCoreTables", True):
+        raise AssertionError("the no-match find: %r" % (nst,))
+    del cprep, clean
+    launches = launch_counts(l0)
+    if launches["tdfa"] != 2 + FIND_CORE_REPS:
+        raise AssertionError("hot-core finds launched %r" % launches)
+    with env("SREGEX_TDFA_MAX", "64"):
+        msc = sregex_tpu_torch.compile_pattern(FIND_CORE_PATTERN, device=dev)
+        mprep = msc.prepare(corpus)
+        mp = [timed_find(msc, corpus, exp, mprep) for _ in range(2)]
+    if msc._tdfa_coret is not False or mp[0][1].certified is not None:
+        raise AssertionError("the multi-pass Scanner took a tagged route")
+    fields = dict(
+        mb=mb, bytes=n, pattern=FIND_CORE_PATTERN.decode(), match=exp,
+        find_core_gbps=n / dt / 1e9, reps=FIND_CORE_REPS, rep_s=dt,
+        rep_split_s=split, first_call_s=first_s, nomatch_s=nomatch_s,
+        tier=st.tier, certified=st.certified, repaired=st.repaired,
+        chunks=st.chunks, H=ct.H, rows=ct.rows, ncls=ct.ncls, R=ct.nregs,
+        T=ct.ntags, CODE=ct.code_bits, bits=ct.bits,
+        hot_launches=launches, corpus_s=gen_s,
+        multi_pass=dict(gbps=n / min(m[0] for m in mp) / 1e9,
+                        first_call_s=mp[0][0], prefilter_tier=mp[0][1].tier,
+                        reverse_tier=type(msc._rev_spec).__name__))
+    return fields, ct, prep
+
+
+def reverse_core_find(dev, pattern, mb, pats, gap):
+    """Scanner.find of ``pattern`` over ``mb`` MB of index_routes_phase's
+    filler (no b) with "a", ``gap`` digits and "b" planted near the end:
+    no hot tagged core fits these a's, so the multi-pass route runs and
+    its start locator scans the reversed corpus on the reverse machine's
+    core (core_scan_last_bytes).  The result is held against the plant
+    and a Pike window, the core's answer against the host walk it
+    replaces (scan_last over the same reversed bytes), each timed.
+    Returns the fields."""
+    filler = multi_corpus(mb, pats, step=None).replace(b"b", b"B")
+    data = bytearray(filler)
+    n = len(data)
+    at = data.index(b" ", n - 4096) + 1
+    data[at:at + gap + 2] = b"a" + b"0123456789012"[:gap] + b"b"
+    data = bytes(data)
+    exp = (0, [at, at + gap + 2])
+    sc = sregex_tpu_torch.compile_pattern(pattern, device=dev)
+    if pike_window(sc.program, data, at - 65536) != exp:
+        raise AssertionError("Pike window != the plant in %s" % pattern)
+    l0 = launch_counts()
+    find_s, st = timed_find(sc, data, exp)
+    launches = launch_counts(l0)
+    lazy = sc.dfa is None
+    rct = sc._rev_lz_coret if lazy else sc._rev_coret
+    want = tcore.LazyCoreTables if lazy else tcore.CoreTables
+    if sc._tdfa_coret is not False or type(rct) is not want \
+            or rct.last_repair is None:
+        raise AssertionError("the reverse core did not serve find (%s): "
+                             "%r" % (pattern, rct))
+    repaired, chunks = rct.last_repair
+    rev = sc._rev_lazy_dfa() if lazy else sc._rev_dfa()
+    rdata = data[::-1]
+    t0 = time.perf_counter()
+    got = tcore.core_scan_last_bytes(rct, rdata)
+    core_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q, rstate = rev.scan_last(rdata, 0)
+    host_s = time.perf_counter() - t0
+    if got != (rstate, q):
+        raise AssertionError("core_scan_last_bytes %r != scan_last %r"
+                             % (got, (rstate, q)))
+    return dict(pattern=pattern, bytes=n, match=exp, find_s=find_s,
+                prefilter_tier=st.tier, reverse_tier=type(rct).__name__,
+                H=rct.H, inner=type(rct.inner).__name__, repaired=repaired,
+                chunks=chunks, launches=launches, core_scan_last_s=core_s,
+                host_scan_last_s=host_s, speedup=host_s / core_s)
+
+
+def lazy_hot_core_find(dev, mb, pats):
+    """Scanner.find of LAZY_PATTERN (past the eager budget) over the same
+    filler with one a.{13}b near the end: the tagged hot core fits this
+    machine, so find certifies in one pass.  Returns the fields."""
+    data = bytearray(multi_corpus(mb, pats, step=None).replace(b"b", b"B"))
+    at = data.index(b" ", len(data) - 4096) + 1
+    data[at:at + 15] = b"a0123456789012b"
+    data = bytes(data)
+    sc = sregex_tpu_torch.compile_pattern(LAZY_PATTERN, device=dev)
+    l0 = launch_counts()
+    find_s, st = timed_find(sc, data, (0, [at, at + 15]))
+    if (st.tier, st.certified) != ("TdfaCoreTables", True):
+        raise AssertionError("%r: %r" % (LAZY_PATTERN, st))
+    return dict(pattern=LAZY_PATTERN.decode(), bytes=len(data),
+                find_s=find_s, tier=st.tier, certified=st.certified,
+                H=sc._tdfa_coret.H, repaired=st.repaired, chunks=st.chunks,
+                launches=launch_counts(l0))
+
+
+def precompile_case(dev, pats, mcorpus, mexp, fused):
+    """A fresh Scanner of the 90 keywords: precompile over the multi
+    corpus's length (under SREGEX_FUSED=1 with the corpus's head as the
+    sample), then the first count, exact against the native count, and
+    the tier that served it.  Returns the fields."""
+    with env("SREGEX_FUSED", "1" if fused else "0"):
+        sc = sregex_tpu_torch.compile_pattern(pats, device=dev)
+        sample = mcorpus[:4 * sc.CORE_SAMPLE] if fused else b""
+        pre_s = sc.precompile(len(mcorpus), sample=sample)
+        t0 = time.perf_counter()
+        c = sc.count(mcorpus)
+        first_s = time.perf_counter() - t0
+    want = "CoreTables" if fused else "SpecTablesWide"
+    if c != mexp or sc.stats().tier != want or pre_s <= 0:
+        raise AssertionError("count after precompile %r (native %r), %r"
+                             % (c, mexp, sc.stats()))
+    return dict(precompile_s=pre_s, first_count_s=first_s,
+                tier=sc.stats().tier)
+
+
+def find_core_phase(dev, fmb, pats, mmb, mexp):
+    """find past the static tiers and Scanner.precompile: the hot-core
+    tagged find over ``fmb`` MB (hot_core_find), the reverse legacy core
+    (NO_TIER_PATTERN) and the lazy reverse core (LAZY_FIND_PATTERN) over
+    INDEX_ROUTE_MB each (reverse_core_find), LAZY_PATTERN's find on its
+    hot core, then precompile and a first count of the 90 keywords over
+    the multi corpus (``mmb`` MB, native count ``mexp``) on the static
+    wide tier and on the fused tier, beside a first count without it.
+    Returns (fields, the hot core's tables and prep)."""
+    out, ct, prep = hot_core_find(dev, fmb)
+    out["reverse_legacy"] = reverse_core_find(dev, NO_TIER_PATTERN,
+                                              INDEX_ROUTE_MB, pats, 10)
+    out["reverse_lazy"] = reverse_core_find(dev, LAZY_FIND_PATTERN,
+                                            INDEX_ROUTE_MB, pats, 13)
+    out["lazy_hot_core"] = lazy_hot_core_find(dev, INDEX_ROUTE_MB, pats)
+    mcorpus = multi_corpus(mmb, pats)
+    cold = sregex_tpu_torch.compile_pattern(pats, device=dev)
+    t0 = time.perf_counter()
+    if cold.count(mcorpus) != mexp:
+        raise AssertionError("multi count != native %d" % mexp)
+    out["precompile"] = dict(
+        mb=mmb, cold_first_count_s=time.perf_counter() - t0,
+        static=precompile_case(dev, pats, mcorpus, mexp, False),
+        fused=precompile_case(dev, pats, mcorpus, mexp, True))
+    return out, ct, prep
+
+
 def doc_lengths(mb, seed, K=2048):
     """The lengths of the documents cut from ``mb`` MB: a seeded
     log-uniform draw in 512 B - 4 MB (every one below
@@ -1955,6 +2261,11 @@ def main():
         args, kw = random_tdfa_case(rng, dev, **case)
         errs["tdfa"] = max(errs["tdfa"], compare(
             tdfa.tdfa_scan, tdfa.tdfa_scan_ref, args, kw))
+    core_cases = hot_core_tdfa_cases(rng, dev)
+    for args, kw in core_cases:
+        errs["tdfa"] = max(errs["tdfa"], compare(
+            tdfa.tdfa_scan, tdfa.tdfa_scan_ref, args, kw))
+    del core_cases
     # phi: lane-packed S in {3, 4, 50, 128} and sublane-group S in {139,
     # 501, 1000} up to the card's 64 rows, 4- and 8-bit words, COUNT and
     # scan, each kernel at the k stride_k chooses; the padding slots are
@@ -2043,7 +2354,7 @@ def main():
     say("kernel_vs_plain", groups=GROUPS, max_abs_err=max(errs.values()),
         cases=len(cases) + 4 + len(pair_cases) + len(big_cases)
         + sum(big16_held) + 2 * len(affine_cases) + 4
-        + len(tdfa_cases) + len(phi_cases) + len(kgram_cases)
+        + len(tdfa_cases) + 4 + len(phi_cases) + len(kgram_cases)
         + len(gated_cases))
     del packed, s0, j0
 
@@ -2513,6 +2824,20 @@ def main():
         certified=gst.certified, launches=glaunch, seconds=fallback_s)
     del gcorpus
 
+    # --- 9b. find_core: find past the static tiers, then precompile ------
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    kline, kct, kprep = find_core_phase(dev, fmb, pats, mmb, mexp)
+    klaunch = launch_counts()
+    tally(launches)
+    if klaunch["tdfa"] <= 0 or klaunch["narrow"] + klaunch["wide"] <= 0 \
+            or klaunch["gated"] <= 0:
+        raise AssertionError("the find_core phase's kernels: %r" % klaunch)
+    say("find_core", **kline, launches=klaunch,
+        seconds=time.perf_counter() - t0,
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+
     # --- 10. phi: the run-parity machine on the exact tier ----------------
     pmb = mb_env("SREGEX_BENCH_PHI_MB")
     psc = sregex_tpu_torch.compile_pattern(PHI_PATTERN)
@@ -2710,33 +3035,16 @@ def main():
             * (data.shape[1] * t.cpw - t.warmup) / ms / 1e6, **more)
     say("kernel_time", **affine_times(asc, aprep, acorpus, timings, errs,
                                       dev))
-    # the tagged kernel at the find phase's shape, entered as tdfa_spec_find
-    # enters it (every stream at the seed, the true entry frozen below W)
-    fdata = fprep.for_tables(ft)[0]
-    s0 = torch.full((fdata.shape[0], GROUPS, 8, 128), ft.seed_premult,
-                    dtype=torch.int32, device=dev)
-    j0 = torch.zeros_like(s0)
-    j0[0, 0, 0, 0] = ft.warmup
-    tabs, kw = ft.planes()
-    args = [fdata, s0, j0, *tabs]
-    errs["tdfa"] = max(errs["tdfa"], compare(tdfa.tdfa_scan,
-                                             tdfa.tdfa_scan_ref, args, kw))
-    ms = time_gpu(lambda: tdfa.tdfa_scan(*args, **kw), 20)
-    plain_ms = time_gpu(lambda: tdfa.tdfa_scan_ref(*args, **kw), 1)
-    # bytes: the inputs once and the T+R+3 output planes once; operations:
-    # one per byte step and one per register rebuilt at each step
-    moved = sum(a.numel() * a.element_size() for a in args) \
-        + (ft.ntags + ft.nregs + 3) * s0.numel() * 4
-    steps = s0.numel() * fdata.shape[1] * ft.cpw * (1 + ft.nregs)
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = steps / SCALAR_OPS_PER_S * 1e3
-    bms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    timings["tdfa"] = (ms, plain_ms, bms, by, list(fdata.shape))
-    say("kernel_time", tier="tdfa", shape=list(fdata.shape), ms=ms,
-        plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-        corpus_gbps=s0.numel() * (fdata.shape[1] * ft.cpw - ft.warmup)
-        / ms / 1e6, R=ft.nregs, T=ft.ntags, CODE=ft.code_bits,
+    # the tagged kernel at the find phase's shape and on the hot core's
+    # planes at the find_core phase's, entered as tdfa_spec_find enters it
+    tline = tdfa_times(ft, fprep.for_tables(ft)[0], dev, errs)
+    timings["tdfa"] = tuple(tline[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "shape"))
+    say("kernel_time", tier="tdfa", **tline,
         steps_1mb=tdfa_step_shares(ft, fcorpus))
+    say("kernel_time", tier="tdfa_core", H=kct.H,
+        **tdfa_times(kct, kprep.for_tables(kct)[0], dev, errs))
+    del kprep
     # the phi kernels in COUNT mode at their main path's shapes; the big
     # one's plain version on the first PHI_BIG_PLAIN_MB MB of the corpus
     for tier, fns in (("phi", (tphi.phi_scan, tphi.phi_scan_ref)),

@@ -1,8 +1,8 @@
 """Adaptive hot-core tiers: big automata at the small tables' speed.
 
 Counterpart of the JAX package's ops/pallas_core.py (the single-device
-count, first-match, chunk-map and batch parts, over the dense or the
-lazy machine; its mesh and last-match parts are not ported yet).
+count, first-match, last-match, chunk-map and batch parts, over the
+dense or the lazy machine; its mesh parts are not ported yet).
 
 A DFA scan over real data visits a small, skewed subset of its states.
 The core tiers sample the corpus, count the visits per state with the
@@ -19,8 +19,9 @@ are materialised, and escapes re-scan on the lazy machine's walkers.
 
 Two tiers repair the escaped chunks differently:
 
-  - legacy (core_count_bytes, core_scan_bytes): the host re-scans each
-    failed chunk with the native engine on the full machine (_Fold);
+  - legacy (core_count_bytes, core_scan_bytes, core_scan_last_bytes):
+    the host re-scans each failed chunk with the native engine on the
+    full machine (_Fold);
   - fused two-phase (core_count_fused, core_scan_fused): phase 1 scans
     the corpus on the core; the escaped chunks are compacted on the
     device into a prefix of FUSED_CAP chunk slots (a slot -> chunk
@@ -205,8 +206,8 @@ class LazyCoreTables(CoreTables):
     chunks re-scan on the lazy machine (its native walkers), so a
     drifted corpus costs speed, which the Scanner's re-core and decline
     logic bounds.  Full states are lazy state ids and full2core is a
-    dict; the folds (core_count_bytes, core_scan_bytes) take it as they
-    take CoreTables.  Raises ValueError when no core fits, as
+    dict; the folds (core_count_bytes, core_scan_bytes,
+    core_scan_last_bytes) take it as they take CoreTables.  Raises ValueError when no core fits, as
     CoreTables does."""
 
     def __init__(self, lazy, sample, max_escape_frac=MAX_ESCAPE_FRAC,
@@ -245,7 +246,8 @@ class LazyCoreTables(CoreTables):
                              "hot set (visited %d states)" % V)
         inner, core, hot = fit
         # the LazyDfa is its own native engine: its walkers take the
-        # folds' calls (scan_first, count) with NativeDfa's signatures
+        # folds' calls (scan_first, count, scan_last) with NativeDfa's
+        # signatures
         self._adopt(lazy, lazy, device, inner, core,
                     np.asarray(hot, dtype=np.int64),
                     {sid: i for i, sid in enumerate(hot)})
@@ -372,6 +374,71 @@ def core_scan_bytes(ct, data_np, chunk_len=DEFAULT_K, entry_state=0,
         nat += 1
     ct.last_repair = (nat, C)
     return e_full, -1
+
+
+def core_scan_last_bytes(ct, data_np, chunk_len=DEFAULT_K, entry_state=0,
+                         prepared=None):
+    """The LAST boundary (0..n-1) at which a match ends, on the legacy
+    core tier: the contract of spec_scan_last_bytes with FULL states,
+    (final FULL state, last match boundary or -1); find's reverse start
+    locator over CoreTables and LazyCoreTables.  One COUNT scan with the
+    ESC check; the position inside the last firing chunk is always
+    pinned by a native scan_last of that one chunk on the FULL machine,
+    so the core's match bits never reach the answer."""
+    n = len(data_np)
+    if n == 0:
+        return entry_state, -1
+    summ, packed, raw, C, K, n = _run(ct, data_np, chunk_len,
+                                      entry_state, prepared, True)
+    native = ct.native
+    if bool(summ[0]):
+        ct.last_repair = (0, C)
+        last_fire = int(summ[8])
+        final = ct.to_full(int(summ[6]))
+        if last_fire < 0:
+            return final, -1
+        lo = last_fire * K
+        r, _ = native.scan_last(raw[lo:lo + K].tobytes(),
+                                ct.to_full(int(summ[9])))
+        return final, lo + r
+    # the summary's last fire covers the validated prefix; the fold takes
+    # the rest in trusted runs.  Only the last firing chunk of all needs a
+    # native pin, so it is kept as a record: ("pin", chunk, entry) for a
+    # trusted firing chunk, ("pos", boundary) for a natively scanned one;
+    # chunks come in order, so the latest record wins
+    last = None
+    if int(summ[8]) >= 0:
+        last = ("pin", int(summ[8]), ct.to_full(int(summ[9])))
+    fold = _Fold(ct, packed, C, K, n, quiet=False)
+    e_full = ct.to_full(int(summ[2]))
+    c = int(summ[1])
+    nat = 0
+    while c < C:
+        if fold.trusted(c, e_full):
+            b = fold.run_end(c)
+            if fold.run_count(c, b):
+                j = c + int(np.flatnonzero(fold.cnt[c:b + 1])[-1])
+                last = ("pin", j, ct.to_full(int(fold.swarm[j])))
+            e_full = ct.to_full(int(fold.phi[b]))
+            c = b + 1
+            continue
+        lo = c * K
+        hi = min(lo + K, n)
+        r, st = native.scan_last(raw[lo:hi].tobytes(), e_full)
+        if r >= 0:
+            last = ("pos", lo + r)
+        e_full = st
+        c += 1
+        nat += 1
+    ct.last_repair = (nat, C)
+    if last is None:
+        return e_full, -1
+    if last[0] == "pos":
+        return e_full, last[1]
+    _, j, ej = last
+    lo = j * K
+    r, _ = native.scan_last(raw[lo:min(lo + K, n)].tobytes(), ej)
+    return e_full, lo + r
 
 
 def core_count_bytes(ct, data_np, chunk_len=DEFAULT_K, entry_state=0,

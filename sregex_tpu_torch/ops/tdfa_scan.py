@@ -2,11 +2,12 @@
 per byte inside the kernel, so Scanner.find gets the leftmost-first
 match WITH its captures in one pass.
 
-Counterpart of the JAX package's ops/tdfa_scan.py (TdfaSpecTables,
-the kernel _tdfa_kernel with _resolve, the device summary of
-_tdfa_scan, the host folds _host_walk/_walk_chunk/_chunk_repair,
-tdfa_spec_find and the batched tdfa_find_many).  The host TDFA
-(tdfa.py) determinizes one Pike step into, per (state, byte class):
+Counterpart of the JAX package's ops/tdfa_scan.py (TdfaSpecTables and
+its hot-core projection TdfaCoreTables, the kernel _tdfa_kernel with
+_resolve, the device summary of _tdfa_scan, the host folds
+_host_walk/_walk_chunk/_chunk_repair, tdfa_spec_find and the batched
+tdfa_find_many).  The host TDFA (tdfa.py) determinizes one Pike step
+into, per (state, byte class):
 
   - a next state,
   - a register rebuild: new_reg[k] = one of {old reg j, UNSET,
@@ -36,7 +37,11 @@ the one-pass path to the same machines.  At that budget the planes of
 every 4- and 8-bit-code machine fit a block's shared memory (at most
 14 planes, 112 KB); 16-bit-code machines past 227 KB of planes read
 them from global memory (csrc/tdfa_scan.cu).  SREGEX_TDFA_MAX
-overrides, in table entries, as in the JAX package.
+overrides, in table entries, as in the JAX package.  A machine past the
+budget keeps the one-pass path through TdfaCoreTables where a corpus
+sample's hot states fit it: the kernel runs their planes plus an ESC
+sink row block unchanged, and the host decides chunk by chunk which
+results to trust.
 """
 
 import ctypes
@@ -99,14 +104,19 @@ def _src_code(src, code_bits):
     return src              # old register id
 
 
-def _pack_planes(t, S, ncls, R, T, code_bits):
-    """Pack the kernel's planes for the S materialized states of tagged
-    DFA t.  Returns (rows, planes) with planes = (t_next [rows*128],
-    t_regsrc [PR, rows*128], t_csrc [PT, rows*128], t_cmeta
+def _pack_planes(t, kernel_sids, full2k, ncls, R, T, code_bits, esc=None):
+    """Pack the kernel's planes over a state subset of tagged DFA t:
+    kernel_sids[k] is the full sid of kernel state k, full2k maps a full
+    sid to its kernel id.  ``esc`` (a kernel id, or None for the dense
+    tables): transitions leaving the subset go to the ESC sink, its own
+    row block (a self-loop with UNSET rebuilds and no commits), the
+    hot-core projection.  Returns (rows, planes) with planes = (t_next
+    [rows*128], t_regsrc [PR, rows*128], t_csrc [PT, rows*128], t_cmeta
     [rows*128]), int32 numpy; PR/PT = ceil(R/slots-per-plane) stacked
     code planes (slot k lives in plane k//spp at bit
     code_bits*(k%spp))."""
-    rows = -(-(S * ncls) // 128)
+    n_k = len(kernel_sids) + (esc is not None)
+    rows = -(-(n_k * ncls) // 128)
     spp = 32 // code_bits
     c_unset, _, _ = _specials(code_bits)
     t_next = np.zeros(rows * 128, dtype=np.int32)
@@ -116,21 +126,30 @@ def _pack_planes(t, S, ncls, R, T, code_bits):
                         dtype=np.uint32)
     bank_codes = np.zeros((rows * 128, max(1, T)), dtype=np.uint32)
     t_cmeta = np.zeros(rows * 128, dtype=np.int32)
-    for s in range(S):
+    for k, s in enumerate(kernel_sids):
         for c in range(ncls):
             nsid, ops, commit = t.step(s, c)
-            idx = s * ncls + c
-            t_next[idx] = nsid * ncls
+            idx = k * ncls + c
+            nk = full2k.get(nsid, esc)
+            t_next[idx] = nk * ncls
             for d, src in ops:
                 if d >= R:
-                    raise TdfaTooLarge("register slot %d exceeds the "
-                                       "packing (R=%d)" % (d, R))
+                    # only a hot-core projection reaches this, on a
+                    # transition into ESC, whose registers are never
+                    # trusted: drop them
+                    if esc is None or nk != esc:
+                        raise TdfaTooLarge("register slot %d exceeds the "
+                                           "packing (R=%d)" % (d, R))
+                    continue
                 reg_codes[idx, d] = _src_code(src, code_bits)
             if commit is not None:
                 srcs, rid = commit
                 for ti, src in enumerate(srcs):
                     bank_codes[idx, ti] = _src_code(src, code_bits)
                 t_cmeta[idx] = 1 | (rid << 1)
+    if esc is not None:
+        # the sink's rebuilds are the pre-filled UNSET codes
+        t_next[esc * ncls:(esc + 1) * ncls] = esc * ncls
 
     def pack(codes, n):
         P = max(1, -(-n // spp))
@@ -157,6 +176,22 @@ def _default_tags(prog):
     return tuple(tags)
 
 
+def _open_tdfa(prog, tags, max_states, max_regs):
+    """The tagged DFA of ``prog`` tracking ``tags`` (_default_tags when
+    None), with the checks both table classes make first."""
+    if tags is None:
+        tags = _default_tags(prog)
+    if len(tags) > T_MAX16:
+        raise TdfaTooLarge("too many tracked tags (%d)" % len(tags))
+    if prog.nregexes > 127:
+        raise TdfaTooLarge("too many regexes (%d)" % prog.nregexes)
+    t = Tdfa(prog, tags=tags, max_states=max_states, max_regs=max_regs)
+    if t.nclasses > 256:
+        raise TdfaTooLarge("more than 256 byte classes (%d): class ids "
+                           "must fit the 8-bit data words" % t.nclasses)
+    return t, tuple(tags)
+
+
 class TdfaSpecTables:
     """Host compilation of a (lazy) Tdfa into dense code planes for the
     kernel, on ``device``.  Materializes every reachable state by BFS
@@ -166,29 +201,20 @@ class TdfaSpecTables:
     What the prep and the folds read: device, class_map, bits, cpw,
     warmup (4 * cpw bytes), max_chunk, ncls; nregs (R), ntags (T),
     code_bits, rows, seed_premult, dead_premult (-1: no dead state),
-    the flat planes t_next, t_regsrc, t_csrc, t_cmeta, and last_repair
-    ((host-walked chunks, covered chunks) of the last device find)."""
+    the flat planes t_next, t_regsrc, t_csrc, t_cmeta, is_core,
+    last_repair ((host-walked chunks, covered chunks) of the last device
+    find) and last_timing (its host-clock split, tdfa_spec_find)."""
 
     last_repair = None
+    last_timing = None
+    # the dense tables: kernel state k is full state k
+    is_core = False
 
     def __init__(self, prog, device, tags=None):
         self.device = resolve_device(device)
-        if tags is None:
-            tags = _default_tags(prog)
-        if len(tags) > T_MAX16:
-            raise TdfaTooLarge("too many tracked tags (%d)" % len(tags))
-        if prog.nregexes > 127:
-            raise TdfaTooLarge("too many regexes (%d)" % prog.nregexes)
         budget = _tdfa_max(self.device)
-        t = Tdfa(prog, tags=tags, max_states=max(256, budget // 2),
-                 max_regs=R_MAX16)
-        self.tdfa = t
-        self.tags = tuple(tags)
-        self.ncls = t.nclasses
-        if t.nclasses > 256:
-            raise TdfaTooLarge("more than 256 byte classes (%d): "
-                               "class ids must fit the 8-bit data "
-                               "words" % t.nclasses)
+        t, self.tags = _open_tdfa(prog, tags, max(256, budget // 2),
+                                  R_MAX16)
 
         # materialize (transitions build states lazily)
         frontier = list(range(t.nstates))
@@ -210,10 +236,8 @@ class TdfaSpecTables:
         S = t.nstates
         if S * t.nclasses > budget:
             raise TdfaTooLarge("S*ncls=%d" % (S * t.nclasses))
-
         self.nstates = S
         self.nregs = max(t.nregs(s) for s in range(S))
-        self.ntags = len(tags)
         ncls = t.nclasses
         dead = -1
         for s in range(S):
@@ -221,15 +245,25 @@ class TdfaSpecTables:
                 dead = s * ncls
         self.dead_premult = dead
         self.seed_premult = t.seed_state(CTX_BOS) * ncls
+        self._pack(t, list(range(S)), {s: s for s in range(S)}, None)
 
+    def _pack(self, t, kernel_sids, full2k, esc):
+        """Choose the code width, pack and upload the planes over the
+        kernel states (_pack_planes), and set the prep's fields."""
+        self.tdfa = t
+        self.ncls = ncls = t.nclasses
+        self.ntags = len(self.tags)
         # 4-bit codes when regs AND tags fit 13, byte codes up to 24,
         # 16-bit codes up to 48
         self.code_bits = (
             4 if (self.nregs <= R_MAX and self.ntags <= T_MAX)
             else 8 if (self.nregs <= R_MAX8 and self.ntags <= T_MAX8)
             else 16)
-        self.rows, planes = _pack_planes(t, S, ncls, self.nregs,
-                                         self.ntags, self.code_bits)
+        self.rows, planes = _pack_planes(t, kernel_sids, full2k, ncls,
+                                         self.nregs, self.ntags,
+                                         self.code_bits, esc=esc)
+        if esc is not None and self.rows * 128 > _tdfa_max(self.device):
+            raise TdfaTooLarge("core rows exceed the budget")
         (self.t_next, self.t_regsrc, self.t_csrc, self.t_cmeta) = (
             torch.from_numpy(p).to(self.device) for p in planes)
 
@@ -248,13 +282,100 @@ class TdfaSpecTables:
                 dict(W=self.warmup, CPW=self.cpw, BITS=self.bits,
                      CODE=self.code_bits, R=self.nregs, T=self.ntags))
 
-    # kernel <-> full state id mapping (identity for the full tables; a
-    # hot-core projection would override both)
+    # kernel <-> full state id mapping (identity for the dense tables;
+    # the hot-core projection overrides both)
     def to_kernel_premult(self, sid):
         return sid * self.ncls
 
     def from_kernel_premult(self, premult):
         return premult // self.ncls
+
+
+class TdfaCoreTables(TdfaSpecTables):
+    """Hot-core projection of a tagged DFA past the dense budget, on
+    ``device``: the tagged analogue of ops/core.CoreTables.
+
+    The full (lazy) Tdfa materializes only the states a walk of
+    ``sample`` from the seed visits; the planes cover that hot set (the
+    seed first, then by visit count) plus an ESC sink, one more row
+    block, that absorbs every transition leaving it.  A chunk whose walk
+    stays in the core rebuilds registers and commits banks exactly as
+    the full machine does (the codes are state-local, so the projection
+    changes only the next-state ids); a chunk that reaches ESC is not
+    trusted, and the host re-walks it on the full machine in the
+    chunk-repair fold, which core tables always take (tdfa_spec_find).
+    Exactness never depends on the sample; it sets the escape rate.
+
+    Raises TdfaTooLarge (a DfaTooLarge) on an empty sample, when the
+    sampled visit mass outside the ``_tdfa_max(device) // ncls - 1``
+    hottest states exceeds ``max_escape_frac``, when the hot states need
+    more than 48 registers, or past the code space.  Fields as
+    TdfaSpecTables, plus hot2full, full2core, H (hot states) and esc_k
+    (ESC's kernel id, H); nstates = H + 1."""
+
+    MAX_ESCAPE_FRAC = 1e-5      # sampled visit mass allowed off the core
+    is_core = True
+
+    def __init__(self, prog, sample, device, tags=None,
+                 max_escape_frac=None):
+        if max_escape_frac is None:
+            max_escape_frac = self.MAX_ESCAPE_FRAC
+        self.device = resolve_device(device)
+        # registers are unbounded on the full machine (the host re-walks
+        # take any count); only the hot transitions must fit the codes
+        t, self.tags = _open_tdfa(prog, tags, 1 << 14, None)
+        sample = bytes(sample)
+        if not sample:
+            raise TdfaTooLarge("empty sample")
+
+        # the sample walk: visit counts per full sid (materializes them)
+        seed = t.seed_state(CTX_BOS)
+        counts = {}
+        sid = seed
+        for c in t.class_map[np.frombuffer(sample, dtype=np.uint8)]:
+            counts[sid] = counts.get(sid, 0) + 1
+            sid, _, _ = t.step(sid, int(c))
+        counts[seed] = counts.get(seed, 0) + 1
+        total = float(sum(counts.values()))
+
+        ncls = t.nclasses
+        h_cap = _tdfa_max(self.device) // ncls - 1   # ESC takes one block
+        order = sorted(counts, key=lambda s: -counts[s])
+        order.remove(seed)
+        order = [seed] + order
+        hot = order[:h_cap]
+        off = sum(counts[s] for s in order[h_cap:])
+        if off > max_escape_frac * total:
+            raise TdfaTooLarge(
+                "sampled hot set exceeds the core budget (%d visited, %d "
+                "allowed, %.2g off-core mass)"
+                % (len(order), h_cap, off / total))
+        self.hot2full = list(hot)
+        self.full2core = {s: k for k, s in enumerate(hot)}
+        self.H = self.esc_k = len(hot)
+        self.nstates = self.H + 1
+        self.nregs = max(t.nregs(s) for s in hot)
+        if self.nregs > R_MAX16:
+            raise TdfaTooLarge("hot states need %d registers (> %d)"
+                               % (self.nregs, R_MAX16))
+        self.seed_premult = self.full2core[seed] * ncls
+        dead = -1
+        for s in hot:
+            if t.is_dead(s):
+                dead = self.full2core[s] * ncls
+        self.dead_premult = dead               # -1: never triggers
+        self._pack(t, hot, self.full2core, self.esc_k)
+
+    def to_kernel_premult(self, sid):
+        """Premultiplied kernel id of full state ``sid``, None off the
+        core."""
+        k = self.full2core.get(sid)
+        return None if k is None else k * self.ncls
+
+    def from_kernel_premult(self, premult):
+        """Full state of a premultiplied kernel id, None for ESC."""
+        k = premult // self.ncls
+        return None if k >= self.H else self.hot2full[k]
 
 
 def _check_tdfa_args(data, state0, j0, tabs, W, CPW, BITS, CODE, R, T):
@@ -572,7 +693,8 @@ def _chunk_repair(tables, phi_f, swarm_f, bank_f, regs_f, data_np,
                   full_C, K, W, n):
     """Per-chunk repair of a speculation-missed TDFA scan: walk the
     chunk chain exactly on the host, decoding TRUSTED chunks
-    (speculated entry == true entry) from the kernel's per-chunk planes
+    (speculated entry == true entry; an exit in the core for hot-core
+    tables) from the kernel's per-chunk planes
     — their post-warmup register rebuilds are provably the true
     machine's — and re-walking on the host TDFA any chunk whose values
     are still BAD-tainted (trace to the entry or the warmup).  Records
@@ -594,9 +716,10 @@ def _chunk_repair(tables, phi_f, swarm_f, bank_f, regs_f, data_np,
     while c < full_C:
         kp = tables.to_kernel_premult(sid)
         # trusted only when the kernel's converged entry state equals
-        # the true one
+        # the true one AND the exit stayed in the core (an ESC exit's
+        # planes are garbage past the escape point)
         exit_sid = tables.from_kernel_premult(int(phi_f[c])) \
-            if int(swarm_f[c]) == kp else None
+            if kp is not None and int(swarm_f[c]) == kp else None
         if exit_sid is not None:
             nk = t.nregs(exit_sid)
             vals = [int(regs_f[k, c]) for k in range(nk)]
@@ -720,26 +843,38 @@ def tdfa_spec_find(tables, data_np, chunk_len=DEFAULT_K, prepared=None):
         return _host_walk(tables, sid, regs, None, -1, data_np, 0, n)
 
     R, T = tables.nregs, tables.ntags
+    t0 = time.perf_counter()
     state0 = torch.full((B, GROUPS, 8, TILE // 8), tables.seed_premult,
                         dtype=torch.int32, device=data.device)
     j0 = torch.zeros_like(state0)
     j0[0, 0, 0, 0] = W
     summary, *planes = _tdfa_scan(tables, data, state0, j0, full_C)
     summ = summary.cpu().numpy().astype(np.int64)
+    # host clock: the launch and the summary's readback (which waits for
+    # the kernel), the planes' readback and the repair fold
+    timing = tables.last_timing = {"scan_s": time.perf_counter() - t0,
+                                   "readback_s": 0.0, "fold_s": 0.0}
 
     def repair():
+        t1 = time.perf_counter()
         phi_f, swarm_f, bank_f, regs_f = (p.cpu().numpy() for p in planes)
+        t2 = time.perf_counter()
         try:
-            return _chunk_repair(tables, phi_f, swarm_f, bank_f, regs_f,
-                                 data_np, full_C, K, W, n)
+            r = _chunk_repair(tables, phi_f, swarm_f, bank_f, regs_f,
+                              data_np, full_C, K, W, n)
         except TdfaTooLarge:
             # a lazy machine can exhaust max_states mid-walk
-            return "fallback"
+            r = "fallback"
+        timing.update(readback_s=t2 - t1, fold_s=time.perf_counter() - t2)
+        return r
 
-    if not bool(summ[0]):
+    if tables.is_core or not bool(summ[0]):
         # chunk-wise repair: validate the chain on the host per chunk,
         # decoding trusted chunks from the per-chunk planes and
-        # re-walking the rest on the host TDFA
+        # re-walking the rest on the host TDFA.  Core tables always take
+        # it: the device chain cannot tell a true validation from two
+        # streams that meet in the ESC sink, so trust is decided here,
+        # chunk by chunk
         return repair()
 
     tables.last_repair = (0, full_C)

@@ -40,13 +40,17 @@ switches it to the exact transfer-composition tier (ops/phi.py:
 PhiTables for S <= 128, PhiTablesBig up to 1024 states), which counts
 and scans with no speculation and no host repair.
 
-find() takes the JAX package's dense-DFA paths: the one-pass tagged-DFA
-kernel (ops/tdfa_scan.py) where it can certify its result, else the
-exact multi-pass path (the DFA prefilter, the reverse-DFA start
-locator, a Pike pass over the match region).  On the lazy machine the
-prefilter is the lazy scan and the start locator the lazy reverse
-machine, walked on the host.  find's hot-core tagged and reverse tiers
-are not ported yet; the results do not differ.
+find() takes the JAX package's paths: the one-pass tagged-DFA kernel
+(ops/tdfa_scan.py) where it can certify its result, over the dense
+tables or, past their budget, over a hot core sampled from the corpus
+(TdfaCoreTables, escapes re-walked on the host); else the exact
+multi-pass path (the DFA prefilter, the reverse-DFA start locator, a
+Pike pass over the match region).  On a device corpus the start locator
+runs on the reverse machine's legacy core (core_scan_last_bytes) where
+it has no static tier, else on its static tier; on the lazy machine the
+prefilter is the lazy scan and the locator the lazy reverse core, or
+the lazy reverse machine walked on the host where no core fits.
+precompile() warms a count's device path on a zero-filled stand-in.
 
 finditer / findall / sub / split (the substitution loop: the Pike ctx
 re-arms at each match end) take the native TDFA walker
@@ -96,7 +100,7 @@ from .ops.big import SpecTablesBig
 from .ops.core import (FUSED_ESCAPE_FRAC, CoreTables, LazyCoreTables,
                        core_chunk_map, core_chunk_map_fused,
                        core_count_bytes, core_count_fused, core_scan_bytes,
-                       core_scan_fused, fused_chunk)
+                       core_scan_fused, core_scan_last_bytes, fused_chunk)
 from .ops.layout import DEFAULT_K, effective_chunk
 from .ops.pair import SpecTablesPair
 from .ops.phi import (PhiTables, PhiTablesBig, phi_count_bytes,
@@ -108,7 +112,8 @@ from .ops.spec_scan import (SpecTables, SpecTablesWide, _host_bytes,
                             resolve_device, spec_chunk_map,
                             spec_count_bytes, spec_scan_bytes,
                             spec_scan_last_bytes, with_warmup)
-from .ops.tdfa_scan import TdfaSpecTables, tdfa_find_many, tdfa_spec_find
+from .ops.tdfa_scan import (TdfaCoreTables, TdfaSpecTables, tdfa_find_many,
+                            tdfa_spec_find)
 from .parser import parse, parse_multi
 from .pike_vm import PikeCtx
 from .reverse import reverse_wrapped_ast
@@ -403,7 +408,12 @@ class Scanner:
         self._fusedct = None
         self._core_strikes = 0     # the legacy core's drifted scans
         self._core_rebuilds = 0    # its re-cores
+        self._rev_core_strikes = 0     # the same for the reverse core
+        self._rev_core_rebuilds = 0    # (_rev_coret, find's locator)
         self._tdfa_spec = None
+        # the hot-core tagged tables of a machine past the dense budget,
+        # sampled from the corpus: None untried, False declined
+        self._tdfa_coret = None
         if self.device is not None and dfa is not None:
             try:
                 self._tdfa_spec = TdfaSpecTables(prog, self.device)
@@ -439,6 +449,41 @@ class Scanner:
         via ``prepared=`` on match/count/scan."""
         return PreparedCorpus(data, self.device, chunk_len)
 
+    def precompile(self, nbytes, sample=b"", chunk_len=DEFAULT_K):
+        """Warm what a count() over an ``nbytes``-long corpus needs on the
+        device, without the corpus: a zero-filled stand-in of that length
+        is made on the device (torch.zeros, so nothing is uploaded),
+        prepared (a host zeros array stands in for the ragged tail the
+        host walks) and counted through count()'s flow: the fused tier
+        where ``sample`` gives it a core (SREGEX_FUSED=1) and fused_chunk
+        accepts it, else the static tier.  On the card this takes the
+        kernels' nvcc build and load, the class map's upload and the
+        allocator's first blocks out of the first real call; run it
+        beside host work (the oracle's count, reading the corpus).
+        ``sample`` seeds the core tiers as the real corpus would (pass
+        its head: a zeros sample builds another core).  Returns wall
+        seconds, 0.0 when there is nothing to warm (no dense machine, no
+        device, nbytes <= 0)."""
+        t0 = time.perf_counter()
+        if self.dfa is None or self.device is None or nbytes <= 0:
+            return 0.0
+        spec = self._spec
+        fct = self._fused_core_tables(bytes(sample)) if len(sample) else None
+        zeros_dev = torch.zeros(nbytes, dtype=torch.uint8, device=self.device)
+        zeros_host = np.zeros(nbytes, np.uint8)
+        ck = (fused_chunk(fct.inner, spec, chunk_len)
+              if fct is not None and spec is not None else None)
+        if ck is not None:
+            core_count_fused(
+                fct, spec, zeros_host, chunk_len=ck,
+                prepared_core=prepare_auto(fct.inner, zeros_dev, ck),
+                prepared_full=prepare_auto(spec, zeros_dev, ck))
+        elif spec is not None:
+            spec_count_bytes(spec, zeros_host, chunk_len,
+                             prepared=prepare_auto(spec, zeros_dev,
+                                                   chunk_len))
+        return time.perf_counter() - t0
+
     def _on_device(self, data):
         return self.device is not None \
             and len(data) >= self.DEVICE_THRESHOLD
@@ -454,7 +499,7 @@ class Scanner:
             "native" if self.dfa is not None else "lazy")
         self.last_stats = ScanStats(
             api, name, nbytes, chunks=chunks, repaired=nat,
-            recore_events=self._core_rebuilds,
+            recore_events=self._core_rebuilds + self._rev_core_rebuilds,
             warm_events=self._warm_escalations,
             elapsed_ms=(time.perf_counter() - t0) * 1e3,
             certified=certified)
@@ -554,23 +599,29 @@ class Scanner:
                 self.dfa, self._spec, self._core_sample(data))
         return self._fusedct or None
 
-    def _core_note(self, ct):
-        """After a completed legacy core scan: re-core (back to None,
-        rebuilt from the next corpus) after two drifted scans in a row,
-        or decline (False) past MAX_RECORE rebuilds."""
+    def _core_note(self, ct, attr="_coret"):
+        """After a completed legacy core scan by ``ct``, the Scanner's
+        attribute ``attr`` ("_coret", or "_rev_coret" for find's reverse
+        core): re-core it (back to None, rebuilt from the next corpus)
+        after two drifted scans in a row, or decline it (False) past
+        MAX_RECORE rebuilds.  Each core keeps its own strikes and
+        rebuilds (_core_*, _rev_core_*)."""
         rep = ct.last_repair
         if rep is None:
             return
         nat, C = rep
+        pre = attr[:-1]                    # "_core" or "_rev_core"
+        strikes = pre + "_strikes"
         if C >= 16 and nat > C * self.CORE_DRIFT_FRAC:
-            self._core_strikes += 1
-            if self._core_strikes >= 2:
-                self._core_strikes = 0
-                self._core_rebuilds += 1
-                self._coret = (None if self._core_rebuilds <= self.MAX_RECORE
-                               else False)
+            setattr(self, strikes, getattr(self, strikes) + 1)
+            if getattr(self, strikes) >= 2:
+                setattr(self, strikes, 0)
+                rebuilds = getattr(self, pre + "_rebuilds") + 1
+                setattr(self, pre + "_rebuilds", rebuilds)
+                setattr(self, attr,
+                        None if rebuilds <= self.MAX_RECORE else False)
         else:
-            self._core_strikes = 0
+            setattr(self, strikes, 0)
 
     def _fused_note(self, fct):
         """After a completed fused scan.  Its host repairs have two
@@ -779,14 +830,33 @@ class Scanner:
                     self._rev_spec = _build_spec_tables(rdfa, self.device)
         return self._rev
 
-    def _tdfa_find(self, data, prepared=None):
-        """Device tagged-DFA find: one kernel pass yields the span,
+    def _tdfa_core_tables(self, data):
+        """The hot-core tagged tables (ops/tdfa_scan.TdfaCoreTables) of a
+        tagged machine past the dense budget, sampled from the corpus
+        (_core_sample) and cached (False = declined: TdfaTooLarge, a
+        DfaTooLarge, or ValueError; any other failure raises).  Exactness
+        never depends on the sample: ESC escapes re-walk on the host TDFA
+        in the chunk-repair fold."""
+        if self._tdfa_coret is None:
+            self._tdfa_coret = False
+            if self.device is not None:
+                try:
+                    self._tdfa_coret = TdfaCoreTables(
+                        self.program, self._core_sample(data), self.device)
+                except (DfaTooLarge, ValueError):
+                    self._tdfa_coret = False
+        return self._tdfa_coret or None
+
+    def _tdfa_find(self, data, prepared=None, tables=None):
+        """Device tagged-DFA find over ``tables`` (the dense _tdfa_spec
+        unless given, e.g. the hot core): one kernel pass yields the span,
         regex id and tracked capture slots (ops/tdfa_scan.py).
 
         Returns (rid, ovector) for a certified match, (-1, None) for a
         certified no-match, or None when the device result cannot be
         certified exact (the caller then runs the multi-pass path)."""
-        tables = self._tdfa_spec
+        if tables is None:
+            tables = self._tdfa_spec
         r = tdfa_spec_find(tables, data,
                            prepared=prepared.for_tables(tables)
                            if prepared else None)
@@ -829,21 +899,29 @@ class Scanner:
         (regex_id, ovector) or None.
 
         On a device corpus the tagged-DFA kernel answers in one pass
-        where it can certify its result.  Otherwise the exact multi-pass
+        where it can certify its result: over the dense tables, or, for
+        a tagged machine past their budget, over the hot core sampled
+        from the corpus (TdfaCoreTables).  Otherwise the exact multi-pass
         path: the forward DFA proves a match exists, a REVERSE automaton
         scan of the reversed corpus locates the winner's start (the
         leftmost-first winner starts at the minimal start of any
         completed match), and the Pike engine resolves exact captures
-        from there with the proper seen_word/seen_newline carry."""
+        from there with the proper seen_word/seen_newline carry.  On a
+        device corpus the reverse scan runs on the reverse machine's
+        legacy core (core_scan_last_bytes) where it has no static tier,
+        on its static tier, or, for a reverse machine past the eager
+        budget, on the lazy reverse core; else on the host."""
         t0 = time.perf_counter()
         n = len(data)
         on_device = self._on_device(data)
         certified = None
-        if self._tdfa_spec is not None and on_device:
-            r = self._tdfa_find(data, prepared)
+        tagged = self._tdfa_spec
+        if tagged is None and on_device:
+            tagged = self._tdfa_core_tables(data)
+        if tagged is not None and on_device:
+            r = self._tdfa_find(data, prepared, tables=tagged)
             if r is not None:
-                self._note_stats("find", self._tdfa_spec, n, t0,
-                                 certified=True)
+                self._note_stats("find", tagged, n, t0, certified=True)
                 rc, ov = r
                 return (rc, ov) if rc >= 0 else None
             certified = False
@@ -852,17 +930,25 @@ class Scanner:
         result = None
         if first >= 0 or self._eof_id(state) >= 0:
             start = 0
-            # the lazy reverse machine walks on the host (the JAX
-            # package's device locator for it, _rev_lazy_core, needs
-            # core_scan_last_bytes, not ported yet)
             rev = self._rev_dfa() if self.dfa is not None \
                 else self._rev_lazy_dfa()
             if rev is not None:
                 rdata = data[::-1]
-                if self._rev_spec is not None and on_device:
-                    rstate, q = spec_scan_last_bytes(self._rev_spec, rdata)
-                else:
+                r = None
+                if on_device:
+                    rct = (self._rev_core_tables(data)
+                           if self.dfa is not None
+                           else self._rev_lazy_core(data))
+                    if rct is not None:
+                        r = core_scan_last_bytes(rct, rdata)
+                        if self.dfa is not None:
+                            self._core_note(rct, "_rev_coret")
+                    elif self._rev_spec is not None:
+                        r = spec_scan_last_bytes(self._rev_spec, rdata)
+                if r is None:
                     q, rstate = rev.scan_last(rdata, 0)
+                else:
+                    rstate, q = r
                 eof = (rev.match_eof[rstate] if self.dfa is not None
                        else rev.match_eof(rstate))
                 if not eof and q >= 0:

@@ -1194,3 +1194,122 @@ def test_gated_kernel_with_frozen_slots_in_a_slot_map(cuda, bits, rows, ncls,
     want = tcore.gated_scan_ref(*args, ne, sel=sel, **kw)
     for g, w in zip(got, want):
         assert torch.equal(g[:4], w[:4])
+
+
+HOT_CORE_PAT = rb"user=([a-z_]{1,40}) id=([0-9]{4,12})"
+HOT_CORE_LINES = [b"t=1 auth user=alice id=41 ok\n", b"t=2 user=bob_x id=7\n",
+                  b"t=3 api user=carol_s id=123 /a\n", b"t=4 user= id=9\n"]
+
+
+def _hot_core_corpus(rng, n_lines, plant=None):
+    lines = [HOT_CORE_LINES[i] for i in
+             rng.integers(0, len(HOT_CORE_LINES), n_lines)]
+    if plant is not None:
+        lines[plant] = b"t=5 user=mallory id=31337 x\n"
+    return b"".join(lines)
+
+
+@pytest.mark.parametrize("entry", ["seed", "random"])
+def test_tdfa_kernel_on_hot_core_planes(cuda, entry):
+    """The tagged kernel over TdfaCoreTables planes (the ESC sink's row
+    block: a self-loop, UNSET rebuilds, no commits) on a corpus whose
+    spliced letters leave the core, entered as tdfa_spec_find enters it
+    and from random kernel states, ESC among them: equal to the plain
+    version."""
+    import sregex_tpu_torch
+    from sregex_tpu_torch.ops.prep import prepare_on_device
+    rng = np.random.default_rng(13)
+    prog = sregex_tpu_torch.compile_pattern(HOT_CORE_PAT, device=None).program
+    ct = ttdfa.TdfaCoreTables(prog, _hot_core_corpus(rng, 20000), cuda)
+    assert ct.is_core
+    text = bytearray(_hot_core_corpus(rng, 120000, plant=90000))
+    for at in rng.integers(0, len(text) - 16, 300).tolist():
+        text[at:at + 6] = b"zz_q=1"
+    data, _, _, _, B = prepare_on_device(ct, bytes(text), 2048)
+    shape = (B, 8, 8, 128)
+    if entry == "seed":
+        s0 = torch.full(shape, ct.seed_premult, dtype=torch.int32)
+        j0 = torch.zeros(shape, dtype=torch.int32)
+        j0[0, 0, 0, 0] = ct.warmup
+    else:
+        s0 = torch.from_numpy((rng.integers(0, ct.H + 1, shape)
+                               * ct.ncls).astype(np.int32))
+        j0 = torch.from_numpy(rng.integers(0, ct.warmup + 1, shape)
+                              .astype(np.int32))
+    tabs, kw = ct.planes()
+    args = [data, s0.to(cuda), j0.to(cuda), *tabs]
+    before = ttdfa.tdfa_scan_launches
+    got = ttdfa.tdfa_scan(*args, **kw)
+    torch.cuda.synchronize()
+    assert ttdfa.tdfa_scan_launches == before + 1
+    want = ttdfa.tdfa_scan_ref(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[0] == ct.esc_k * ct.ncls).any()
+
+
+def test_find_through_the_hot_core_on_the_card(cuda):
+    """A tagged machine past the card's dense budget: find certifies on
+    the hot core in one tagged launch, equal to the native engines."""
+    import sregex_tpu_torch
+    rng = np.random.default_rng(14)
+    data = _hot_core_corpus(rng, 200000, plant=150000)
+    sc = sregex_tpu_torch.compile_pattern(HOT_CORE_PAT)
+    host = sregex_tpu_torch.compile_pattern(HOT_CORE_PAT, device=None)
+    assert sc._tdfa_spec is None
+    sc.DEVICE_THRESHOLD = 1 << 20
+    before = ttdfa.tdfa_scan_launches
+    assert sc.find(data) == host.find(data) is not None
+    st = sc.stats()
+    assert (st.tier, st.certified) == ("TdfaCoreTables", True)
+    assert ttdfa.tdfa_scan_launches == before + 1
+    assert sc._tdfa_coret.t_next.device.type == "cuda"
+
+
+@pytest.mark.parametrize("pattern", ["a.{10}b|cdefghijklmnopqrstuvwxyz",
+                                     "a.{13}b|cdefghijklmnopqrstuvwxyz"])
+def test_find_through_the_reverse_cores_on_the_card(cuda, pattern):
+    """Text full of a's (no hot tagged core fits) with one match near the
+    end: the reverse machine's legacy core, or its lazy core past the
+    eager budget, locates the start on the card (core_scan_last_bytes),
+    equal to the host engines."""
+    import sregex_tpu_torch
+    from sregex_tpu_torch.ops import core as tcore
+    rng = np.random.default_rng(15)
+    words = [b"alpha", b"delta", b"golf", b"hotel", b"kilo", b"papa",
+             b"tango", b"zulu"]
+    text = bytearray(b" ".join(words[i] for i in
+                               rng.integers(0, len(words), 1 << 20)))
+    gap = 10 if "{10}" in pattern else 13
+    at = len(text) - 3000
+    text[at:at + gap + 2] = b"a" + b"0" * gap + b"b"
+    data = bytes(text)
+    sc = sregex_tpu_torch.compile_pattern(pattern)
+    host = sregex_tpu_torch.compile_pattern(pattern, device=None)
+    before = _spec_launches()
+    assert sc.find(data) == host.find(data) == (0, [at, at + gap + 2])
+    assert sc._tdfa_coret is False
+    rct = sc._rev_coret if sc.dfa is not None else sc._rev_lz_coret
+    assert isinstance(rct, tcore.CoreTables) and rct.last_repair is not None
+    assert _spec_launches() >= before + 2     # the prefilter and the locator
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_precompile_on_the_card(cuda, monkeypatch, fused):
+    """precompile on the card, then an exact count: on the static pair
+    tier, and under SREGEX_FUSED=1 on the fused tier over a big-tier
+    machine whose core the sample built."""
+    import sregex_tpu_torch
+    if fused:
+        monkeypatch.setenv("SREGEX_FUSED", "1")
+    pattern = "a.{11}b" if fused else "ab"
+    rng = np.random.default_rng(16)
+    text = rng.choice(np.frombuffer(b"bcdxyz ", np.uint8), 8 << 20)
+    text[rng.integers(0, len(text) - 16, 300)] = ord("a")
+    data = text.tobytes()
+    sc = sregex_tpu_torch.compile_pattern(pattern)
+    host = sregex_tpu_torch.compile_pattern(pattern, device=None)
+    assert sc.precompile(len(data), sample=data[:1 << 20] if fused
+                         else b"") > 0
+    assert sc.count(data) == host.count(data)
+    assert sc.stats().tier == ("CoreTables" if fused else "SpecTablesPair")

@@ -169,8 +169,10 @@ def test_find_with_a_prepared_corpus_and_below_the_threshold():
 
 
 def test_tagged_tier_declines_as_the_jax_package():
-    """A machine past the CPU budget has no tagged tables on either
-    side; find takes the multi-pass path, with the same result."""
+    """A machine past the CPU budget has no dense tagged tables on either
+    side; find takes the hot core sampled from the corpus in both
+    (TdfaCoreTables, certified in one pass), with the same result.  (The
+    name predates the hot core: find took the multi-pass path here.)"""
     pat = rb"(money|parted|fool|kilo|victor|zebra)x([0-9]+)"
     js, ts = _scanners(pat)
     assert js._tdfa_spec is None and ts._tdfa_spec is None
@@ -180,7 +182,9 @@ def test_tagged_tier_declines_as_the_jax_package():
     data[9000:9012] = b"partedx31415"
     data = bytes(data)
     assert ts.find(data) == js.find(data) == _pike(ts, data)
-    assert ts.stats().certified is None
+    assert type(js._tdfa_coret).__name__ == "TdfaCoreTables"
+    st = ts.stats()
+    assert (st.tier, st.certified) == ("TdfaCoreTables", True)
 
 
 # spec_scan_last_bytes: name -> (pattern, corpus); the chunk length is

@@ -112,13 +112,18 @@ def test_lazy_scanner_equals_jax_and_native(pattern, device):
         sc.DEVICE_THRESHOLD = 1 << 12
         sc.CORE_SAMPLE = 8 << 10
         want = _host_expect(pattern, data)
-        got = (sc.count(data), sc.scan(data), sc.match(data),
-               sc.find(data))
+        got = (sc.count(data), sc.scan(data), sc.match(data))
+        tier = "LazyCoreTables" if device and cored else "lazy"
+        assert sc.stats().tier == tier
+        # find on a device corpus tries the tagged hot core first, and
+        # where it certifies, the core served; else the multi-pass path's
+        # prefilter did
+        got += (sc.find(data),)
+        st = sc.stats()
+        assert st.tier == ("TdfaCoreTables" if st.certified else tier)
         assert got == want
         c, find = _port_native(pattern, data)
         assert (got[0], got[3]) == (c, find)
-        tier = "LazyCoreTables" if device and cored else "lazy"
-        assert sc.stats().tier == tier
         if device and not cored:
             assert sc._coret is False     # declined: the hot set is wide
 
