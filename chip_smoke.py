@@ -106,7 +106,19 @@ engine:
   - index_routes: make_index over 256 MB on the reverse legacy core,
     the lazy reverse core and, under SREGEX_FUSED=1, the dictionary's
     fused reverse core, each map held against a native walk of the
-    reversed corpus and its match starts against the generator's.
+    reversed corpus and its match starts against the generator's;
+  - mesh (last): the paths again over a virtual mesh of MESH_SHARDS
+    shards of the card (ops/mesh.py), each beside one device in the
+    same run and both equal to the oracle: the headline's
+    Scanner(mesh=).scan, the 90 keywords' Scanner(mesh=).count, the
+    dictionary's core_count_fused(mesh=) and static big count and the
+    affine count over their corpora, the no-static-tier machine on the
+    legacy core and count_stream over MESH_CORE_MB, count_many over the
+    batch phase's keyword documents; dryrun_multichip on the same mesh;
+    two processes on the card over gloo (chip_smoke.py --multihost RANK
+    INIT CARDS, parallel.multihost, aligned and ragged slices of
+    MESH_PROC_MB) against the native engine; where torch sees several
+    cards, the same over every card (each process on half of them).
 
 Every phase prints one line; any failure raises, so the script exits
 non-zero without the final line.  The kernel launch counts are set to
@@ -148,11 +160,14 @@ from sregex_tpu_torch.ops import affine as aff
 from sregex_tpu_torch.ops import batch as tbatch
 from sregex_tpu_torch.ops import big
 from sregex_tpu_torch.ops import core as tcore
+from sregex_tpu_torch.ops import pair as tpair
 from sregex_tpu_torch.ops import phi as tphi
 from sregex_tpu_torch.ops import pipeline as tpipe
 from sregex_tpu_torch.ops import spec_scan as scan
 from sregex_tpu_torch.ops import tdfa_scan as tdfa
+from sregex_tpu_torch import stream as tstream
 from sregex_tpu_torch.ops.layout import GROUPS
+from sregex_tpu_torch.ops.mesh import make_mesh
 from sregex_tpu_torch.ops.pair import SpecTablesPair
 from sregex_tpu_torch.ops.prep import prepare_on_device
 from sregex_tpu_torch.ops.spec_scan import spec_scan_ref
@@ -1429,11 +1444,12 @@ def stage_times(dev, sc, corpus, reps=3):
     for _ in range(reps):
         pipe = tpipe._Pipeline(sc._spec, tpipe.DEFAULT_K, 0, True, 1)
         slot = pipe.free.popleft()
-        slot.reserve(n)
-        host = timed("stage", lambda: pipe.stage(slot, [raw], n))
+        spans, geometry = pipe.spans(n)
+        slot.reserve(n, [n])
+        host = timed("stage", lambda: pipe.stage(slot, [raw], n, spans))
         timed("pageable", lambda: src.to(dev))
-        data = timed("upload", lambda: pipe.upload(slot, n))
-        prepared = timed("prep", lambda: pipe.prep(slot, data))
+        data = timed("upload", lambda: pipe.upload(slot, spans))
+        prepared = timed("prep", lambda: pipe.prep(slot, data, geometry))
         packed, C, K = timed("kernel", lambda: pipe.launch(prepared, n))
 
         def fold():
@@ -1922,7 +1938,7 @@ def find_oracle_docs(docs, lens, matches, hsc):
     return out, host
 
 
-def batch_phase(dev, pats, words, bsc, fsc, fdata, fmatches):
+def batch_phase(dev, pats, words, bsc, fsc, fdata, fmatches, keep=None):
     """The batched document surface (Scanner.*_many, ops/batch.py) on
     document sets cut from the script's corpora (doc_lengths: ~2,300
     documents a GB, each below DEVICE_THRESHOLD), every document's
@@ -1946,7 +1962,8 @@ def batch_phase(dev, pats, words, bsc, fsc, fdata, fmatches):
         generator's; finditer_many and sub_many over BATCH_SUB_MB of
         those documents against each document's host findall and sub.
 
-    Returns the phase's fields and the launches by kernel."""
+    Returns the phase's fields and the launches by kernel; ``keep``, a
+    dict, gets the keyword set's documents and counts ("multi")."""
     out = {}
     launched = dict.fromkeys(launch_counts(), 0)
 
@@ -1987,6 +2004,8 @@ def batch_phase(dev, pats, words, bsc, fsc, fdata, fmatches):
     out["multi"].update(straddles=len(bounds), corpus_s=gen_s,
                         native_s=native_s,
                         matching_docs=sum(c > 0 for c in counts))
+    if keep is not None:
+        keep["multi"] = (docs, counts)
     del docs, msc
 
     # the headline: scan_many on the two-code kernel
@@ -2088,6 +2107,363 @@ def batch_phase(dev, pats, words, bsc, fsc, fdata, fmatches):
                        finditer_many_gbps=sn / fi_s / 1e9,
                        sub_many_gbps=sn / sub_s / 1e9)
     return out, launched
+
+
+MESH_SHARDS = 4               # the mesh phase's virtual mesh on one card
+MESH_CORE_MB = 256            # its legacy-core and stream corpora
+MESH_PROC_MB = 256            # its two processes' corpus
+MESH_PROC_K = 2048
+# the scan kernels' wrappers, by each module that calls them, and the
+# kernel row each launch counts under
+KERNEL_SITES = ((scan, "spec_scan"), (tpair, "spec_scan"),
+                (tcore, "spec_scan"), (big, "big_scan"),
+                (aff, "affine_scan"), (tcore, "gated_scan"))
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Record each scan kernel launch made inside: (wrapper, args,
+    keywords, a copy of its planes), in launch order."""
+    rec, saved = [], []
+    for mod, name in KERNEL_SITES:
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def wrapper(*a, _fn=fn, **kw):
+            planes = _fn(*a, **kw)
+            rec.append((_fn, a, kw, tuple(p.clone() for p in planes)))
+            return planes
+        setattr(mod, name, wrapper)
+    try:
+        yield rec
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def hold_against_plain(rec, errs):
+    """Each recorded launch held against its kernel's plain version on
+    the same inputs, bit-exact (the gated kernel on its active block
+    rows); each error goes to its row in ``errs``.  Returns {row: [the
+    block rows of each launch held]}."""
+    def without(kw, *keys):
+        return {k: v for k, v in kw.items() if k not in keys}
+
+    held = {}
+    for fn, a, kw, got in rec:
+        if fn is scan.spec_scan:
+            row = "narrow" if kw.get("pair") is not None else "wide"
+            want = spec_scan_ref(*a, **without(kw, "pair"))
+        elif fn is big.big_scan:
+            row = "big"
+            want = big.big_scan_ref(*a, **without(kw, "t16"))
+        elif fn is aff.affine_scan:
+            row = "affine"
+            want = aff.affine_scan_ref(*a, **without(kw, "relaid",
+                                                     "generic"))
+        else:
+            row = "gated"
+            want = tcore.gated_scan_ref(*a, **without(kw, "big", "t16",
+                                                      "out"))
+            nblk = tcore._active_rows(a[4], a[1])
+            got, want = [g[:nblk] for g in got], [w[:nblk] for w in want]
+        err = max_abs_err(got, want) if got[0].numel() else 0
+        if err:
+            raise AssertionError("a %s launch of the mesh path differs "
+                                 "from its plain version by %d (%d block "
+                                 "rows)" % (row, err, a[1].shape[0]))
+        errs[row] = max(errs[row], err)
+        held.setdefault(row, []).append(a[1].shape[0])
+    return held
+
+
+def scanner_repairs(sc):
+    """What a Scanner's last call repaired: (tier, chunks, chunks walked
+    natively)."""
+    st = sc.stats()
+    return st.tier, st.chunks, st.repaired
+
+
+def mesh_pair(n, single, sharded, check, repairs, errs):
+    """The same work on one device (``single``) and sharded over the
+    mesh (``sharded``), each result checked, each timed (min of REPS,
+    after a first call that prepares).  Every kernel launch of the first
+    sharded call is held against its plain version (hold_against_plain),
+    and what the sharded calls repaired on the host (``repairs[1]()``)
+    must equal what the one-device calls did (``repairs[0]()``): a shard
+    that scanned the wrong rows would be repaired to the right answer.
+    Returns the case's fields, the sharded calls' launches among them."""
+    check(single())
+    t1 = min_rep_seconds(single, check)
+    want_rep = repairs[0]()
+    base = launch_counts()
+    t0 = time.perf_counter()
+    with recorded_launches() as rec:
+        got = sharded()
+    first_s = time.perf_counter() - t0
+    check(got)
+    held = hold_against_plain(rec, errs)
+    del rec
+    tm = min_rep_seconds(sharded, check)
+    got_rep = repairs[1]()
+    if got_rep != want_rep:
+        raise AssertionError("the mesh repaired %r, one device %r"
+                             % (got_rep, want_rep))
+    return dict(gbps=n / tm / 1e9, single_gbps=n / t1 / 1e9,
+                first_call_s=first_s, repairs=got_rep,
+                held_rows={k: sorted(set(v)) for k, v in held.items()},
+                held_launches={k: len(v) for k, v in held.items()},
+                launches={k: v for k, v in launch_counts(base).items() if v})
+
+
+def equal_to(want, what):
+    """A check: the result equals ``want``."""
+    def check(got):
+        if got != want:
+            raise AssertionError("%s %r != %r" % (what, got, want))
+    return check
+
+
+def mesh_cases(mesh, inp, errs):
+    """Each case of the mesh phase over ``mesh``, beside one device, every
+    result equal to the one-device result and its oracle, every kernel
+    launch of a sharded call held against its plain version (into
+    ``errs``); returns {case: fields}."""
+    dev = mesh.lead
+    out = {}
+    # the headline's first-match scan (the two-code kernel)
+    corpus, prog, ast, dfa, exp_first = inp["headline"]
+    sc1 = Scanner(prog, device=dev, ast=ast, dfa=dfa)
+    scm = Scanner(prog, device=dev, ast=ast, dfa=dfa, mesh=mesh)
+    p1, pm = sc1.prepare(corpus), scm.prepare(corpus)
+    want = sc1.scan(corpus, prepared=p1)
+    equal_to(exp_first, "headline end")(want[1])
+    out["headline_scan"] = mesh_pair(
+        len(corpus), lambda: sc1.scan(corpus, prepared=p1),
+        lambda: scm.scan(corpus, prepared=pm), equal_to(want, "scan"),
+        (lambda: scanner_repairs(sc1), lambda: scanner_repairs(scm)), errs)
+    del p1, pm, sc1
+    # the 90 keywords' Scanner.count (the wide tier)
+    mcorpus, msc, mprep, mexp = inp["multi"]
+    mscm = Scanner(msc.program, device=dev, ast=msc.ast, dfa=msc.dfa,
+                   mesh=mesh)
+    mpm = mscm.prepare(mcorpus)
+    out["multi_count"] = mesh_pair(
+        len(mcorpus), lambda: msc.count(mcorpus, prepared=mprep),
+        lambda: mscm.count(mcorpus, prepared=mpm), equal_to(mexp, "count"),
+        (lambda: scanner_repairs(msc), lambda: scanner_repairs(mscm)), errs)
+    del mpm
+    # the dictionary: the fused count (core_count_fused) and the static
+    # big count
+    bcorpus, bsc, bprep, bexp = inp["dictionary"]
+    spec = bsc._spec
+    fct = tcore.CoreTables(bsc.dfa, bsc._core_sample(bcorpus),
+                           max_escape_frac=tcore.FUSED_ESCAPE_FRAC,
+                           require_fast=False, no_pair=True,
+                           prefer_small=True, device=dev)
+    ck = tcore.fused_chunk(fct.inner, spec)
+    pc1 = tstream.PreparedCorpus(bcorpus, dev)
+    pcm = tstream.PreparedCorpus(bcorpus, dev, mesh=mesh)
+
+    def fused(pc, m):
+        st, c = tcore.core_count_fused(
+            fct, spec, bcorpus, chunk_len=ck,
+            prepared_core=pc.for_tables(fct.inner, ck),
+            prepared_full=pc.for_tables(spec, ck), mesh=m)
+        return c + int(bsc.dfa.match_eof[st]), fct.last_fused_cause
+
+    def fused_repairs():
+        return fct.last_escapes, fct.last_repair
+
+    out["dictionary_fused"] = mesh_pair(
+        len(bcorpus), lambda: fused(pc1, None), lambda: fused(pcm, mesh),
+        equal_to((bexp, None), "fused count, cause"),
+        (fused_repairs, fused_repairs), errs)
+    out["dictionary_fused"].update(H=fct.H, K=ck)
+
+    def static(pc, m):
+        st, c = scan.spec_count_bytes(spec, bcorpus, prepared=pc, mesh=m)
+        return c + int(bsc.dfa.match_eof[st])
+
+    out["dictionary_big"] = mesh_pair(
+        len(bcorpus), lambda: static(bprep.for_tables(spec), None),
+        lambda: static(pcm.for_tables(spec), mesh),
+        equal_to(bexp, "big count"),
+        (lambda: spec.last_repair, lambda: spec.last_repair), errs)
+    del pc1, pcm, fct
+    # the piecewise-affine count
+    acorpus, asc, aprep, aexp = inp["affine"]
+    at = asc._spec
+    apm = tstream.PreparedCorpus(acorpus, dev, mesh=mesh)
+
+    def affine(prep, m):
+        st, c = scan.spec_count_bytes(at, acorpus, prepared=prep, mesh=m)
+        return c + int(asc.dfa.match_eof[st])
+
+    out["affine_count"] = mesh_pair(
+        len(acorpus), lambda: affine(aprep.for_tables(at), None),
+        lambda: affine(apm.for_tables(at), mesh),
+        equal_to(aexp, "affine count"),
+        (lambda: at.last_repair, lambda: at.last_repair), errs)
+    del apm
+    # the no-static-tier machine on the legacy core
+    ncorpus = bcorpus[:MESH_CORE_MB << 20]
+    nsc = sregex_tpu_torch.compile_pattern(NO_TIER_PATTERN, device=dev)
+    nscm = Scanner(nsc.program, device=dev, ast=nsc.ast, dfa=nsc.dfa,
+                   mesh=mesh)
+    nexp = native_count(nsc, ncorpus)
+    n1, nm = nsc.prepare(ncorpus), nscm.prepare(ncorpus)
+    out["no_static_tier"] = mesh_pair(
+        len(ncorpus), lambda: nsc.count(ncorpus, prepared=n1),
+        lambda: nscm.count(ncorpus, prepared=nm),
+        equal_to(nexp, "no-tier count"),
+        (lambda: scanner_repairs(nsc), lambda: scanner_repairs(nscm)), errs)
+    out["no_static_tier"]["mb"] = MESH_CORE_MB
+    del n1, nm, nsc, nscm
+    # count_many over the batch phase's keyword documents
+    docs, counts = inp["docs"]
+    h1, hm = msc.prepare_many(docs), mscm.prepare_many(docs)
+    out["count_many"] = mesh_pair(
+        sum(map(len, docs)), lambda: msc.count_many(docs, prepared=h1),
+        lambda: mscm.count_many(docs, prepared=hm),
+        equal_to(counts, "count_many"),
+        (lambda: scanner_repairs(msc), lambda: scanner_repairs(mscm)), errs)
+    out["count_many"].update(docs=len(docs), api=mscm.stats().api)
+    del h1, hm
+    # count_stream of the keywords over 64 MB segments
+    scorpus = mcorpus[:MESH_CORE_MB << 20]
+    sexp = native_count(msc, scorpus)
+    out["count_stream"] = mesh_pair(
+        len(scorpus), lambda: msc.count_stream(segments(scorpus)),
+        lambda: mscm.count_stream(segments(scorpus)),
+        equal_to(sexp, "count_stream"),
+        (lambda: scanner_repairs(msc), lambda: scanner_repairs(mscm)), errs)
+    out["count_stream"].update(mb=MESH_CORE_MB, api=mscm.stats().api)
+    return out
+
+
+def multihost_corpus():
+    """The two processes' corpus: the headline's text (one match near the
+    end), and the ragged split's cut."""
+    corpus = headline_corpus(MESH_PROC_MB)
+    return corpus, len(corpus) * 2 // 5 + 12345
+
+
+def multihost_worker(rank, init, cards):
+    """One of the mesh phase's two processes (chip_smoke.py --multihost
+    RANK INIT CARDS): joins the gloo group through the file INIT, scans
+    its slice of multihost_corpus() on a mesh of the cards CARDS (indices,
+    comma-separated; "0,0" is two shards of cuda:0) with
+    parallel.multihost, aligned (host_slices) and ragged, and prints the
+    results and host-clock seconds (the second of two calls; the first's
+    beside it) as one JSON line."""
+    from sregex_tpu_torch.parallel import distributed, multihost
+    devs = [torch.device("cuda", int(c)) for c in cards.split(",")]
+    distributed.initialize("file://" + init, num_processes=2,
+                           process_id=rank)
+    mesh = make_mesh(devs)
+    tables = scan.SpecTables(build_dfa(compile_regex(parse(HEADLINE)[0])),
+                             devs[0])
+    corpus, cut = multihost_corpus()
+    n, K = len(corpus), MESH_PROC_K
+    out = {}
+    for name, slices in (("aligned", multihost.host_slices(
+            n, 2, K, 2 * mesh.size)), ("ragged", [(0, cut), (cut, n)])):
+        lo, hi = slices[rank]
+        part = corpus[lo:hi]
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            count = multihost.count_multihost(tables, part, mesh, K, n)
+            t1 = time.perf_counter()
+            first = multihost.scan_multihost(tables, part, mesh, K, n)
+            times.append((t1 - t0, time.perf_counter() - t1))
+        out[name] = dict(count=list(count), scan=list(first), bytes=hi - lo,
+                         count_s=times[1][0], scan_s=times[1][1],
+                         first_count_s=times[0][0],
+                         first_scan_s=times[0][1])
+    torch.distributed.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+def multihost_processes(cards=("0,0", "0,0")):
+    """Two processes over gloo (multihost_worker), process r on the cards
+    cards[r], each result equal to the native engine's over the whole
+    corpus."""
+    import tempfile
+    tmp = tempfile.mkdtemp()
+    init = os.path.join(tmp, "pg")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multihost", str(r),
+         init, cards[r]], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(2)]
+    try:
+        corpus, cut = multihost_corpus()
+        ast, _ = parse(HEADLINE)
+        sc = Scanner(compile_regex(ast), device=None, ast=ast)
+        k, kst = sc._native.count(corpus, 0)
+        f, rid, fst = sc._native.scan_first_id(corpus, 0)
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for name in os.listdir(tmp):
+            os.remove(os.path.join(tmp, name))
+        os.rmdir(tmp)
+    wall = time.perf_counter() - t0
+    got = []
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError("process %d failed:\n%s" % (r, se[-3000:]))
+        got.append(json.loads(so.strip().splitlines()[-1]))
+    want = dict(count=[kst, k], scan=[fst, f, rid])
+    for r, g in enumerate(got):
+        for name in ("aligned", "ragged"):
+            for key in ("count", "scan"):
+                if g[name][key] != want[key]:
+                    raise AssertionError("process %d, %s %s: %r != %r" % (
+                        r, name, key, g[name][key], want[key]))
+    return dict(mb=MESH_PROC_MB, bytes=len(corpus), K=MESH_PROC_K, cut=cut,
+                cards=list(cards), count=k, end=f, wall_s=wall, **{
+                    name: {key: (max(g[name][key] for g in got)
+                                 if key.endswith("_s")
+                                 else [g[name][key] for g in got])
+                           for key in ("bytes", "count_s", "scan_s",
+                                       "first_count_s", "first_scan_s")}
+                    for name in ("aligned", "ragged")})
+
+
+def mesh_phase(dev, inp, errs):
+    """The multi-device layer on the card: the mesh_cases over a virtual
+    mesh of MESH_SHARDS shards of ``dev`` on main's corpora and oracles
+    ``inp``, dryrun_multichip on the same virtual mesh, and two processes
+    over gloo on it; where torch sees more than one card, the same over
+    every card (each process on half of them).  Each sharded call's
+    kernel launches are held against their plain versions into
+    ``errs``.  Returns the phase's fields."""
+    from sregex_tpu_torch.parallel.dryrun import dryrun_multichip
+    t0 = time.perf_counter()
+    out = dict(shards=MESH_SHARDS,
+               virtual=mesh_cases(make_mesh([dev] * MESH_SHARDS), inp,
+                                  errs))
+    t1 = time.perf_counter()
+    out["dryrun"] = dryrun_multichip(MESH_SHARDS, [dev] * MESH_SHARDS)
+    out["dryrun_s"] = time.perf_counter() - t1
+    out["processes"] = multihost_processes()
+    ncards = torch.cuda.device_count()
+    if ncards > 1:
+        out["cards"] = mesh_cases(make_mesh(), inp, errs)
+        out["cards_dryrun"] = dryrun_multichip(ncards)
+        half = [",".join(str(c) for c in range(lo, lo + ncards // 2))
+                for lo in (0, ncards // 2)]
+        out["cards_processes"] = multihost_processes(half)
+    else:
+        out["cards"] = "not run: torch sees one card"
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def main():
@@ -2499,7 +2875,9 @@ def main():
     # a pattern past the eager DFA budget on the same corpus
     torch.cuda.reset_peak_memory_stats()
     say("lazy", **lazy_phase(mcorpus, mmb, dev))
-    del mcorpus
+    # the corpora and oracles the mesh phase runs again
+    mesh_inp = dict(headline=(corpus, prog, ast, dfa, exp_first),
+                    multi=(mcorpus, msc, mprep, mexp))
 
     # --- 6. affine: a base64-blob detector over log-like text ------------
     amb = mb_env("SREGEX_BENCH_AFFINE_MB")
@@ -2565,6 +2943,8 @@ def main():
         launches=launches["affine"], corpus_s=gen_s, settle_s=settle_s,
         native_s=anative_s,
         peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+    mesh_inp["affine"] = (acorpus, asc, aprep, aexp)
 
     # --- 7. big: a 500-keyword dictionary --------------------------------
     bmb = mb_env("SREGEX_BENCH_BIG_MB")
@@ -2735,6 +3115,7 @@ def main():
         overflow_arm=overflow, no_static_tier=no_tier,
         first_count_s=cfirst_s,
         peak_mem_bytes=torch.cuda.max_memory_allocated())
+    mesh_inp["dictionary"] = (bcorpus, bsc, bprep, bexp)
     del cprep, bcorpus, csc, fct
 
     # --- 9. find: a log-field extractor, certified in one pass -----------
@@ -2976,7 +3357,10 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    bline, blaunch = batch_phase(dev, pats, words, bsc, fsc, data, fevents)
+    keep = {}
+    bline, blaunch = batch_phase(dev, pats, words, bsc, fsc, data, fevents,
+                                 keep)
+    mesh_inp["docs"] = keep["multi"]
     tally(launches)
     if min(blaunch[k] for k in ("narrow", "wide", "big", "gated",
                                 "tdfa")) <= 0:
@@ -3104,6 +3488,19 @@ def main():
             kernel_ms_at_plain_shape=plain_kernel_ms, bound_ms=bms,
             bound_by=by, corpus_gbps=C * K / ms / 1e6, k=k_run,
             ms_by_k=by_k, scan_ms=scan_ms)
+    phi_stats.clear()
+
+    # --- 14. the mesh: the paths again, sharded, and two processes --------
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    mline = mesh_phase(dev, mesh_inp, errs)
+    mlaunch = launch_counts()
+    tally(launches)
+    if min(mlaunch[k] for k in ("narrow", "wide", "big", "affine",
+                                "gated")) <= 0:
+        raise AssertionError("the mesh phase's kernels: %r" % mlaunch)
+    say("mesh", **mline, launches=mlaunch,
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
     say("done", seconds=time.perf_counter() - t_start)
 
     print(smi, flush=True)
@@ -3151,4 +3548,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--multihost"]:
+        multihost_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        main()

@@ -35,8 +35,7 @@ import numpy as np
 import torch
 
 from .layout import SMEM_BYTES, max_chunk_bytes
-from .spec_scan import (_CPW, _Tables, _check_scan_args,
-                        _summary_and_planes, launch_planes)
+from .spec_scan import _CPW, _Tables, _check_scan_args, launch_planes
 
 _VAL_MASK = (1 << 27) - 1     # |delta*ncls + OFF| or absolute premult
 _MODE_BIT = 28                # 1 = relative (state + delta)
@@ -244,13 +243,10 @@ class SpecTablesAffine(_Tables):
         a = np.asarray(arr) // self.ncls
         return a if self.perm is None else self.inv[a]
 
-    def _scan(self, data, state0, j0, C, bad_tail, W, COUNT=False,
-              summary=True):
-        planes = affine_scan(data, state0, j0, self.fused, self.bp, W=W,
-                             CPW=self.cpw, BITS=self.bits, NCLS=self.ncls,
-                             OFF=self.off, COUNT=COUNT, relaid=self.relaid)
-        return _summary_and_planes(planes, state0, C, bad_tail, COUNT,
-                                   wide=True, summary=summary)
+    def _kernel(self, data, state0, j0, W, COUNT):
+        return affine_scan(data, state0, j0, self.fused, self.bp, W=W,
+                           CPW=self.cpw, BITS=self.bits, NCLS=self.ncls,
+                           OFF=self.off, COUNT=COUNT, relaid=self.relaid)
 
 
 def relay_table(fused, bp, ncls, bits, off, device):

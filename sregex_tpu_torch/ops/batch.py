@@ -48,8 +48,10 @@ import torch
 
 from ..native import NativeDfa
 from .big import SpecTablesBig
-from .core import _fused_batch, _fused_cap, _tier_statics, fused_chunk
+from .core import (_fused_batch, _fused_cap, _hot_map, _tier_statics,
+                   fused_chunk)
 from .layout import DEFAULT_K, GROUPS, TILE, effective_chunk
+from .mesh import fits
 from .prep import prepare_auto
 from .spec_scan import SpecTables, SpecTablesWide, _unpack
 
@@ -91,22 +93,23 @@ class PreparedBatch:
     it was built from.
 
     spans[d] = (first chunk, chunks, len(doc)); ``prepared`` the prep
-    tuple (packed, C, K, J, B); ``starts`` the document-start chunk
+    tuple (packed, C, K, J, B), made for a mesh where batch_prepare was
+    given one (its blocks divide over the mesh, and on a split mesh each
+    shard's lie on its device); ``starts`` the document-start chunk
     indices on the device (int64); ``full`` the full machine's prep of
     the same set for the fused batch (Scanner.prepare_many fills it);
     ``aux`` the fused batch's per-chunk document metadata on the device,
     built at its first call and reused."""
 
-    __slots__ = ("K", "spans", "prepared", "nbytes", "_key", "b_multiple",
-                 "starts", "full", "aux")
+    __slots__ = ("K", "spans", "prepared", "nbytes", "_key", "starts",
+                 "full", "aux")
 
-    def __init__(self, K, spans, prepared, nbytes, key, b_multiple=1):
+    def __init__(self, K, spans, prepared, nbytes, key):
         self.K = K
         self.spans = spans
         self.prepared = prepared
         self.nbytes = nbytes
         self._key = key
-        self.b_multiple = b_multiple
         # one upload of the document starts, shared by every call
         self.starts = torch.from_numpy(
             np.fromiter((s for s, _, _ in spans), dtype=np.int64,
@@ -121,22 +124,23 @@ def _pack_key(tables):
             tables.warmup)
 
 
-def _fits(prepared, tables, docs, K=None):
+def _fits(prepared, tables, docs, K=None, mesh=None):
     """Whether a handle was built for ``tables``' packing (and chunk
-    length K, where given) from documents of these lengths.  A handle
-    built from other documents would decode garbage silently, so any
-    length mismatch re-preps (the cheap check; byte identity is the
-    caller's side of the contract)."""
+    length K, where given) from documents of these lengths, and fits
+    ``mesh`` (ops/mesh.fits).  A handle built from other documents would
+    decode garbage silently, so any length mismatch re-preps (the cheap
+    check; byte identity is the caller's side of the contract)."""
     return (prepared is not None and prepared._key == _pack_key(tables)
             and (K is None or prepared.K == K)
+            and fits(prepared.prepared, mesh)
             and len(prepared.spans) == len(docs)
             and all(s[2] == len(d) for s, d in zip(prepared.spans, docs)))
 
 
-def batch_prepare(tables, docs, chunk_len=DEFAULT_K, b_multiple=1):
+def batch_prepare(tables, docs, chunk_len=DEFAULT_K, mesh=None):
     """Pack the document set into one chunk stream and put it on the
     tables' device (ops/prep.prepare_auto: the device prep for a large
-    set).  b_multiple pads the block count to a multiple of it."""
+    set), or prepare it for ``mesh``."""
     K = effective_chunk(tables, chunk_len)
     pad = bytes([_pad_byte(tables)])
     spans = []
@@ -155,33 +159,32 @@ def batch_prepare(tables, docs, chunk_len=DEFAULT_K, b_multiple=1):
             parts.append(pad * (cd * K - n))
         c += cd
     buf = b"".join(parts)
-    prepared = prepare_auto(tables, buf, K, b_multiple=b_multiple)
+    prepared = prepare_auto(tables, buf, K, mesh=mesh)
     assert prepared[2] == K and prepared[1] == c, (prepared[1:4], K, c)
-    return PreparedBatch(K, spans, prepared, nbytes, _pack_key(tables),
-                         b_multiple)
+    return PreparedBatch(K, spans, prepared, nbytes, _pack_key(tables))
 
 
 def _batch_dispatch(tables, docs, chunk_len, count, prepared=None,
-                    b_multiple=1):
+                    mesh=None):
     """Pack the documents into one chunk stream (or reuse a
-    PreparedBatch built for them), run one kernel pass and read the
-    per-chunk planes back.  Returns (K, spans, phi, cnt_or_any, swarm)
-    as int64 numpy over the C chunks.  The whole-stream summary is not
-    taken: its chain breaks at every document boundary by construction,
-    and the per-document fold reads the planes, so a core tier's ESC
-    check happens there too (_DocFold's ok_extra)."""
+    PreparedBatch built for them and fit for ``mesh``), run one kernel
+    pass, sharded over ``mesh``, and read the per-chunk planes back.
+    Returns (K, spans, phi, cnt_or_any, swarm) as int64 numpy over the C
+    chunks.  The whole-stream summary is not taken: its chain breaks at
+    every document boundary by construction, and the per-document fold
+    reads the planes, so a core tier's ESC check happens there too
+    (_DocFold's ok_extra)."""
     global last_timing
     t0 = time.perf_counter()
-    if not _fits(prepared, tables, docs) \
-            or prepared.b_multiple % b_multiple:
-        prepared = batch_prepare(tables, docs, chunk_len, b_multiple)
+    if not _fits(prepared, tables, docs, mesh=mesh):
+        prepared = batch_prepare(tables, docs, chunk_len, mesh)
     data, C, _, _, B = prepared.prepared
     W = tables.warmup
     topm = getattr(tables, "to_premult", None)
     s0, j0 = _batch_entry_planes(W, prepared.starts,
                                  topm(0) if topm else 0, B)
     _, packed = tables._scan(data, s0, j0, C, -1, W, COUNT=count,
-                             summary=False)
+                             summary=False, mesh=mesh)
     t1 = time.perf_counter()
     phi, aux, swarm = _unpack(packed, C)
     last_timing = {"dispatch_s": t1 - t0,
@@ -251,13 +254,15 @@ def _raw(doc):
     return doc if isinstance(doc, (bytes, bytearray)) else bytes(doc)
 
 
-def spec_count_many(tables, docs, chunk_len=DEFAULT_K, prepared=None):
+def spec_count_many(tables, docs, chunk_len=DEFAULT_K, prepared=None,
+                    mesh=None):
     """Per-document match-boundary counts (boundaries 0..n_d-1; the EOF
     boundary is the caller's, per document).  Returns (counts,
     final_states, nat_chunks, total_chunks); nat_chunks counts the
-    chunks re-walked natively (ragged tails and speculation misses)."""
+    chunks re-walked natively (ragged tails and speculation misses).
+    ``mesh`` shards the one kernel pass over its devices."""
     K, spans, phi, cnt, swarm = _batch_dispatch(tables, docs, chunk_len,
-                                                True, prepared)
+                                                True, prepared, mesh)
     t_fold = time.perf_counter()
     ncls = tables.ncls
     topm = getattr(tables, "to_premult", None) or (lambda v: v * ncls)
@@ -293,14 +298,15 @@ def spec_count_many(tables, docs, chunk_len=DEFAULT_K, prepared=None):
     return counts, finals, nat, len(phi)
 
 
-def spec_scan_many(tables, docs, chunk_len=DEFAULT_K, prepared=None):
+def spec_scan_many(tables, docs, chunk_len=DEFAULT_K, prepared=None,
+                   mesh=None):
     """Per-document first-match scan.  Returns (results, nat_chunks,
     total_chunks); results[d] = (state at the boundary, boundary) for a
     match at boundaries 0..n_d-1, else (final state, -1).  EOF
     acceptance is the caller's (tables.match_eof), as for
-    spec_scan_bytes."""
+    spec_scan_bytes.  ``mesh`` as for spec_count_many."""
     K, spans, phi, many, swarm = _batch_dispatch(tables, docs, chunk_len,
-                                                 False, prepared)
+                                                 False, prepared, mesh)
     t_fold = time.perf_counter()
     ncls = tables.ncls
     topm = getattr(tables, "to_premult", None) or (lambda v: v * ncls)
@@ -396,10 +402,6 @@ def _fused_batch_dispatch(ct, full_tables, docs, chunk_len, prepared_core,
 
     _, w1, _, _, _ = _tier_statics(inner)
     _, w2, _, _, _ = _tier_statics(full_tables)
-    if ct._h2f_dev is None:
-        h2f = np.full(ct.H + 1, -1, dtype=np.int32)
-        h2f[:ct.H] = np.asarray(ct.hot2full[:ct.H], dtype=np.int32)
-        ct._h2f_dev = torch.from_numpy(h2f).to(ct.device)
     cap = _fused_cap(B1)
     ndocs = len(docs)
     Cp = B1 * GROUPS * TILE
@@ -412,7 +414,8 @@ def _fused_batch_dispatch(ct, full_tables, docs, chunk_len, prepared_core,
         .index_fill_(0, pc.starts, int(w2))
     summary, merged, packed, _ = _fused_batch(
         core_data, full_data, s01, j01, p2_j0, inner, full_tables,
-        ct._h2f_dev, C, doc_id, fullv, startv, last_full, CAP=cap,
+        _hot_map(ct), C, doc_id, fullv, startv, last_full,
+        CAP=cap,
         ESC=ct.esc_premult, NDOCS=ndocs)
     t1 = time.perf_counter()
     summ = summary.cpu().numpy().astype(np.int64)
@@ -628,7 +631,8 @@ def core_scan_many_fused(ct, full_tables, docs, chunk_len=DEFAULT_K,
     return results, nat, d["C"]
 
 
-def core_count_many(ct, docs, chunk_len=DEFAULT_K, prepared=None):
+def core_count_many(ct, docs, chunk_len=DEFAULT_K, prepared=None,
+                    mesh=None):
     """Per-document counts on the legacy core tier: one kernel pass over
     the sampled hot-core machine serves the whole set (the batched
     core_count_bytes, for machines with no static tier).
@@ -638,9 +642,9 @@ def core_count_many(ct, docs, chunk_len=DEFAULT_K, prepared=None):
     the chained entry and it never left the core (phi != ESC); escapes,
     ragged tails and cold entries re-walk natively on the FULL machine
     (ct.native).  Returns (counts, final FULL states, nat_chunks,
-    total_chunks)."""
+    total_chunks).  ``mesh`` as for spec_count_many."""
     K, spans, phi, cnt, swarm = _batch_dispatch(ct.inner, docs, chunk_len,
-                                                True, prepared)
+                                                True, prepared, mesh)
     t_fold = time.perf_counter()
     native = ct.native
     fold = _DocFold(phi, cnt, swarm, spans, K,
@@ -673,12 +677,14 @@ def core_count_many(ct, docs, chunk_len=DEFAULT_K, prepared=None):
     return counts, finals, nat, len(phi)
 
 
-def core_scan_many(ct, docs, chunk_len=DEFAULT_K, prepared=None):
+def core_scan_many(ct, docs, chunk_len=DEFAULT_K, prepared=None,
+                   mesh=None):
     """Per-document first-match scan on the legacy core tier; the
     contract of spec_scan_many with FULL-machine states: results[d] =
-    (full state at the boundary, boundary) or (final full state, -1)."""
+    (full state at the boundary, boundary) or (final full state, -1).
+    ``mesh`` as for spec_count_many."""
     K, spans, phi, many, swarm = _batch_dispatch(ct.inner, docs, chunk_len,
-                                                 False, prepared)
+                                                 False, prepared, mesh)
     t_fold = time.perf_counter()
     native = ct.native
     fold = _DocFold(phi, many, swarm, spans, K, quiet=True,

@@ -28,9 +28,8 @@ import numpy as np
 import torch
 
 from .layout import _MATCH_SHIFT, _STATE_MASK, SMEM_BYTES, max_chunk_bytes
-from .spec_scan import (_CPW, _Tables, _check_scan_args,
-                        _summary_and_planes, fused_table, launch_planes,
-                        spec_scan_ref)
+from .spec_scan import (_CPW, _Tables, _check_scan_args, fused_table,
+                        launch_planes, spec_scan_ref)
 
 MAX_ENTRIES = 1 << 17      # S*ncls cap, as in the JAX package
 
@@ -78,12 +77,9 @@ class SpecTablesBig(_Tables):
         self.t16 = big16_table(fused, self.ncls, self.nstates, self.bits,
                                self.device)
 
-    def _scan(self, data, state0, j0, C, bad_tail, W, COUNT=False,
-              esc=None, summary=True):
-        planes = big_scan(data, state0, j0, self.fused, W=W, CPW=self.cpw,
-                          BITS=self.bits, COUNT=COUNT, t16=self.t16)
-        return _summary_and_planes(planes, state0, C, bad_tail, COUNT,
-                                   wide=True, ESC=esc, summary=summary)
+    def _kernel(self, data, state0, j0, W, COUNT):
+        return big_scan(data, state0, j0, self.fused, W=W, CPW=self.cpw,
+                        BITS=self.bits, COUNT=COUNT, t16=self.t16)
 
 
 def big16_table(fused, ncls, nstates, bits, device):

@@ -1,8 +1,9 @@
 """Adaptive hot-core tiers: big automata at the small tables' speed.
 
-Counterpart of the JAX package's ops/pallas_core.py (the single-device
-count, first-match, last-match, chunk-map and batch parts, over the
-dense or the lazy machine; its mesh parts are not ported yet).
+Counterpart of the JAX package's ops/pallas_core.py (the count,
+first-match, last-match, chunk-map and batch parts, over the dense or
+the lazy machine, on one device or sharded over a device mesh,
+ops/mesh.py).
 
 A DFA scan over real data visits a small, skewed subset of its states.
 The core tiers sample the corpus, count the visits per state with the
@@ -37,6 +38,16 @@ Everything here is torch ops on the tables' device and one stream; the
 first host sync of a fused scan is its summary readback.  On the card
 gated_scan launches csrc/gated_scan.cu; on the CPU it takes
 gated_scan_ref, which gathers the windows (_gather_windows) first.
+
+On a mesh the legacy tier's scan shards as the static tiers' does, and
+the fused tier runs both phases, the compaction and the merge per shard
+over its own blocks (_fused_count_mesh, the JAX package's
+_fused_count_mesh): chunk slots are in order within a shard, so phase 2
+never reads another shard's prep, and the cap is per shard.  The merged
+chain is stitched by one copy of each shard's last merged exit to the
+next shard's device; each shard reports an 11-int partial summary, and
+_combine_fused_summaries folds them on the host into the single-device
+summary, so the folds downstream are mesh-agnostic.
 """
 
 import functools
@@ -51,6 +62,7 @@ from ..native import NativeDfa
 from .big import MAX_ENTRIES as BIG_MAX_ENTRIES
 from .big import SpecTablesBig, check_t16
 from .layout import DEFAULT_K, GROUPS, SMEM_TABLE_MAX, TILE, effective_chunk
+from .mesh import fits, replica, shard_blocks, shard_rows
 from .pair import SpecTablesPair
 from .prep import prepare_auto
 from .spec_scan import (SpecTables, SpecTablesWide, _chain_ends, _chain_map,
@@ -316,39 +328,41 @@ class _Fold:
         return int(self.cum[b] - lo)
 
 
-def _run(ct, data_np, chunk_len, entry_state, prepared, COUNT):
-    """Prep (unless given) and the inner tier's scan with the ESC check.
-    Returns (summary int64 [10], packed planes on the device, raw host
-    bytes, C, K, n)."""
+def _run(ct, data_np, chunk_len, entry_state, prepared, COUNT, mesh=None):
+    """Prep (unless given and fit for ``mesh``) and the inner tier's scan
+    with the ESC check, sharded over ``mesh`` (the fold is
+    mesh-agnostic).  Returns (summary int64 [10], packed planes on the
+    device, raw host bytes, C, K, n)."""
     inner = ct.inner
     n = len(data_np)
     W = inner.warmup
-    if prepared is None:
-        prepared = prepare_auto(inner, data_np, chunk_len)
+    if prepared is None or not fits(prepared, mesh):
+        prepared = prepare_auto(inner, data_np, chunk_len, mesh=mesh)
     data, C, K, _J, B = prepared
     ep = ct.to_core_premult(entry_state)
     assert ep >= 0, "entry state must be in the core (caller checks)"
     s0p, j0p = _entry_planes(ep, W, B, data.device)
     bad_tail = (C - 1) if C * K > n and (n - (C - 1) * K) != K else -1
     summary, packed = inner._scan(data, s0p, j0p, C, bad_tail, W,
-                                  COUNT=COUNT, esc=ct.esc_premult)
+                                  COUNT=COUNT, esc=ct.esc_premult,
+                                  mesh=mesh)
     summ = summary.cpu().numpy().astype(np.int64)
     ct.last_repair = None   # set by completed scans: (native chunks, C)
     return summ, packed, _host_bytes(data_np), C, K, n
 
 
 def core_scan_bytes(ct, data_np, chunk_len=DEFAULT_K, entry_state=0,
-                    prepared=None):
+                    prepared=None, mesh=None):
     """Whole-buffer first-match scan on the legacy core tier.  Contract
     of spec_scan_bytes: (final FULL state, first match boundary or -1);
     on a match the state is the full state AT the boundary.  Escaped,
     fired or speculation-missed chunks re-scan natively on the FULL
-    machine."""
+    machine.  ``mesh`` shards the scan over its devices."""
     n = len(data_np)
     if n == 0:
         return entry_state, -1
     summ, packed, raw, C, K, n = _run(ct, data_np, chunk_len,
-                                      entry_state, prepared, False)
+                                      entry_state, prepared, False, mesh)
     if bool(summ[0]):
         # every chunk validated: no fires, no escapes, chain exact
         ct.last_repair = (0, C)
@@ -377,19 +391,20 @@ def core_scan_bytes(ct, data_np, chunk_len=DEFAULT_K, entry_state=0,
 
 
 def core_scan_last_bytes(ct, data_np, chunk_len=DEFAULT_K, entry_state=0,
-                         prepared=None):
+                         prepared=None, mesh=None):
     """The LAST boundary (0..n-1) at which a match ends, on the legacy
     core tier: the contract of spec_scan_last_bytes with FULL states,
     (final FULL state, last match boundary or -1); find's reverse start
     locator over CoreTables and LazyCoreTables.  One COUNT scan with the
     ESC check; the position inside the last firing chunk is always
     pinned by a native scan_last of that one chunk on the FULL machine,
-    so the core's match bits never reach the answer."""
+    so the core's match bits never reach the answer.  ``mesh`` as for
+    core_scan_bytes."""
     n = len(data_np)
     if n == 0:
         return entry_state, -1
     summ, packed, raw, C, K, n = _run(ct, data_np, chunk_len,
-                                      entry_state, prepared, True)
+                                      entry_state, prepared, True, mesh)
     native = ct.native
     if bool(summ[0]):
         ct.last_repair = (0, C)
@@ -442,15 +457,15 @@ def core_scan_last_bytes(ct, data_np, chunk_len=DEFAULT_K, entry_state=0,
 
 
 def core_count_bytes(ct, data_np, chunk_len=DEFAULT_K, entry_state=0,
-                     prepared=None):
+                     prepared=None, mesh=None):
     """Count match-ending boundaries (0..n-1; EOF is the caller's) on
     the legacy core tier.  Contract of spec_count_bytes with FULL
-    states."""
+    states.  ``mesh`` as for core_scan_bytes."""
     n = len(data_np)
     if n == 0:
         return entry_state, 0
     summ, packed, raw, C, K, n = _run(ct, data_np, chunk_len,
-                                      entry_state, prepared, True)
+                                      entry_state, prepared, True, mesh)
     if bool(summ[0]):
         ct.last_repair = (0, C)
         if n < 2 ** 31:
@@ -484,20 +499,20 @@ def core_count_bytes(ct, data_np, chunk_len=DEFAULT_K, entry_state=0,
 
 
 def core_chunk_map(ct, data_np, chunk_len=DEFAULT_K, entry_state=0,
-                   prepared=None):
+                   prepared=None, mesh=None):
     """Validated per-chunk scan map on the legacy core tier (CoreTables
     or LazyCoreTables): (entries [C] FULL plain states, counts [C],
     final FULL state), all exact.  Contract of spec_chunk_map, the
     finditer start locator's building block: every trusted run (the
     validated prefix among them) maps in one vector op; escaped or
     speculation-missed chunks are re-counted natively on the FULL
-    machine."""
+    machine.  ``mesh`` as for core_scan_bytes."""
     n = len(data_np)
     if n == 0:
         return (np.zeros(0, np.int64), np.zeros(0, np.int64),
                 entry_state)
     _, packed, raw, C, K, n = _run(ct, data_np, chunk_len, entry_state,
-                                   prepared, True)
+                                   prepared, True, mesh)
     fold = _Fold(ct, packed, C, K, n, quiet=False)
     entries = np.zeros(C, dtype=np.int64)
     counts = fold.cnt.astype(np.int64).copy()
@@ -771,32 +786,45 @@ def _fused_count(core_data, full_data, inner, full_tables, hot2full, C,
      overflow) = _fused_phases(core_data, full_data, s01, j01, inner,
                                full_tables, hot2full, live, CAP=CAP,
                                ESC=ESC)
-
-    # ---- the merged validation chain (FULL premult space) ----
     e0 = torch.full((1,), entry_full, dtype=torch.int32, device=dev)
-    entries = torch.cat([e0, phi_m[:-1]])
-    okv = (swarm_m == entries) | ~live
-    chain_ok = okv.all()
-    all_ok = chain_ok & ~overflow
-    fb = torch.argmin(okv.to(torch.int32))
-    fb_eff = torch.where(chain_ok, C, fb)
-    prefix = torch.where((idx < fb_eff) & live, fm_m, 0).sum()
-    # the first firing chunk in the validated prefix and its exact entry
-    # (a first-match scan pins the boundary with one native chunk scan)
-    firev = (fm_m > 0) & (idx < fb_eff) & live
-    any_fire = firev.any()
-    ff = torch.where(any_fire, torch.argmax(firev.to(torch.int32)), 0)
-    i32 = torch.int32
-    summary = torch.cat([
-        all_ok.to(i32).reshape(1), fb.to(i32).reshape(1),
-        _at(entries, fb), _at(swarm_m, fb), _at(phi_m, fb),
-        phi_m[C - 1:C], prefix.to(i32).reshape(1),
-        overflow.to(i32).reshape(1), n_esc.reshape(1),
-        torch.where(any_fire, ff, -1).to(i32).reshape(1),
-        _at(entries, ff)])
+    summary = _chain_summary(phi_m, fm_m, swarm_m, e0, idx, live, 0, C,
+                             overflow, n_esc)
     merged = torch.stack([phi_m, fm_m, swarm_m])
     packed_core = torch.stack([phi1, fm1, swarm1])
     return summary, merged, packed_core
+
+
+def _chain_summary(phi_m, fm_m, swarm_m, entry0, idx, live, base, C,
+                   overflow, n_esc):
+    """The merged validation chain (FULL premult space) over a run of
+    chunk slots entered at ``entry0`` (int32 [1]), and its 11-int
+    summary (_fused_count's layout).  ``idx`` the slots' local indices,
+    ``live`` whether each holds a chunk below C, ``base`` the global
+    index of the first slot (0 on one device, a shard's offset on a
+    mesh): [1] and [9] are global, [5] reads the slot of chunk C-1
+    clipped to the run (only its owner's is read on a mesh)."""
+    i32 = torch.int32
+    entries = torch.cat([entry0, phi_m[:-1]])
+    okv = (swarm_m == entries) | ~live
+    chain_ok = okv.all()
+    fb = torch.argmin(okv.to(i32))
+    fb_eff = torch.where(chain_ok, phi_m.shape[0], fb)
+    valid = (idx < fb_eff) & live
+    prefix = torch.where(valid, fm_m, 0).sum()
+    # the first firing chunk in the validated prefix and its exact entry
+    # (a first-match scan pins the boundary with one native chunk scan)
+    firev = (fm_m > 0) & valid
+    any_fire = firev.any()
+    ff = torch.where(any_fire, torch.argmax(firev.to(i32)), 0)
+    last = min(max(C - 1 - base, 0), phi_m.shape[0] - 1)
+    return torch.cat([
+        (chain_ok & ~overflow).to(i32).reshape(1),
+        (fb + base).to(i32).reshape(1), _at(entries, fb),
+        _at(swarm_m, fb), _at(phi_m, fb), phi_m[last:last + 1],
+        prefix.to(i32).reshape(1), overflow.to(i32).reshape(1),
+        n_esc.reshape(1),
+        torch.where(any_fire, ff + base, -1).to(i32).reshape(1),
+        _at(entries, ff)])
 
 
 def _fused_batch(core_data, full_data, s01, j01, p2_j0, inner, full_tables,
@@ -852,6 +880,106 @@ def _fused_batch(core_data, full_data, s01, j01, p2_j0, inner, full_tables,
     return summary, merged, packed, flags
 
 
+def _fused_count_mesh(core_data, full_data, ct, inner, full_tables, C,
+                      entry_core, entry_full, *, CAP, ESC, mesh):
+    """_fused_count sharded over ``mesh`` (the JAX package's
+    _fused_count_mesh): each shard runs _fused_phases over its own block
+    rows, with ``live`` from the global chunk index (base + idx < C) and
+    the global entry planes' slice (the true entry, its warmup frozen,
+    only at global chunk 0), then its link of the merged chain, entered
+    at the previous shard's last merged exit (one copy to its device;
+    shard 0 takes the caller's entry).  Shard order keeps every launch
+    of every shard enqueued before the first exit is read.
+
+    Returns (per-shard partial summaries int32 [ndev, 11], merged int32
+    [3, Cp] and core planes int32 [3, Cp] in global chunk order), on the
+    lead device.  A partial summary is _chain_summary's over the shard's
+    link: [0] its chain valid and no overflow, [1] the global index of
+    its first break, [5] phi at its slot of chunk C-1 (clipped), [9] its
+    first fire in its validated prefix (global, -1 none)."""
+    lead = mesh.lead
+    i32 = torch.int32
+    rows = shard_rows(core_data.shape[0], mesh)
+    Cp_l = rows * GROUPS * TILE
+    s01, j01 = _entry_planes(entry_core, inner.warmup, core_data.shape[0],
+                             lead)
+    cores = shard_blocks(core_data, mesh)
+    fulls = shard_blocks(full_data, mesh)
+    shards = []
+    for i, dev in enumerate(mesh.devices):
+        cut = slice(i * rows, (i + 1) * rows)
+        base = i * Cp_l
+        idx = torch.arange(Cp_l, dtype=i32, device=dev)
+        live = idx + base < C
+        out = _fused_phases(
+            cores[i], fulls[i], s01[cut].to(dev, non_blocking=True),
+            j01[cut].to(dev, non_blocking=True), replica(inner, dev),
+            replica(full_tables, dev), _hot_map(replica(ct, dev)), live,
+            CAP=CAP, ESC=ESC)
+        shards.append((dev, base, idx, live, out))
+    summaries, merged, packed = [], [], []
+    prev = torch.full((1,), entry_full, dtype=i32, device=lead)
+    for dev, base, idx, live, out in shards:
+        phi_m, fm_m, swarm_m, phi1, fm1, swarm1, n_esc, overflow = out
+        summary = _chain_summary(phi_m, fm_m, swarm_m,
+                                 prev.to(dev, non_blocking=True), idx, live,
+                                 base, C, overflow, n_esc)
+        prev = phi_m[-1:]
+        summaries.append(summary.to(lead, non_blocking=True))
+        merged.append(torch.stack([phi_m, fm_m, swarm_m])
+                      .to(lead, non_blocking=True))
+        packed.append(torch.stack([phi1, fm1, swarm1])
+                      .to(lead, non_blocking=True))
+    return (torch.stack(summaries), torch.cat(merged, 1),
+            torch.cat(packed, 1))
+
+
+def _combine_fused_summaries(S, C, Cp_l):
+    """Host fold of the per-shard partial summaries (_fused_count_mesh)
+    into the exact single-device 11-int summary, the JAX package's
+    _combine_fused_summaries.  The global chain validates iff every
+    shard's local chain (its stitch included) validates; the first break
+    is the first breaking shard's, the validated-prefix count sums the
+    whole shards before it and its local prefix, and the first fire is
+    the first firing shard's at or before it.  int64 numpy [11]."""
+    S = np.asarray(S).astype(np.int64)
+    ndev = S.shape[0]
+    owner = min((C - 1) // Cp_l, ndev - 1)
+    phi_last = int(S[owner, 5])
+    n_esc = int(S[:, 8].sum())
+    overflow = int(bool(S[:, 7].any()))
+    bad = np.flatnonzero(S[:, 0] == 0)
+    if len(bad) == 0:
+        all_ok, s_star = 1, ndev
+        fb, e_fb, sw_fb, phi_fb = C, 0, 0, 0
+        prefix = int(S[:, 6].sum())
+    else:
+        all_ok, s_star = 0, int(bad[0])
+        fb = int(S[s_star, 1])
+        e_fb = int(S[s_star, 2])
+        sw_fb = int(S[s_star, 3])
+        phi_fb = int(S[s_star, 4])
+        prefix = int(S[:s_star, 6].sum() + S[s_star, 6])
+    ff, e_ff = -1, 0
+    for s in range(min(s_star + 1, ndev)):
+        if S[s, 9] >= 0:
+            ff, e_ff = int(S[s, 9]), int(S[s, 10])
+            break
+    return np.array([all_ok, fb, e_fb, sw_fb, phi_fb, phi_last,
+                     prefix, overflow, n_esc, ff, e_ff], dtype=np.int64)
+
+
+def _hot_map(ct):
+    """The hot -> full state map on ct.device (entry H, the clamp target
+    of ESC, is -1): uploaded once per CoreTables (a mesh shard reads its
+    replica's, ops/mesh.replica)."""
+    if ct._h2f_dev is None:
+        h2f = np.full(ct.H + 1, -1, dtype=np.int32)
+        h2f[:ct.H] = np.asarray(ct.hot2full[:ct.H], dtype=np.int32)
+        ct._h2f_dev = torch.from_numpy(h2f).to(ct.device)
+    return ct._h2f_dev
+
+
 def _fused_cap(B1):
     """The phase-2 capacity for B1 phase-1 block rows: FUSED_CAP, never
     more chunk slots than phase 1 has, and always whole phase-2 block
@@ -862,11 +990,16 @@ def _fused_cap(B1):
 
 
 def _fused_dispatch(ct, full_tables, data_np, chunk_len, entry_state,
-                    prepared_core, prepared_full):
+                    prepared_core, prepared_full, mesh=None):
     """Shared set-up and dispatch of the fused entry points.  Returns
     None when the shapes disqualify the fused tier, else a dict with
     the summary (int64 numpy, or None), the merged and core planes on
-    the device, and the chunking."""
+    the device, and the chunking.  ``mesh`` shards the whole two-phase
+    dispatch (_fused_count_mesh; the cap is per shard); the per-shard
+    summaries (``shard_summ``, int64 [ndev, 11]) are folded into the
+    single-device summary here, so the folds of the entry points stay
+    mesh-agnostic.  A caller's prep that does not fit the mesh is made
+    again."""
     inner = ct.inner
     if not isinstance(inner, (SpecTables, SpecTablesWide)) \
             or not isinstance(full_tables, (SpecTables, SpecTablesWide,
@@ -879,17 +1012,20 @@ def _fused_dispatch(ct, full_tables, data_np, chunk_len, entry_state,
     ep = ct.to_core_premult(entry_state)
     if ep < 0:
         return None
-    if n and prepared_core is not None and prepared_core[2] != K1:
-        prepared_core = None      # the caller's prep predates K alignment
-    if n and prepared_full is not None and prepared_full[2] != K1:
+    # a caller's prep that predates K alignment, or does not fit the mesh
+    if n and prepared_core is not None and (
+            prepared_core[2] != K1 or not fits(prepared_core, mesh)):
+        prepared_core = None
+    if n and prepared_full is not None and (
+            prepared_full[2] != K1 or not fits(prepared_full, mesh)):
         prepared_full = None
     if n == 0:
         return {"summ": None, "C": 0, "Cfull": 0, "K": K1, "n": 0,
                 "B1": 0, "merged": None, "packed_core": None}
     if prepared_core is None:
-        prepared_core = prepare_auto(inner, data_np, K1)
+        prepared_core = prepare_auto(inner, data_np, K1, mesh=mesh)
     if prepared_full is None:
-        prepared_full = prepare_auto(full_tables, data_np, K1)
+        prepared_full = prepare_auto(full_tables, data_np, K1, mesh=mesh)
     core_data, C, K, _, B1 = prepared_core
     full_data, Cf, Kf, _, _ = prepared_full
     assert (C, K) == (Cf, Kf), "preps disagree on chunking"
@@ -898,29 +1034,36 @@ def _fused_dispatch(ct, full_tables, data_np, chunk_len, entry_state,
     # host from the composed exit
     Cfull = C - 1 if C * K > n and (n - (C - 1) * K) != K else C
 
-    # the hot -> full map, on the device once per CoreTables (entry H,
-    # the clamp target of ESC, is -1)
-    if ct._h2f_dev is None:
-        h2f = np.full(ct.H + 1, -1, dtype=np.int32)
-        h2f[:ct.H] = np.asarray(ct.hot2full[:ct.H], dtype=np.int32)
-        ct._h2f_dev = torch.from_numpy(h2f).to(ct.device)
-    cap = _fused_cap(B1)
-    summ = merged = packed_core = None
+    ndev = 1 if mesh is None else mesh.size
+    cap = _fused_cap(B1 // ndev)
+    summ = merged = packed_core = shard_summ = None
     if Cfull > 0:
         t_disp = time.perf_counter()
-        summary, merged, packed_core = _fused_count(
-            core_data, full_data, inner, full_tables, ct._h2f_dev, Cfull,
-            ep, entry_state * full_tables.ncls, CAP=cap,
-            ESC=ct.esc_premult)
-        t_read = time.perf_counter()
-        summ = summary.cpu().numpy().astype(np.int64)
+        if mesh is None:
+            summary, merged, packed_core = _fused_count(
+                core_data, full_data, inner, full_tables,
+                _hot_map(ct), Cfull, ep,
+                entry_state * full_tables.ncls, CAP=cap,
+                ESC=ct.esc_premult)
+            t_read = time.perf_counter()
+            summ = summary.cpu().numpy().astype(np.int64)
+        else:
+            summary, merged, packed_core = _fused_count_mesh(
+                core_data, full_data, ct, inner, full_tables, Cfull, ep,
+                entry_state * full_tables.ncls, CAP=cap,
+                ESC=ct.esc_premult, mesh=mesh)
+            t_read = time.perf_counter()
+            shard_summ = summary.cpu().numpy().astype(np.int64)
+            summ = _combine_fused_summaries(
+                shard_summ, Cfull, B1 // ndev * GROUPS * TILE)
         ct.last_escapes = (int(summ[8]), bool(summ[7]))
         # host clock: enqueueing the device work vs waiting for the
         # summary (the first sync)
         ct.last_timing = {"enqueue_s": t_read - t_disp,
                           "readback_s": time.perf_counter() - t_read}
     return {"summ": summ, "C": C, "Cfull": Cfull, "K": K, "n": n,
-            "B1": B1, "merged": merged, "packed_core": packed_core}
+            "B1": B1, "merged": merged, "packed_core": packed_core,
+            "shard_summ": shard_summ}
 
 
 def _core_fold(ct, d, quiet):
@@ -934,15 +1077,16 @@ def _core_fold(ct, d, quiet):
 
 def core_count_fused(ct, full_tables, data_np, chunk_len=DEFAULT_K,
                      entry_state=0, prepared_core=None,
-                     prepared_full=None):
+                     prepared_full=None, mesh=None):
     """Count match-ending boundaries (0..n-1; EOF is the caller's) on
     the fused two-phase tier.  Contract of core_count_bytes.  Returns
     None when the shapes disqualify it (the caller then declines the
     tier).  ct.last_fused_cause says why the scan repaired on the host:
     "overflow" (more escapes than the device cap: re-coring helps),
-    "miss" (the merged chain broke: a longer warmup helps) or None."""
+    "miss" (the merged chain broke: a longer warmup helps) or None.
+    ``mesh`` shards the two-phase dispatch over its devices."""
     d = _fused_dispatch(ct, full_tables, data_np, chunk_len, entry_state,
-                        prepared_core, prepared_full)
+                        prepared_core, prepared_full, mesh)
     if d is None:
         return None
     if d["n"] == 0:
@@ -1022,14 +1166,16 @@ def core_count_fused(ct, full_tables, data_np, chunk_len=DEFAULT_K,
 
 
 def core_scan_fused(ct, full_tables, data_np, chunk_len=DEFAULT_K,
-                    entry_state=0, prepared_core=None, prepared_full=None):
+                    entry_state=0, prepared_core=None, prepared_full=None,
+                    mesh=None):
     """First-match scan on the fused two-phase tier.  Contract of
     core_scan_bytes: (state, boundary or -1), the state AT the boundary
     on a match.  Returns None when the shapes disqualify the tier.  The
     first firing chunk's exact position is pinned with one native
-    full-machine chunk scan from its validated entry."""
+    full-machine chunk scan from its validated entry.  ``mesh`` as for
+    core_count_fused."""
     d = _fused_dispatch(ct, full_tables, data_np, chunk_len, entry_state,
-                        prepared_core, prepared_full)
+                        prepared_core, prepared_full, mesh)
     if d is None:
         return None
     if d["n"] == 0:
@@ -1112,7 +1258,7 @@ def core_scan_fused(ct, full_tables, data_np, chunk_len=DEFAULT_K,
 
 def core_chunk_map_fused(ct, full_tables, data_np, chunk_len=DEFAULT_K,
                          entry_state=0, prepared_core=None,
-                         prepared_full=None):
+                         prepared_full=None, mesh=None):
     """Validated per-chunk scan map on the fused two-phase tier:
     (entries [C] FULL plain states, counts [C], final FULL state), all
     exact; the contract of core_chunk_map, with escaped chunks redone by
@@ -1121,9 +1267,10 @@ def core_chunk_map_fused(ct, full_tables, data_np, chunk_len=DEFAULT_K,
     disqualify the fused tier.  The full-chunk region maps through
     _chain_map over the merged planes, or on an overflow (more escapes
     than the device cap) over the legacy core planes; the ragged tail
-    finishes natively.  ct.last_fused_cause as in core_count_fused."""
+    finishes natively.  ct.last_fused_cause and ``mesh`` as in
+    core_count_fused."""
     d = _fused_dispatch(ct, full_tables, data_np, chunk_len, entry_state,
-                        prepared_core, prepared_full)
+                        prepared_core, prepared_full, mesh)
     if d is None:
         return None
     if d["n"] == 0:

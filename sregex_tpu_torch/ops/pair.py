@@ -15,7 +15,7 @@ J, W and j0 arrive in bytes and are halved into pair units here.
 import numpy as np
 
 from .layout import _MATCH_SHIFT, max_chunk_bytes
-from .spec_scan import _CPW, _spec_scan, _Tables
+from .spec_scan import _CPW, _Tables, spec_scan
 
 
 class SpecTablesPair(_Tables):
@@ -56,10 +56,8 @@ class SpecTablesPair(_Tables):
         self.max_chunk = max_chunk_bytes(self.cpw, bpu=2)
         self._finish(dfa, fused, device)
 
-    def _scan(self, data, state0, j0, C, bad_tail, W, COUNT=False,
-              esc=None, summary=True):
+    def _kernel(self, data, state0, j0, W, COUNT):
         # W and j0 arrive in bytes; the kernel steps in pairs
-        return _spec_scan(data, state0, j0 // 2, self.fused, C, bad_tail,
-                          W=W // 2, CPW=self.cpw, BITS=self.bits,
-                          COUNT=COUNT, wide=self.wide, ESC=esc,
-                          pair=self.pair, summary=summary)
+        return spec_scan(data, state0, j0 // 2, self.fused, W=W // 2,
+                         CPW=self.cpw, BITS=self.bits, COUNT=COUNT,
+                         pair=self.pair)

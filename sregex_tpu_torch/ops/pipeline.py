@@ -1,8 +1,7 @@
 """Pipelined streaming scan: overlap each segment's upload with the
 kernel of the segment before it.
 
-Counterpart of the JAX package's ops/pipeline.py (single device; its
-mesh parameter is not ported).  The single-buffer scans
+Counterpart of the JAX package's ops/pipeline.py.  The single-buffer scans
 (spec_scan_bytes / spec_count_bytes, ops/spec_scan.py) prepare the whole
 corpus, then scan it.  Here the corpus arrives as an iterable of
 segments (file reads, network chunks); each segment is staged, uploaded,
@@ -52,6 +51,16 @@ trailing byte is held back and prepended to the next segment, so pair
 alignment holds stream-wide.  A segment larger than MAX_SEGMENT is
 dispatched in pieces of whole chunks, so every piece fits the device
 prep.
+
+On a mesh (ops/mesh.py) each segment is prepared with its block count a
+multiple of the mesh's size and scanned sharded, as the single-buffer
+scans are; the planes come back to the lead device in global order, so
+the folds do not change.  Each shard's bytes (ops/prep.shard_spans: its
+chunks and the W bytes before them) go from the slot's pinned buffer to
+a buffer of the shard's on its device, on that device's copy stream,
+behind a per-shard "uploaded" event its compute stream waits for, and
+are prepared there (ops/prep.pack_shards): nothing on the dispatch path
+waits on any device.
 """
 
 from collections import deque
@@ -62,7 +71,7 @@ import torch
 from ..native import NativeDfa
 from .core import _Fold
 from .layout import DEFAULT_K, effective_chunk
-from .prep import _host_u8, prepare_on_device
+from .prep import _host_u8, pack_shards, prepare_on_device, shard_spans
 from .spec_scan import _entry_planes, _unpack
 
 # default number of segments in flight before the oldest is folded
@@ -218,33 +227,45 @@ def _fold_core_first(ct, packed, raw, n, C, K, e_full):
 
 class _Slot:
     """One segment's staging buffers: the raw bytes on the host (pinned
-    on the card) and on the device, the packed planes and the warmup
-    tail's classes on the host (pinned on the card), and the "uploaded"
-    and "done" events (None on the CPU).  Buffers grow to the largest
-    segment the slot has held; a slot is refilled only after its fold,
-    which waited for its "done" event, so no copy or kernel still reads
-    a buffer that is replaced or rewritten."""
+    on the card) and on the device (one buffer an upload target: the
+    device, or each shard of a mesh), the packed planes and the
+    warmup tail's classes on the host (pinned on the card), an
+    "uploaded" event a target and the "done" event (None on the CPU).
+    Buffers grow to the largest segment the slot has held; a slot is
+    refilled only after its fold, which waited for its "done" event, so
+    no copy or kernel still reads a buffer that is replaced or
+    rewritten."""
 
-    def __init__(self, device, W, copy_stream):
-        self.device = device
-        self.cuda = device.type == "cuda"
-        self.copy_stream = copy_stream
-        self.host = self.dev = self.planes = None
+    def __init__(self, targets, W, copy_streams):
+        self.targets = targets
+        self.cuda = targets[0].type == "cuda"
+        self.copy_streams = copy_streams
+        self.host = self.planes = None
+        self.dev = [None] * len(targets)
         self.tail = torch.empty(W, dtype=torch.uint8, pin_memory=self.cuda)
-        self.uploaded = torch.cuda.Event() if self.cuda else None
+        self.uploaded = ([torch.cuda.Event() for _ in targets]
+                         if self.cuda else None)
         self.done = torch.cuda.Event() if self.cuda else None
 
-    def reserve(self, n):
-        """Room for n raw bytes on the host and the device."""
-        if self.host is not None and self.host.numel() >= n:
-            return
-        self.host = torch.empty(n, dtype=torch.uint8, pin_memory=self.cuda)
-        if self.cuda:
-            self.dev = torch.empty(n, dtype=torch.uint8, device=self.device)
-            # made on the compute stream, written on the copy stream
-            self.dev.record_stream(self.copy_stream)
-        else:
-            self.dev = self.host
+    def reserve(self, n, sizes):
+        """Room for n raw bytes on the host and sizes[i] on target i."""
+        if self.host is None or self.host.numel() < n:
+            self.host = torch.empty(n, dtype=torch.uint8,
+                                    pin_memory=self.cuda)
+        for i, (dev, size) in enumerate(zip(self.targets, sizes)):
+            if not self.cuda:
+                self.dev[i] = self.host
+            elif self.dev[i] is None or self.dev[i].numel() < size:
+                copy = self.copy_streams[dev]
+                with torch.cuda.device(dev):
+                    buf = torch.empty(size, dtype=torch.uint8, device=dev)
+                    # the block may have been freed on the compute stream
+                    # with work that reads it still queued there: the copy
+                    # stream waits for that work before its first write
+                    copy.wait_stream(torch.cuda.current_stream(dev))
+                # made on the compute stream, written on the copy stream
+                buf.record_stream(copy)
+                self.dev[i] = buf
 
     def planes_view(self, packed):
         """A host tensor shaped like ``packed`` over the planes buffer."""
@@ -267,7 +288,7 @@ class _Pipeline:
     the sticky-ESC argument does not depend on the segment size)."""
 
     def __init__(self, tables, chunk_len, entry_state, count_mode,
-                 in_flight):
+                 in_flight, mesh=None):
         self.ct = tables if hasattr(tables, "esc_premult") else None
         inner = tables.inner if self.ct is not None else tables
         self.tables = inner
@@ -297,12 +318,17 @@ class _Pipeline:
                 or (lambda v: v // ncls)
             self.e = self.topm(entry_state)  # premultiplied carry
         self.device = inner.device
+        self.mesh = mesh
+        # upload targets: the tables' device, or each shard of a mesh
+        targets = [self.device] if mesh is None else list(mesh.devices)
         if self.device.type == "cuda":
+            self.computes = {d: torch.cuda.current_stream(d)
+                             for d in targets}
+            self.copies = {d: torch.cuda.Stream(d) for d in targets}
             self.compute = torch.cuda.current_stream(self.device)
-            self.copy = torch.cuda.Stream(self.device)
         else:
-            self.compute = self.copy = None
-        self.free = deque(_Slot(self.device, self.W, self.copy)
+            self.computes = self.copies = self.compute = None
+        self.free = deque(_Slot(targets, self.W, self.copies)
                           for _ in range(self.in_flight + 1))
         self.total = 0
         self.first_abs = -1
@@ -314,11 +340,21 @@ class _Pipeline:
         self.first_seg = True
         self.pending = deque()
 
-    def stage(self, slot, parts, n):
+    def spans(self, n):
+        """The byte ranges of an n-byte segment each upload target takes
+        ([(0, n)] off a mesh), and the mesh prep's geometry (None off a
+        mesh)."""
+        if self.mesh is None:
+            return [(0, n)], None
+        C, K, B, spans = shard_spans(self.tables, n, self.chunk_len,
+                                     self.mesh)
+        return spans, (C, K, B)
+
+    def stage(self, slot, parts, n, spans):
         """Copy the segment (the uint8 arrays ``parts``, n bytes in all)
         into the slot's host buffer: the snapshot the fold re-reads.
         Returns its host view."""
-        slot.reserve(n)
+        slot.reserve(n, [hi - lo for lo, hi in spans])
         off = 0
         for p in parts:
             # torch's copy runs on its intra-op threads
@@ -326,17 +362,22 @@ class _Pipeline:
             off += len(p)
         return slot.host.numpy()[:n]
 
-    def upload(self, slot, n):
-        """Start the slot's upload on the copy stream; the compute
-        stream waits for it.  Returns the segment's bytes on the
-        device."""
+    def upload(self, slot, spans):
+        """Start each target's upload of its span on its device's copy
+        stream; that device's compute stream waits for it.  Returns the
+        spans' bytes on their devices."""
         if slot.uploaded is None:
-            return slot.dev[:n]
-        with torch.cuda.stream(self.copy):
-            slot.dev[:n].copy_(slot.host[:n], non_blocking=True)
-            slot.uploaded.record(self.copy)
-        self.compute.wait_event(slot.uploaded)
-        return slot.dev[:n]
+            return [slot.host[lo:hi] for lo, hi in spans]
+        out = []
+        for i, (dev, (lo, hi)) in enumerate(zip(slot.targets, spans)):
+            copy = self.copies[dev]
+            with torch.cuda.stream(copy):
+                slot.dev[i][:hi - lo].copy_(slot.host[lo:hi],
+                                            non_blocking=True)
+                slot.uploaded[i].record(copy)
+            self.computes[dev].wait_event(slot.uploaded[i])
+            out.append(slot.dev[i][:hi - lo])
+        return out
 
     def _tail_cls(self, slot):
         """Chunk 0's warmup classes on the device (None for the first
@@ -352,11 +393,17 @@ class _Pipeline:
             t[self.W - len(mapped):] = mapped
         return slot.tail.to(self.device, non_blocking=True)
 
-    def prep(self, slot, data_dev):
-        """prepare_on_device of the slot's device bytes, with chunk 0's
-        warmup from the stream before them."""
-        return prepare_on_device(self.tables, data_dev, self.chunk_len,
-                                 prev_tail_cls=self._tail_cls(slot))
+    def prep(self, slot, segs, geometry):
+        """The device prep of the slot's device bytes (each shard's on
+        its device on a mesh), with chunk 0's warmup from the stream
+        before them."""
+        tail = self._tail_cls(slot)
+        if geometry is None:
+            return prepare_on_device(self.tables, segs[0], self.chunk_len,
+                                     prev_tail_cls=tail)
+        C, K, B = geometry
+        return (pack_shards(self.tables, segs, K, B, self.mesh, tail), C, K,
+                self.W + K, B)
 
     def launch(self, prepared, n):
         """Enqueue the segment's kernel (no summary).  Returns its
@@ -385,7 +432,7 @@ class _Pipeline:
         kw = {} if self.ct is None else {"esc": self.ct.esc_premult}
         _, packed = self.tables._scan(
             data, s0p, j0p, C, bad_tail, self.W, COUNT=self.count_mode,
-            summary=False, **kw)
+            summary=False, mesh=self.mesh, **kw)
         return packed, C, K
 
     def enqueue(self, slot, packed, raw, C, K, n):
@@ -412,8 +459,9 @@ class _Pipeline:
             hi = min(n, lo + self.max_segment)
             piece = parts if hi - lo == n else _cut(parts, lo, hi)
             slot = self.free.popleft()
-            raw = self.stage(slot, piece, hi - lo)
-            prepared = self.prep(slot, self.upload(slot, hi - lo))
+            spans, geometry = self.spans(hi - lo)
+            raw = self.stage(slot, piece, hi - lo, spans)
+            prepared = self.prep(slot, self.upload(slot, spans), geometry)
             packed, C, K = self.launch(prepared, hi - lo)
             self.enqueue(slot, packed, raw, C, K, hi - lo)
             if self.done_early:
@@ -483,8 +531,10 @@ class _Pipeline:
         return not self.count_mode and self.first_abs >= 0
 
 
-def _run(tables, segments, chunk_len, entry_state, count_mode, in_flight):
-    pipe = _Pipeline(tables, chunk_len, entry_state, count_mode, in_flight)
+def _run(tables, segments, chunk_len, entry_state, count_mode, in_flight,
+         mesh):
+    pipe = _Pipeline(tables, chunk_len, entry_state, count_mode, in_flight,
+                     mesh)
     holdback = None
     for seg in segments:
         parts = [p for p in (holdback, _as_np(seg))
@@ -531,7 +581,7 @@ def _run(tables, segments, chunk_len, entry_state, count_mode, in_flight):
 
 
 def pipelined_count(tables, segments, chunk_len=DEFAULT_K,
-                    entry_state=0, in_flight=IN_FLIGHT):
+                    entry_state=0, in_flight=IN_FLIGHT, mesh=None):
     """Count every interior match boundary across a SEGMENTED stream.
     Equivalent to spec_count_bytes on the concatenation, without ever
     materialising it; uploads overlap scans.  Returns (final_state,
@@ -541,12 +591,14 @@ def pipelined_count(tables, segments, chunk_len=DEFAULT_K,
     big) or the legacy core tier (CoreTables / LazyCoreTables); entry
     and final states are always FULL-machine state ids.  Segments are
     any bytes-like objects or uint8 arrays, and may be reused by their
-    producer once the next one is asked for."""
-    return _run(tables, segments, chunk_len, entry_state, True, in_flight)
+    producer once the next one is asked for.  ``mesh`` shards every
+    segment's scan over its devices."""
+    return _run(tables, segments, chunk_len, entry_state, True, in_flight,
+                mesh)
 
 
 def pipelined_scan(tables, segments, chunk_len=DEFAULT_K,
-                   entry_state=0, in_flight=IN_FLIGHT):
+                   entry_state=0, in_flight=IN_FLIGHT, mesh=None):
     """First match boundary across a SEGMENTED stream.  Equivalent to
     spec_scan_bytes on the concatenation: returns (state, boundary or
     -1, byte_at_boundary or -1, bytes_folded) with the state AT the
@@ -554,5 +606,6 @@ def pipelined_scan(tables, segments, chunk_len=DEFAULT_K,
     bytes_folded is the total stream length when no match was found
     (the EOF-boundary case); on an early match it only covers the
     folded prefix.  Segments already dispatched when the match folds
-    are discarded unfolded."""
-    return _run(tables, segments, chunk_len, entry_state, False, in_flight)
+    are discarded unfolded.  ``mesh`` as for pipelined_count."""
+    return _run(tables, segments, chunk_len, entry_state, False, in_flight,
+                mesh)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .layout import GROUPS, TILE, effective_chunk
+from .mesh import ShardedBlocks, b_multiple as _mesh_multiple, replica
 
 # corpora at least this large use device prep (the host pass wins below)
 DEVICE_PREP_MIN = 16 << 20
@@ -115,7 +116,8 @@ def _prepare(tables, data_np, chunk_len, b_multiple=1,
 def _class_lut(tables):
     """tables.class_map as a uint8 tensor on tables.device, uploaded at
     the first call and kept on the tables object (a copy made by
-    with_warmup shares it: the class map is the same)."""
+    with_warmup shares it: the class map is the same; a mesh shard reads
+    its replica's, ops/mesh.replica)."""
     lut = getattr(tables, "_class_lut_dev", None)
     if lut is None:
         lut = torch.from_numpy(tables.class_map.astype(np.uint8)) \
@@ -128,13 +130,14 @@ def _class_ids(tables, data, n, length, W, tail_cls):
     """uint8 [W + length] on tables.device: chunk 0's W warmup classes,
     the class ids of the n corpus bytes, then class 0 (the padding,
     whatever class byte 0 maps to).  tail_cls: None (class 0, as the
-    padding), a uint8 numpy [W], or a uint8 tensor [W] already on
-    tables.device (the pipeline stages it through pinned memory, so
-    nothing here waits on the device)."""
+    padding), a uint8 numpy [W], or a uint8 tensor [W] (the pipeline
+    stages it through pinned memory, so nothing here waits on the
+    device)."""
     device = tables.device
     out = torch.zeros(W + length, dtype=torch.uint8, device=device)
     if tail_cls is not None:
-        out[:W] = (tail_cls if isinstance(tail_cls, torch.Tensor)
+        out[:W] = (tail_cls.to(device, non_blocking=True)
+                   if isinstance(tail_cls, torch.Tensor)
                    else torch.from_numpy(tail_cls).to(device))
     lut = _class_lut(tables)
     for lo in range(0, n, _MAP_SLICE):
@@ -207,20 +210,87 @@ def prepare_on_device(tables, data, chunk_len, b_multiple=1,
     if tail is not None and not isinstance(tail, torch.Tensor):
         tail = np.asarray(tail, dtype=np.uint8)
     cls = _class_ids(tables, data, n, L, W, tail)
+    return _pack(tables, cls, K, B), C, K, W + K, B
+
+
+def _pack(tables, cls, K, B):
+    """The packed tiling of the class ids ``cls`` (window c =
+    cls[c*K : c*K + W + K]) in the tables' units."""
+    J = tables.warmup + K
     if getattr(tables, "bpu", 1) == 2:
-        dev = _device_pack_pair(cls, tables.byte_ncls, K=K, J=W + K,
-                                B=B, CPW=tables.cpw, BITS=tables.bits)
-    else:
-        dev = _device_pack(cls, K=K, J=W + K, B=B, CPW=tables.cpw,
-                           BITS=tables.bits)
-    return dev, C, K, W + K, B
+        return _device_pack_pair(cls, tables.byte_ncls, K=K, J=J, B=B,
+                                 CPW=tables.cpw, BITS=tables.bits)
+    return _device_pack(cls, K=K, J=J, B=B, CPW=tables.cpw,
+                        BITS=tables.bits)
+
+
+def shard_spans(tables, n, chunk_len, mesh, b_multiple=1):
+    """The mesh prep's geometry for an n-byte corpus over ``mesh``:
+    (C, K, B, spans), spans[i] = (lo, hi) the corpus bytes shard i
+    class-maps.  Shard i holds chunks [i*Cs, (i+1)*Cs), Cs = B/size *
+    G * TILE, so its windows read bytes from W before its first chunk
+    (shard 0 reads the caller's warmup classes there instead); a shard
+    past the corpus reads none."""
+    K = effective_chunk(tables, chunk_len)
+    W = tables.warmup
+    C = max(1, -(-n // K))
+    B = -(-C // (GROUPS * TILE))
+    bm = _mesh_multiple(mesh, b_multiple)
+    B = -(-B // bm) * bm
+    span = B // mesh.size * GROUPS * TILE * K
+    spans = []
+    for i in range(mesh.size):
+        lo = 0 if i == 0 else min(n, i * span - W)
+        spans.append((lo, max(lo, min(n, (i + 1) * span))))
+    return C, K, B, spans
+
+
+def pack_shards(tables, segs, K, B, mesh, prev_tail_cls=None):
+    """The mesh prep from each shard's bytes ``segs[i]`` (uint8 tensors,
+    shard_spans' ranges, on any device; moved to the shard's):
+    ShardedBlocks whose part i equals block rows [i*B/n, (i+1)*B/n) of
+    the whole corpus's prep, bit for bit."""
+    W = tables.warmup
+    rows = B // mesh.size
+    length = rows * GROUPS * TILE * K
+    parts = []
+    for i, (dev, seg) in enumerate(zip(mesh.devices, segs)):
+        t = replica(tables, dev)
+        seg = seg.to(dev, non_blocking=True)
+        if i == 0:
+            cls = _class_ids(t, seg, len(seg), length, W, prev_tail_cls)
+        else:
+            # the W bytes before the shard's first chunk are corpus bytes
+            cls = _class_ids(t, seg, len(seg), W + length, 0, None)
+        parts.append(_pack(t, cls, K, rows))
+    return ShardedBlocks(parts)
+
+
+def prepare_shards(tables, data, chunk_len, mesh, b_multiple=1,
+                   prev_tail_cls=None):
+    """prepare_on_device for a mesh: each shard's bytes go to its device
+    and are prepared there.  Returns (ShardedBlocks, C, K, J, B)."""
+    n = len(data)
+    C, K, B, spans = shard_spans(tables, n, chunk_len, mesh, b_multiple)
+    if not isinstance(data, torch.Tensor):
+        data = _host_u8(data)
+    tail = prev_tail_cls
+    if tail is not None and not isinstance(tail, torch.Tensor):
+        tail = np.asarray(tail, dtype=np.uint8)
+    packed = pack_shards(tables, [data[lo:hi] for lo, hi in spans], K, B,
+                         mesh, tail)
+    return packed, C, K, tables.warmup + K, B
 
 
 def prepare_auto(tables, data, chunk_len, b_multiple=1,
-                 prev_tail_cls=None):
+                 prev_tail_cls=None, mesh=None):
     """Device prep for large corpora and for tensor input, host prep
     for small host corpora.  SREGEX_DEVICE_PREP=1 forces device prep,
-    =0 host prep (the JAX package's knob)."""
+    =0 host prep (the JAX package's knob).  ``mesh`` takes
+    prepare_shards (the block count divides over it)."""
+    if mesh is not None:
+        return prepare_shards(tables, data, chunk_len, mesh, b_multiple,
+                              prev_tail_cls)
     knob = os.environ.get("SREGEX_DEVICE_PREP")
     use_dev = (len(data) >= DEVICE_PREP_MIN if knob is None
                else knob == "1")

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..native import NativeDfa
+from .mesh import fits, shard_planes
 from .layout import (_MATCH_SHIFT, _STATE_MASK, DEFAULT_K, GROUPS,
                      SMEM_BYTES, SMEM_TABLE_MAX, TILE, WORDS_PER_ITER,
                      effective_chunk, max_chunk_bytes)
@@ -101,12 +102,26 @@ class _Tables:
             self.pair = pair_table(fused, self.ncls, self.nstates,
                                    self.bits, self.device)
 
+    def _kernel(self, data, state0, j0, W, COUNT):
+        """One launch of the tier's kernel over ``data`` with this
+        object's tables (which lie on data's device)."""
+        return spec_scan(data, state0, j0, self.fused, W=W, CPW=self.cpw,
+                         BITS=self.bits, COUNT=COUNT, pair=self.pair)
+
+    def _planes(self, data, state0, j0, W, COUNT, mesh=None):
+        """The kernel's (phi, fm, swarm) over the whole prep: one launch,
+        or one a shard of ``mesh`` (ops/mesh.shard_planes)."""
+        return shard_planes(
+            self, data, state0, j0, mesh,
+            lambda t, d, s, j: t._kernel(d, s, j, W, COUNT))
+
     def _scan(self, data, state0, j0, C, bad_tail, W, COUNT=False,
-              esc=None, summary=True):
-        return _spec_scan(data, state0, j0, self.fused, C, bad_tail,
-                          W=W, CPW=self.cpw, BITS=self.bits,
-                          COUNT=COUNT, wide=self.wide, ESC=esc,
-                          pair=self.pair, summary=summary)
+              esc=None, summary=True, mesh=None):
+        """Kernel + summary (or none, summary=False): (summary int32
+        [10] or None, packed planes), both on the lead device."""
+        return _summary_and_planes(
+            self._planes(data, state0, j0, W, COUNT, mesh), state0, C,
+            bad_tail, COUNT, self.wide, esc, summary)
 
 
 class SpecTables(_Tables):
@@ -455,15 +470,6 @@ def _pack_planes(phi, fm, swarm, wide):
                         ((fm >> 8) & 0xFF).to(u8)])
 
 
-def _spec_scan(data, state0, j0, table, C, bad_tail, *, W, CPW, BITS,
-               COUNT=False, wide=False, ESC=None, pair=None, summary=True):
-    """Kernel + summary.  Returns (summary int32 [10], packed)."""
-    planes = spec_scan(data, state0, j0, table, W=W, CPW=CPW, BITS=BITS,
-                       COUNT=COUNT, pair=pair)
-    return _summary_and_planes(planes, state0, C, bad_tail, COUNT, wide,
-                               ESC, summary)
-
-
 def _summary_and_planes(planes, state0, C, bad_tail, COUNT, wide,
                         ESC=None, summary=True):
     """A scan kernel's (phi, fm, swarm) -> (summary int32 [10], packed),
@@ -508,21 +514,23 @@ def _entry_planes(entry_premult, w, B, device):
     return s0, j0
 
 
-def _launch(tables, data_np, chunk_len, entry_state, prepared, COUNT):
-    """Prep (unless given), entry planes, kernel and summary.  Returns
-    (summary as int64 numpy, packed planes on the device, C, K)."""
+def _launch(tables, data_np, chunk_len, entry_state, prepared, COUNT,
+            mesh=None):
+    """Prep (unless given and fit for ``mesh``: ops/mesh.fits), entry
+    planes, kernel (sharded over ``mesh``) and summary.  Returns (summary
+    as int64 numpy, packed planes on the device, C, K)."""
     n = len(data_np)
     W = tables.warmup
-    if prepared is None:
+    if prepared is None or not fits(prepared, mesh):
         from .prep import prepare_auto
-        prepared = prepare_auto(tables, data_np, chunk_len)
+        prepared = prepare_auto(tables, data_np, chunk_len, mesh=mesh)
     data, C, K, _J, B = prepared
     topm = getattr(tables, "to_premult", None) or (
         lambda v: v * tables.ncls)
     s0p, j0p = _entry_planes(topm(entry_state), W, B, data.device)
     bad_tail = (C - 1) if C * K > n and (n - (C - 1) * K) != K else -1
     summary, packed = tables._scan(data, s0p, j0p, C, bad_tail, W,
-                                   COUNT=COUNT)
+                                   COUNT=COUNT, mesh=mesh)
     # common case: a 40-byte readback; the planes stay on the device
     # and are read only on the repair path
     return summary.cpu().numpy().astype(np.int64), packed, C, K
@@ -546,6 +554,7 @@ def with_warmup(tables, W):
     if W % tables.cpw or not (tables.warmup < W <= 2048):
         return None
     t = copy.copy(tables)
+    t.__dict__.pop("_replicas", None)   # mesh copies hold the old window
     t.warmup = int(W)
     t.max_chunk = max_chunk_bytes(tables.cpw)
     if effective_chunk(t, DEFAULT_K) < t.warmup // 2:
@@ -560,18 +569,19 @@ def _host_bytes(data_np):
 
 
 def spec_scan_bytes(tables, data_np, chunk_len=DEFAULT_K, entry_state=0,
-                    prepared=None):
+                    prepared=None, mesh=None):
     """Whole-buffer scan.  Returns (final_state, first_match_boundary
     or -1); boundaries 0..n-1 only, the EOF boundary is the caller's
     (tables.match_eof).  On a match the state is the state AT the
     boundary.  Exact: speculation misses and the firing chunk are
     re-scanned with the native engine.  ``prepared`` is a prior
-    prepare_* result over the same bytes."""
+    prepare_* result over the same bytes; ``mesh`` (ops/mesh.Mesh)
+    shards the kernel over its devices (the fold is mesh-agnostic)."""
     n = len(data_np)
     if n == 0:
         return entry_state, -1
     summ, packed, C, K = _launch(tables, data_np, chunk_len, entry_state,
-                                 prepared, COUNT=False)
+                                 prepared, COUNT=False, mesh=mesh)
     ncls = tables.ncls
     topm = getattr(tables, "to_premult", None) or (lambda v: v * ncls)
     frpm = getattr(tables, "from_premult", None) or (lambda v: v // ncls)
@@ -615,15 +625,16 @@ def spec_scan_bytes(tables, data_np, chunk_len=DEFAULT_K, entry_state=0,
 
 
 def spec_count_bytes(tables, data_np, chunk_len=DEFAULT_K, entry_state=0,
-                     prepared=None):
+                     prepared=None, mesh=None):
     """Count every boundary (0..n-1) at which a match ends.  Returns
     (final_state, count); the EOF boundary is the caller's.  Exact:
-    chunks whose speculation missed are re-counted natively."""
+    chunks whose speculation missed are re-counted natively.  ``mesh``
+    as for spec_scan_bytes."""
     n = len(data_np)
     if n == 0:
         return entry_state, 0
     summ, packed, C, K = _launch(tables, data_np, chunk_len, entry_state,
-                                 prepared, COUNT=True)
+                                 prepared, COUNT=True, mesh=mesh)
     ncls = tables.ncls
     topm = getattr(tables, "to_premult", None) or (lambda v: v * ncls)
     frpm = getattr(tables, "from_premult", None) or (lambda v: v // ncls)
@@ -663,18 +674,18 @@ def spec_count_bytes(tables, data_np, chunk_len=DEFAULT_K, entry_state=0,
 
 
 def spec_scan_last_bytes(tables, data_np, chunk_len=DEFAULT_K,
-                         entry_state=0, prepared=None):
+                         entry_state=0, prepared=None, mesh=None):
     """Find the LAST boundary (0..n-1) at which a match ends (the
     reverse-scan start locator of Scanner.find).  Returns (final_state,
     last_boundary or -1).  One COUNT-mode scan: the summary's last
     firing chunk of the validated prefix ([8], entered at [9]) is
     re-scanned natively; chunks past a speculation miss are walked as
-    in spec_count_bytes.  Exact."""
+    in spec_count_bytes.  Exact.  ``mesh`` as for spec_scan_bytes."""
     n = len(data_np)
     if n == 0:
         return entry_state, -1
     summ, packed, C, K = _launch(tables, data_np, chunk_len, entry_state,
-                                 prepared, COUNT=True)
+                                 prepared, COUNT=True, mesh=mesh)
     ncls = tables.ncls
     topm = getattr(tables, "to_premult", None) or (lambda v: v * ncls)
     frpm = getattr(tables, "from_premult", None) or (lambda v: v // ncls)
@@ -754,7 +765,7 @@ def _chain_map(phi, swarm, ok, e, entries, counts, key, plain, recount):
 
 
 def spec_chunk_map(tables, data_np, chunk_len=DEFAULT_K, entry_state=0,
-                   prepared=None):
+                   prepared=None, mesh=None):
     """Validated per-chunk scan map: (entries [C], counts [C],
     final_state), all exact (the finditer start locator's building
     block).
@@ -767,13 +778,13 @@ def spec_chunk_map(tables, data_np, chunk_len=DEFAULT_K, entry_state=0,
     tail), not one step per chunk.  Counts ride 16 bits in the packed
     planes (effective_chunk keeps K below 65536).  ``data_np`` may be a
     reversed view of a corpus (the fold only slices it); ``prepared``
-    then gives the prep."""
+    then gives the prep.  ``mesh`` as for spec_scan_bytes."""
     n = len(data_np)
     if n == 0:
         return (np.zeros(0, np.int64), np.zeros(0, np.int64),
                 entry_state)
     _, packed, C, K = _launch(tables, data_np, chunk_len, entry_state,
-                              prepared, COUNT=True)
+                              prepared, COUNT=True, mesh=mesh)
     ncls = tables.ncls
     topm = getattr(tables, "to_premult", None) or (lambda v: v * ncls)
     frv = getattr(tables, "from_premult_vec", None) or (lambda a: a // ncls)

@@ -73,6 +73,16 @@ possibly below DEVICE_THRESHOLD, through one kernel pass over them all
 (ops/batch.py: the documents packed into one chunk stream, each start
 entered at the seed, each document folded on its own); prepare_many
 packs a set once for reuse.
+
+``Scanner(prog, mesh=make_mesh(...))`` (ops/mesh.py) shards every device
+count and scan over the mesh's devices, as the JAX package's
+Scanner(mesh=) does: the static tiers, the legacy core, the fused tier
+(per-shard phases, the stitch on the host), the batch (the fused batch
+stays out, as there) and the pipeline; each shard launches the tier's
+own kernel, and the folds see the planes in global order.  The
+Scanner's device is the mesh's lead device (a device= that disagrees
+raises); the phi tier, find's tagged tier and the chunk maps of
+make_index take no mesh there or here and run on the lead device.
 """
 
 import functools
@@ -312,10 +322,11 @@ class PreparedCorpus:
     Layouts differ per tier and per warmup, so entries are cached per
     tables object (a warmup escalation re-preps under the new tables)."""
 
-    def __init__(self, data, device, chunk_len=DEFAULT_K):
+    def __init__(self, data, device, chunk_len=DEFAULT_K, mesh=None):
         self.data = data
         self.device = device
         self.chunk_len = chunk_len
+        self.mesh = mesh
         self._by_tables = {}
         self._raw_dev = None
 
@@ -326,9 +337,11 @@ class PreparedCorpus:
         return self._raw_dev
 
     def for_tables(self, tables, chunk_len=None):
-        """The prep for one tables object.  ``chunk_len`` overrides the
-        corpus default: the fused tier aligns its two preps (the core's
-        and the full machine's) on one chunk length (core.fused_chunk)."""
+        """The prep for one tables object (for the corpus's mesh, except
+        the phi and tagged tiers', which take none).  ``chunk_len``
+        overrides the corpus default: the fused tier aligns its two preps
+        (the core's and the full machine's) on one chunk length
+        (core.fused_chunk)."""
         ck = self.chunk_len if chunk_len is None else chunk_len
         # the entry holds its tables, so no later tables object can
         # reuse the key
@@ -339,10 +352,13 @@ class PreparedCorpus:
             use_dev = (len(self.data) >= DEVICE_PREP_MIN if knob is None
                        else knob == "1")
             src = self._raw() if use_dev else self.data
-            prep = (phi_prepare if isinstance(tables, (PhiTables,
-                                                       PhiTablesBig))
-                    else prepare_auto)
-            hit = (tables, prep(tables, src, ck))
+            if isinstance(tables, (PhiTables, PhiTablesBig)):
+                prep = phi_prepare(tables, src, ck)
+            else:
+                mesh = None if isinstance(tables, TdfaSpecTables) \
+                    else self.mesh
+                prep = prepare_auto(tables, src, ck, mesh=mesh)
+            hit = (tables, prep)
             self._by_tables[key] = hit
         return hit[1]
 
@@ -363,7 +379,9 @@ class Scanner:
     Corpora of at least DEVICE_THRESHOLD bytes go to the device tiers;
     smaller ones, and every corpus when device=None, to the native
     engine.  ``dfa``: prebuilt tables (serialize.load_compiled), which
-    skip subset construction."""
+    skip subset construction.  ``mesh`` (ops/mesh.Mesh) shards the device
+    counts and scans over its devices; the Scanner then lives on its lead
+    device."""
 
     DEVICE_THRESHOLD = 4 << 20   # below this the host engine wins
     CORE_SAMPLE = 256 << 10      # bytes per hot-core sample slice
@@ -386,8 +404,17 @@ class Scanner:
     # Scanner's life.  Only speed is at stake.
     MAX_RECORE = 2
 
-    def __init__(self, prog, device="cuda", ast=None, dfa=None):
+    def __init__(self, prog, device="cuda", ast=None, dfa=None, mesh=None):
         self.program = prog
+        self.mesh = mesh
+        if mesh is not None:
+            want = None if device is None else torch.device(device)
+            lead = mesh.lead
+            if want is None or want.type != lead.type or (
+                    want.index is not None and want.index != lead.index):
+                raise ValueError("device=%r disagrees with the mesh, whose "
+                                 "lead device is %s" % (device, lead))
+            device = lead
         self.ast = ast
         if dfa is None:
             try:
@@ -447,7 +474,7 @@ class Scanner:
     def prepare(self, data, chunk_len=DEFAULT_K):
         """Pack ``data`` once for device scanning; pass the handle back
         via ``prepared=`` on match/count/scan."""
-        return PreparedCorpus(data, self.device, chunk_len)
+        return PreparedCorpus(data, self.device, chunk_len, self.mesh)
 
     def precompile(self, nbytes, sample=b"", chunk_len=DEFAULT_K):
         """Warm what a count() over an ``nbytes``-long corpus needs on the
@@ -473,15 +500,19 @@ class Scanner:
         zeros_host = np.zeros(nbytes, np.uint8)
         ck = (fused_chunk(fct.inner, spec, chunk_len)
               if fct is not None and spec is not None else None)
+        mesh = self.mesh
         if ck is not None:
             core_count_fused(
                 fct, spec, zeros_host, chunk_len=ck,
-                prepared_core=prepare_auto(fct.inner, zeros_dev, ck),
-                prepared_full=prepare_auto(spec, zeros_dev, ck))
+                prepared_core=prepare_auto(fct.inner, zeros_dev, ck,
+                                           mesh=mesh),
+                prepared_full=prepare_auto(spec, zeros_dev, ck, mesh=mesh),
+                mesh=mesh)
         elif spec is not None:
             spec_count_bytes(spec, zeros_host, chunk_len,
                              prepared=prepare_auto(spec, zeros_dev,
-                                                   chunk_len))
+                                                   chunk_len, mesh=mesh),
+                             mesh=mesh)
         return time.perf_counter() - t0
 
     def _on_device(self, data):
@@ -729,7 +760,7 @@ class Scanner:
             ck = fused_chunk(fct.inner, spec)
             r = None if ck is None else fused_fn(
                 fct, spec, data, prepared_core=prep(fct.inner, ck),
-                prepared_full=prep(spec, ck))
+                prepared_full=prep(spec, ck), mesh=self.mesh)
             if r is None:
                 self._fusedct = False     # the shapes disqualify it
             else:
@@ -738,7 +769,7 @@ class Scanner:
                 return fct, r
         ct = self._core_tables(data)
         if ct is not None:
-            r = core_fn(ct, data, prepared=prep(ct.inner))
+            r = core_fn(ct, data, prepared=prep(ct.inner), mesh=self.mesh)
             self._core_note(ct)
             self._note_stats(api, ct, len(data), t0)
             return ct, r
@@ -750,7 +781,7 @@ class Scanner:
         spec = self._spec
         if spec is None:
             return None, None
-        r = spec_fn(spec, data, prepared=prep(spec))
+        r = spec_fn(spec, data, prepared=prep(spec), mesh=self.mesh)
         self._note_stats(api, spec, len(data), t0)
         self._spec_note()
         return spec, r
@@ -1010,11 +1041,9 @@ class Scanner:
         machine's kernel inside the one batch dispatch, not walked on the
         host one each.  None where the fused tier stays out.
 
-        The JAX package declines the fused batch on a mesh Scanner (its
-        batches take the legacy sharded paths there).  The port has no
-        mesh yet, so there is nothing to decline; the Scanner that brings
-        one must keep that decline."""
-        if not self._batch_on_device(docs):
+        Declined on a mesh Scanner, as in the JAX package: its batches take
+        the sharded legacy core or static paths."""
+        if not self._batch_on_device(docs) or self.mesh is not None:
             return None
         if self._fusedct is not None:
             return self._fusedct or None
@@ -1044,7 +1073,9 @@ class Scanner:
         if tables is None or not self._batch_on_device(docs):
             return None
         try:
-            pb = batch_prepare(tables, docs, chunk_len)
+            # find_many's tagged tier takes no mesh
+            pb = batch_prepare(tables, docs, chunk_len,
+                               None if for_find else self.mesh)
             if full is not None:
                 pb.full = batch_prepare(full, docs, chunk_len)
             return pb
@@ -1086,12 +1117,14 @@ class Scanner:
         ct = self._batch_core(docs)
         if ct is not None:
             r = served(ct, lambda: core_fn(ct, docs, chunk_len,
-                                           prepared=prepared))
+                                           prepared=prepared,
+                                           mesh=self.mesh))
             if r is not None:
                 return r
         if self._batch_eligible(docs):
             return served(self._spec, lambda: spec_fn(
-                self._spec, docs, chunk_len, prepared=prepared))
+                self._spec, docs, chunk_len, prepared=prepared,
+                mesh=self.mesh))
         return None
 
     def count_many(self, docs, chunk_len=DEFAULT_K, prepared=None):
@@ -1248,7 +1281,8 @@ class Scanner:
             if tables is not None:
                 state, c = pipelined_count(tables, segments,
                                            chunk_len=chunk_len,
-                                           in_flight=in_flight)
+                                           in_flight=in_flight,
+                                           mesh=self.mesh)
                 self._stream_noted("count_stream", tables, is_core, t0)
                 return c + (1 if self._eof_id(state) >= 0 else 0)
         eng = self._host()
@@ -1283,7 +1317,7 @@ class Scanner:
             if tables is not None:
                 state, first, byte, nbytes = pipelined_scan(
                     tables, segments, chunk_len=chunk_len,
-                    in_flight=in_flight)
+                    in_flight=in_flight, mesh=self.mesh)
                 # a scan-only workload on a drifted corpus must still
                 # reach the re-core / warmup logic
                 self._stream_noted("scan_stream", tables, is_core, t0)
@@ -1912,14 +1946,15 @@ class _StartLocator:
         return None
 
 
-def compile_pattern(pattern, flags=0, device="cuda"):
+def compile_pattern(pattern, flags=0, device="cuda", mesh=None):
     """Pattern (str/bytes) or list of patterns -> Scanner on ``device``
     (the card by default; "cpu" for the plain versions, None for the
-    host engines alone)."""
+    host engines alone); ``mesh`` shards its device scans over the
+    mesh's devices (Scanner)."""
     if isinstance(pattern, (list, tuple)):
         ast, _ = parse_multi(list(pattern),
                              [flags] * len(pattern)
                              if isinstance(flags, int) else flags)
     else:
         ast, _ = parse(pattern, flags)
-    return Scanner(compile_regex(ast), device=device, ast=ast)
+    return Scanner(compile_regex(ast), device=device, ast=ast, mesh=mesh)

@@ -1007,7 +1007,7 @@ def test_pipeline_ring_grows_and_stages_in_pinned_memory(cuda):
         slot = pipe.pending[-1][0]
         assert slot.host.is_pinned() and slot.tail.is_pinned()
         assert slot.planes.is_pinned()
-        assert slot.dev.device.type == "cuda"
+        assert slot.dev[0].device.type == "cuda"
         slots.append(slot)
         sizes.append(slot.host.numel())
     # the fourth segment reuses the first slot, freed by its fold
@@ -1017,6 +1017,22 @@ def test_pipeline_ring_grows_and_stages_in_pinned_memory(cuda):
     k, _ = sc._native.count(data, 0)
     assert pipe.total == k and not pipe.pending
     assert len(pipe.free) == 3
+
+
+def test_pipeline_slot_buffer_waits_for_the_compute_stream(cuda):
+    """A slot's new device buffer can reuse a block freed on the compute
+    stream while work that reads it is still queued there; the copy
+    stream must not write it before that work ends."""
+    from sregex_tpu_torch.ops import pipeline as tpipe
+    copy = torch.cuda.Stream(cuda)
+    slot = tpipe._Slot([cuda], 32, {cuda: copy})
+    torch.cuda._sleep(500_000_000)      # the compute stream busy ~0.3 s
+    slot.reserve(1 << 20, [1 << 20])
+    done = torch.cuda.Event()
+    done.record(copy)
+    assert not done.query()
+    torch.cuda.synchronize()
+    assert done.query()
 
 
 def test_stream_methods_run_on_the_card(cuda):
@@ -1313,3 +1329,134 @@ def test_precompile_on_the_card(cuda, monkeypatch, fused):
                          else b"") > 0
     assert sc.count(data) == host.count(data)
     assert sc.stats().tier == ("CoreTables" if fused else "SpecTablesPair")
+
+
+# ---------------------------------------------------------------------
+# the mesh: four shards of the one card (a virtual mesh, on the route of
+# distinct devices: each shard's blocks and planes its own tensors)
+# ---------------------------------------------------------------------
+
+def _all_scan_launches():
+    """Launches of every static tier's scan kernels."""
+    return (_spec_launches() + tbig.big_scan_launches
+            + tbig.big_smem_launches + taff.affine_scan_launches)
+
+
+def _mesh_tables(cuda, tier):
+    """(tables, corpus alphabet, planted word) of one tier on the card."""
+    import sregex_tpu_torch
+    if tier == "narrow":
+        sc = sregex_tpu_torch.compile_pattern(
+            "(?:a|b)aa(?:aa|bb)cc(?:a|b)", device=None)
+        return tscan.SpecTables(sc.dfa, cuda), b"abccc x", b"xaaabbccb"
+    if tier == "affine":
+        sc = sregex_tpu_torch.compile_pattern("a{60,120}b", device=None)
+        return taff.SpecTablesAffine(sc.dfa, cuda), b"aaaab x", \
+            b"x" + b"a" * 90 + b"b"
+    words = _dictionary(60 if tier == "wide" else 400, 3)
+    sc = sregex_tpu_torch.compile_pattern(words, device=None)
+    cls = tscan.SpecTablesWide if tier == "wide" else tbig.SpecTablesBig
+    return cls(sc.dfa, cuda), b"abcdefghijklmnopqrstuvwxyz ", \
+        b" " + words[7] + b" "
+
+
+@pytest.mark.parametrize("tier", ["narrow", "wide", "big", "affine"])
+def test_sharded_dispatch_on_a_virtual_mesh_equals_one_device(cuda, tier):
+    """Four shards of one card: each tier's summary and planes over a
+    64 MB corpus (four block rows, one a shard) are bit-identical to one
+    launch over the whole prep, and each shard launched once; the counts
+    equal the native engine's over meshes of 4 and 2 shards."""
+    from sregex_tpu_torch.native import NativeDfa
+    from sregex_tpu_torch.ops.mesh import Mesh
+    from sregex_tpu_torch.ops.prep import prepare_auto
+    tables, alpha, word = _mesh_tables(cuda, tier)
+    rng = np.random.default_rng(7)
+    text = rng.choice(np.frombuffer(alpha, np.uint8), 64 << 20)
+    for at in rng.integers(0, len(text) - 200, 50):
+        text[at:at + len(word)] = np.frombuffer(word, np.uint8)
+    data = text.tobytes()
+    mesh = Mesh([cuda] * 4)
+    d, C, K, J, B = prepare_auto(tables, data, 2048, mesh=mesh)
+    whole = prepare_auto(tables, data, 2048, b_multiple=4)
+    assert B == 4 and whole[1:] == (C, K, J, B)
+    s0, j0 = tscan._entry_planes(0, tables.warmup, B, cuda)
+    bad = (C - 1) if C * K > len(data) else -1
+    one = tables._scan(whole[0], s0, j0, C, bad, tables.warmup, COUNT=True)
+    before = _all_scan_launches()
+    got = tables._scan(d, s0, j0, C, bad, tables.warmup, COUNT=True,
+                       mesh=mesh)
+    torch.cuda.synchronize()
+    assert _all_scan_launches() == before + 4
+    assert torch.equal(one[0], got[0]) and torch.equal(one[1], got[1])
+    want = NativeDfa(tables.dfa).count(data, 0)[::-1]
+    for m in (mesh, Mesh([cuda] * 2)):
+        st, k = tscan.spec_count_bytes(tables, data, mesh=m)
+        assert (st, k) == want
+
+
+def test_fused_mesh_on_a_virtual_mesh_equals_one_device(cuda):
+    """The fused two-phase count of the 400-keyword dictionary over four
+    shards of one card: the merged and core planes are bit-identical to
+    one device's (escapes in every shard, under each shard's cap), one
+    gated launch a shard, and the count equals the native engine's."""
+    from sregex_tpu_torch.native import NativeDfa
+    from sregex_tpu_torch.ops import core as tcore
+    from sregex_tpu_torch.ops.mesh import Mesh
+    tables, _, _ = _mesh_tables(cuda, "big")
+    words = _dictionary(400, 3)
+    rng = np.random.default_rng(9)
+    filler = np.frombuffer(b"nopqrstuvwxyz ", np.uint8)
+    text = rng.choice(filler, 64 << 20)
+    for i, at in enumerate(rng.integers(0, len(text) - 200, 4000)):
+        w = b" " + words[i % len(words)] + b" "
+        text[at:at + len(w)] = np.frombuffer(w, np.uint8)
+    data = text.tobytes()
+    # a core sampled from the filler alone: the planted words escape
+    sample = rng.choice(filler, 1 << 20).tobytes()
+    ct = tcore.CoreTables(tables.dfa, sample, require_fast=False,
+                          no_pair=True, prefer_small=True,
+                          max_escape_frac=tcore.FUSED_ESCAPE_FRAC,
+                          device=cuda)
+    mesh = Mesh([cuda] * 4)
+    one = tcore._fused_dispatch(ct, tables, data, 2048, 0, None, None)
+    g0 = tcore.gated_scan_launches
+    got = tcore._fused_dispatch(ct, tables, data, 2048, 0, None, None,
+                                mesh=mesh)
+    assert tcore.gated_scan_launches == g0 + 4
+    assert (got["shard_summ"][:, 8] > 0).all() and not one["summ"][7]
+    live = one["Cfull"]
+    for key in ("merged", "packed_core"):
+        assert torch.equal(one[key][:, :live], got[key][:, :live]), key
+    assert np.array_equal(one["summ"][5:], got["summ"][5:])
+    want = NativeDfa(tables.dfa).count(data, 0)[::-1]
+    assert tcore.core_count_fused(ct, tables, data, mesh=mesh) == want
+    assert tcore.core_count_fused(ct, tables, data,
+                                  mesh=Mesh([cuda] * 2)) == want
+
+
+def test_scanner_on_a_virtual_mesh_runs_on_the_card(cuda):
+    """Scanner(mesh=) on four shards of the card: count, scan,
+    count_many and count_stream equal the one-device Scanner and the
+    native engine, and the two-code kernel ran once a shard a scan; on
+    meshes of 4 and 2 shards."""
+    import sregex_tpu_torch
+    from sregex_tpu_torch.ops.mesh import Mesh
+    pattern = "(?:a|b)aa(?:aa|bb)cc(?:a|b)"
+    rng = np.random.default_rng(13)
+    text = rng.choice(np.frombuffer(b"abccc x", np.uint8), 40 << 20)
+    text[(30 << 20):(30 << 20) + 9] = np.frombuffer(b"xaaabbccb", np.uint8)
+    data = text.tobytes()
+    docs = [data[i:i + (3 << 20)] for i in range(0, len(data), 3 << 20)]
+    segs = [data[i:i + (16 << 20)] for i in range(0, len(data), 16 << 20)]
+    one = sregex_tpu_torch.compile_pattern(pattern)
+    want = (one.count(data), one.scan(data), one.count_many(docs),
+            one.count_stream(segs))
+    host = sregex_tpu_torch.compile_pattern(pattern, device=None)
+    assert want[:2] == (host.count(data), host.scan(data))
+    for mesh in (Mesh([cuda] * 4), Mesh([cuda] * 2)):
+        sc = sregex_tpu_torch.compile_pattern(pattern, mesh=mesh)
+        before = tscan.pair_scan_launches
+        assert sc.count(data) == want[0]
+        assert tscan.pair_scan_launches == before + mesh.size
+        assert (sc.scan(data), sc.count_many(docs),
+                sc.count_stream(segs)) == want[1:]

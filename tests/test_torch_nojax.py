@@ -24,7 +24,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def test_import_and_cpu_count_load_no_jax():
     """count, find, count_many and find_many on the CPU plain versions,
-    without jax."""
+    and the multi-device layer (parallel and its modules, ops.mesh,
+    ops.scan, a count and a batch on a 2-shard CPU mesh), without jax."""
     code = (
         "import sys\n"
         "import sregex_tpu_torch\n"
@@ -43,6 +44,16 @@ def test_import_and_cpu_count_load_no_jax():
         "assert fs.find_many(docs) == [(0, [2, 4, 2, 3, 3, 4]), None,"
         " (0, [0, 2, 0, 1, 1, 2]), (0, [1, 4, 1, 3, 3, 4])]\n"
         "assert fs.stats().api == 'find_many', fs.stats()\n"
+        "import torch\n"
+        "from sregex_tpu_torch import parallel\n"
+        "from sregex_tpu_torch.parallel import (distributed, dryrun, "
+        "multihost, sharded_scan)\n"
+        "from sregex_tpu_torch.ops import mesh, scan\n"
+        "m = parallel.make_mesh([torch.device('cpu')] * 2)\n"
+        "ms = sregex_tpu_torch.compile_pattern('ab', device='cpu', mesh=m)\n"
+        "ms.DEVICE_THRESHOLD = 1\n"
+        "assert ms.count(b'xxab' * 3000) == 3000\n"
+        "assert ms.count_many(docs) == [700, 0, 1, 900]\n"
         "assert 'jax' not in sys.modules\n"
         "ref = [m for m in sys.modules\n"
         "       if m == 'sregex_tpu' or m.startswith('sregex_tpu.')]\n"
