@@ -107,6 +107,15 @@ engine:
     the lazy reverse core and, under SREGEX_FUSED=1, the dictionary's
     fused reverse core, each map held against a native walk of the
     reversed corpus and its match starts against the generator's;
+  - tier_ab: the first-scan A/B of the "ab" band (wide machines of 3
+    to 16 rows, SREGEX_TIER_AB on): Scanner.count of a 4-row and a 6-row
+    machine over TIER_AB_MB of digit and symbol filler, a match about
+    once a MB, the first call served by the fast legacy or the fused
+    core and timing it against the static wide tier on a 32 MB slice,
+    the next by the winner (a fused core that loses gives way to the
+    fast legacy core and its own A/B), every count against the native
+    count; then the 4-row machine over a virtual mesh of MESH_SHARDS
+    shards;
   - mesh (last): the paths again over a virtual mesh of MESH_SHARDS
     shards of the card (ops/mesh.py), each beside one device in the
     same run and both equal to the oracle: the headline's
@@ -270,14 +279,18 @@ def drop_preps(prepared, *tables):
         del prepared._by_tables[key]
 
 
+# each kernel row's launch counter: (module, attribute)
+LAUNCH_COUNTERS = dict(
+    narrow=(scan, "pair_scan_launches"), wide=(scan, "spec_scan_launches"),
+    big=(big, "big_smem_launches"), big_global=(big, "big_scan_launches"),
+    affine=(aff, "affine_scan_launches"), tdfa=(tdfa, "tdfa_scan_launches"),
+    phi=(tphi, "phi_scan_launches"), phi_big=(tphi, "phi_big_scan_launches"),
+    gated=(tcore, "gated_scan_launches"))
+
+
 def launch_counts(base=None):
     """Each kernel row's launch count now (less ``base``)."""
-    now = dict(narrow=scan.pair_scan_launches, wide=scan.spec_scan_launches,
-               big=big.big_smem_launches, big_global=big.big_scan_launches,
-               affine=aff.affine_scan_launches,
-               tdfa=tdfa.tdfa_scan_launches, phi=tphi.phi_scan_launches,
-               phi_big=tphi.phi_big_scan_launches,
-               gated=tcore.gated_scan_launches)
+    now = {k: getattr(m, a) for k, (m, a) in LAUNCH_COUNTERS.items()}
     return now if base is None else {k: now[k] - base[k] for k in now}
 
 
@@ -290,17 +303,24 @@ def tally(launches):
 
 
 def reset_launches():
-    scan.spec_scan_launches = 0
-    scan.pair_scan_launches = 0
-    big.big_scan_launches = 0
-    big.big_smem_launches = 0
-    aff.affine_scan_launches = 0
-    tdfa.tdfa_scan_launches = 0
-    tphi.phi_scan_launches = 0
-    tphi.phi_big_scan_launches = 0
-    tcore.gated_scan_launches = 0
+    for m, a in LAUNCH_COUNTERS.values():
+        setattr(m, a, 0)
     for route in tcore.gated_route_launches:
         tcore.gated_route_launches[route] = 0
+
+
+@contextlib.contextmanager
+def launches_uncounted():
+    """Launches made inside (a check's, not a path's) leave every
+    kernel row's count as it was."""
+    saved = launch_counts()
+    routes = dict(tcore.gated_route_launches)
+    try:
+        yield
+    finally:
+        for k, (m, a) in LAUNCH_COUNTERS.items():
+            setattr(m, a, saved[k])
+        tcore.gated_route_launches.update(routes)
 
 
 def max_abs_err(got, want):
@@ -2169,9 +2189,9 @@ def hold_against_plain(rec, errs):
             got, want = [g[:nblk] for g in got], [w[:nblk] for w in want]
         err = max_abs_err(got, want) if got[0].numel() else 0
         if err:
-            raise AssertionError("a %s launch of the mesh path differs "
-                                 "from its plain version by %d (%d block "
-                                 "rows)" % (row, err, a[1].shape[0]))
+            raise AssertionError("a %s launch differs from its plain "
+                                 "version by %d (%d block rows)"
+                                 % (row, err, a[1].shape[0]))
         errs[row] = max(errs[row], err)
         held.setdefault(row, []).append(a[1].shape[0])
     return held
@@ -2434,6 +2454,175 @@ def multihost_processes(cards=("0,0", "0,0")):
                            for key in ("bytes", "count_s", "scan_s",
                                        "first_count_s", "first_scan_s")}
                     for name in ("aligned", "ragged")})
+
+
+# the tier_ab phase: the two mid-band wide machines (stream._core_band
+# "ab"; wide rows 4 and 6, the legacy and the fused core's arms), the
+# plants of each, and each one's corpus
+TIER_AB_MB = 256
+TIER_AB_MACHINES = (
+    (rb"(foo|bar|baz|qux)=[0-9a-f]{2,8}",
+     (b"foo=1a2b", b"qux=ff", b"bar=0c0ffee1")),
+    (rb"(GET|POST|PUT|HEAD) /[a-z]{1,12}\.(html|php|js)",
+     (b"GET /index.html", b"POST /a.php", b"HEAD /zz.js")))
+
+
+def tier_ab_corpus(mb, plants, sample, seed):
+    """mb MB of digit and symbol filler, in which no prefix of a match
+    starts (the log-scan shape the fast core needs), with one of
+    ``plants`` about once a MB at a seeded offset, none in the four
+    core-sample slices of ``sample`` bytes (Scanner._core_sample), so
+    that the mid-band machine's core builds."""
+    n = mb << 20
+    unit = b"0123 456 789 -- 01 2345 "
+    out = bytearray((unit * (n // len(unit) + 1))[:n])
+    cuts = {0, n // 3, 2 * n // 3, n - sample}
+    rng = np.random.default_rng(seed)
+    for i in range(mb):
+        pos = (i << 20) + int(rng.integers(0, (1 << 20) - 64))
+        if any(c - 64 <= pos < c + sample for c in cuts):
+            continue
+        w = plants[i % len(plants)]
+        out[pos:pos + len(w)] = w
+    return bytes(out)
+
+
+# the A/B's arms, by their names in the stream module
+AB_ARMS = ("spec_count_bytes", "core_count_bytes", "core_count_fused")
+
+
+def arm_repairs(name, t):
+    """What an arm's call on tables ``t`` repaired on the host: their
+    last_repair, the fused core's escapes beside it."""
+    if name == "core_count_fused":
+        return t.last_escapes, t.last_repair
+    return t.last_repair
+
+
+@contextlib.contextmanager
+def recorded_arms():
+    """Record the last call of each of the A/B's arms made inside
+    (Scanner._maybe_tier_ab reads them by their module names; a call a
+    tier serves takes _TIER_CALLS' own references): {arm: (arguments,
+    result, what it repaired)}."""
+    rec, saved = {}, {name: getattr(tstream, name) for name in AB_ARMS}
+    for name, fn in saved.items():
+        def arm(*a, _fn=fn, _name=name, **kw):
+            r = _fn(*a, **kw)
+            rec[_name] = (a, r, arm_repairs(_name, a[0]))
+            return r
+        setattr(tstream, name, arm)
+    try:
+        yield rec
+    finally:
+        for name, fn in saved.items():
+            setattr(tstream, name, fn)
+
+
+def hold_arms_on_one_device(rec):
+    """Each A/B arm's last call (recorded_arms) made again on one device,
+    unprepared and outside the launch tally: the same result and the same
+    host repairs, so that a launch which was wrong but repaired, or a
+    shard that scanned the wrong rows, shows.  Returns {arm: repairs}."""
+    out = {}
+    with launches_uncounted():
+        for name, (a, r, rep) in rec.items():
+            one = getattr(tstream, name)(*a)
+            if one != r or arm_repairs(name, a[0]) != rep:
+                raise AssertionError(
+                    "the A/B's %s gave %r repairing %r, one device %r "
+                    "repairing %r" % (name, r, rep, one,
+                                      arm_repairs(name, a[0])))
+            out[name] = rep
+    return out
+
+
+def tier_ab_case(sc, corpus, errs):
+    """Scanner.count of a mid-band machine until a call runs no A/B: the
+    first is served by its core and times it against the static tier
+    (Scanner._maybe_tier_ab); a fused core that loses gives way to the
+    fast legacy core, whose own A/B the next call runs.  Every count
+    equals the native count, and the last call is served by the last
+    winner.  Every kernel launch of every call, the A/B's arms included,
+    is held against its plain version (hold_against_plain, into
+    ``errs``; the planes' copies fall inside the timed arms), and each
+    arm's result and host repairs against one device's
+    (hold_arms_on_one_device).  Returns the fields: each call's tier, wall
+    seconds, held launches and the tier_ab record it made, with the A/B's
+    seconds, its share of the call and its arms' repairs."""
+    want = native_count(sc, corpus)
+    run_ab, made = sc._maybe_tier_ab, []
+
+    def timed_ab(data):
+        was = getattr(sc, "tier_ab", None)
+        t0 = time.perf_counter()
+        run_ab(data)
+        if getattr(sc, "tier_ab", None) is not was:
+            made.append(dict(sc.tier_ab, seconds=time.perf_counter() - t0))
+
+    sc._maybe_tier_ab = timed_ab
+    calls = []
+    try:
+        while not calls or calls[-1]["tier_ab"] is not None:
+            if len(calls) == 3:
+                raise AssertionError("an A/B on every call: %r" % calls)
+            del made[:]
+            t0 = time.perf_counter()
+            with recorded_launches() as rec, recorded_arms() as arms:
+                got = sc.count(corpus)
+            call = dict(seconds=time.perf_counter() - t0,
+                        tier=sc.stats().tier,
+                        tier_ab=made[0] if made else None)
+            if got != want:
+                raise AssertionError("a mid-band count %d != native %d"
+                                     % (got, want))
+            held = hold_against_plain(rec, errs)
+            del rec
+            call["held_launches"] = {k: len(v) for k, v in held.items()}
+            if call["tier_ab"] is not None:
+                call["ab_share"] = call["tier_ab"]["seconds"] \
+                    / call["seconds"]
+                if set(arms) != {"spec_count_bytes",
+                                 call["tier_ab"]["core_arm"] == "_fusedct"
+                                 and "core_count_fused"
+                                 or "core_count_bytes"}:
+                    raise AssertionError("the A/B's arms: %r" % list(arms))
+                call["arm_repairs"] = hold_arms_on_one_device(arms)
+            del arms
+            calls.append(call)
+    finally:
+        del sc._maybe_tier_ab
+    last = calls[-2]["tier_ab"]["winner"] if len(calls) > 1 else None
+    if last is None or calls[0]["tier"] != "CoreTables" \
+            or calls[-1]["tier"] != ("SpecTablesWide" if last == "static"
+                                     else "CoreTables"):
+        raise AssertionError("the A/B's tiers: %r" % calls)
+    return dict(rows=sc._spec.rows, bytes=len(corpus), count=want,
+                calls=calls)
+
+
+def tier_ab_phase(dev, errs, mb=TIER_AB_MB):
+    """The first-scan A/B of the "ab" band on the card: each mid-band
+    machine over ``mb`` MB (tier_ab_case), then the rows-4 machine over
+    a virtual mesh of MESH_SHARDS shards of ``dev``; every launch held
+    against its plain version into ``errs``.  Returns the phase's
+    fields."""
+    out = {}
+    with env("SREGEX_TIER_AB", "1"):
+        for i, (pattern, plants) in enumerate(TIER_AB_MACHINES):
+            sc = sregex_tpu_torch.compile_pattern(pattern, device=dev)
+            if tstream._core_band(sc._spec) != "ab":
+                raise AssertionError("%r is not mid-band" % pattern)
+            corpus = tier_ab_corpus(mb, plants, sc.CORE_SAMPLE, 31 + i)
+            name = "rows%d" % sc._spec.rows
+            out[name] = tier_ab_case(sc, corpus, errs)
+            if i == 0:
+                msc = Scanner(sc.program, device=dev, ast=sc.ast, dfa=sc.dfa,
+                              mesh=make_mesh([dev] * MESH_SHARDS))
+                out[name + "_mesh"] = tier_ab_case(msc, corpus, errs)
+                del msc
+            del sc, corpus
+    return out
 
 
 def mesh_phase(dev, inp, errs):
@@ -3378,6 +3567,18 @@ def main():
     if rlaunch["gated"] <= 0 or rlaunch["narrow"] + rlaunch["wide"] <= 0:
         raise AssertionError("the index routes' kernels: %r" % rlaunch)
     say("index_routes", mb=INDEX_ROUTE_MB, **rline, launches=rlaunch,
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+    # the "ab" band's first-scan A/B: the arms' launches are the path's
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    aline = tier_ab_phase(dev, errs)
+    alaunch = launch_counts()
+    tally(launches)
+    if min(alaunch[k] for k in ("narrow", "wide", "gated")) <= 0:
+        raise AssertionError("the tier_ab phase's kernels: %r" % alaunch)
+    say("tier_ab", mb=TIER_AB_MB, shards=MESH_SHARDS, **aline,
+        launches=alaunch, seconds=time.perf_counter() - t0,
         peak_mem_bytes=torch.cuda.max_memory_allocated())
 
     if min(launches.values()) <= 0:

@@ -12,19 +12,24 @@ The static tier chain is the JAX package's: pair (narrow) -> narrow ->
 affine (P <= 6) -> wide -> affine -> big.  Above it sit the adaptive
 hot-core tiers (ops/core.py), tried first, in the JAX order: the fused
 two-phase tier, then the legacy core.  Which machines they serve is the
-decision band _core_band, measured on the card and narrower than the
-JAX package's: only a machine no static tier accepts gets the legacy
-core (escapes repaired natively), or the native engine where no core
-fits (CoreTables declines), as stats().tier then says.  Every static
-tier, wide and big included, serves its machines itself.  The fused
-tier (a core sampled from the corpus, escapes redone on the card by the
-static tier's kernel) is the TPU's route for long-chain wide and big
-machines; on the card it is slower than the static tier it would
-replace, so it serves only when SREGEX_FUSED=1 asks for it, and a scan
-that overflows its device cap hands the machine back to the static
-tier.  SREGEX_CORE=0 keeps every core tier out.  Unlike the JAX
-package, no device failure is swallowed: a failed build or launch
-raises.
+decision band _core_band.  A machine no static tier accepts gets the
+legacy core (escapes repaired natively), or the native engine where no
+core fits (CoreTables declines), as stats().tier then says.  A wide
+machine of 3 to 16 rows is in the JAX package's "ab" band: the forward
+Scanner builds a core for it (the fused one past 4 rows, else a fast
+legacy one) and its first count or scan of at least DEVICE_THRESHOLD
+bytes times that core against the static tier (_maybe_tier_ab,
+recorded in Scanner.tier_ab); the loser is declined for the Scanner's
+life; the batch and stream paths, which run no A/B, take such a core
+only once an A/B kept it.  SREGEX_TIER_AB=0 turns the A/B off.  Every
+other static tier, wide and big included, serves its machines itself,
+as measured on the card (the JAX package sends wide machines past 16
+rows and big ones to the core tiers).  The fused tier (a core sampled from the corpus,
+escapes redone on the card by the static tier's kernel) serves them
+only when SREGEX_FUSED=1 asks for it, and a scan that overflows its
+device cap hands the machine back to the static tier.  SREGEX_CORE=0
+keeps every core tier out.  Unlike the JAX package, no device failure
+is swallowed: a failed build or launch raises.
 
 A pattern past the eager DFA budget (DfaTooLarge) gets no dense
 machine and no static tier, as in the JAX package: every call is
@@ -161,12 +166,14 @@ def _build_spec_tables(dfa, device):
 
 def _core_band(spec):
     """The core-vs-static decision band of a static tier: "core" = the
-    legacy core is tried first, "static" = the static tier serves.
+    legacy core is tried first, "static" = the static tier serves, "ab"
+    = the forward Scanner times both on its first large scan
+    (Scanner._maybe_tier_ab) and keeps the winner.
 
     The JAX package's bands (its stream.py:101-117) were measured on the
-    TPU: static up to 2 wide rows, "ab" (a first-scan A/B) up to 16,
-    core past that and for the big tier or none.  On the card every
-    static tier is "static", and there is no "ab" band:
+    TPU: static up to 2 wide rows, "ab" up to 16, core past that and for
+    the big tier or none.  The port keeps the first two and departs for
+    the rest, which the card measured "static":
 
       - a wide table sits whole in shared memory and costs one lookup a
         byte whatever its rows, so the TPU's reason to leave a
@@ -177,30 +184,46 @@ def _core_band(spec):
         and the legacy core, which re-scans every escaped chunk on the
         host, 1.97 GB/s (chip_smoke.py on an H100 at 700 W; PERF.md).
 
-    Only a machine with no static tier is "core"."""
-    return "core" if spec is None else "static"
+    The mid-band is left to the A/B, which measures both arms on the
+    Scanner's own corpus.  Only a machine with no static tier is
+    "core"."""
+    if spec is None:
+        return "core"
+    if isinstance(spec, SpecTablesWide) and 2 < spec.rows <= 16:
+        return "ab"
+    return "static"
 
 
 def _core_requirement(spec):
-    """The legacy core's eligibility over a static tier: None = it stays
-    out (the band is "static", or SREGEX_CORE=0), else the require_fast
-    flag for CoreTables (False: with no static tier any core helps)."""
+    """The legacy core's eligibility over a static tier without the A/B:
+    None = it stays out (the band is "static" or "ab", or SREGEX_CORE=0),
+    else the require_fast flag for CoreTables (False: with no static tier
+    any core helps).  The reverse cores and StreamScanner take it as it
+    is; the forward Scanner through Scanner._core_eligible."""
     if os.environ.get("SREGEX_CORE") == "0" or _core_band(spec) != "core":
         return None
     return False
 
 
 def _fused_eligible(spec):
-    """Whether the fused tier may serve over static tables ``spec``: only
-    when SREGEX_FUSED=1 asks for it (the card's band keeps every static
-    tier, _core_band) and SREGEX_CORE=0 does not keep the core tiers
-    out, over the tables the JAX package builds it for, whose kernel
-    phase 2 reruns: a long-chain wide tier or the big tier."""
+    """Whether SREGEX_FUSED=1 puts the fused tier over static tables
+    ``spec``: it asks for it, SREGEX_CORE=0 does not keep the core tiers
+    out, and the tables are those the JAX package builds it for, whose
+    kernel phase 2 reruns: a long-chain wide tier or the big tier."""
     if os.environ.get("SREGEX_FUSED") != "1" \
             or os.environ.get("SREGEX_CORE") == "0":
         return False
     return (isinstance(spec, SpecTablesWide) and spec.rows > 4) \
         or isinstance(spec, SpecTablesBig)
+
+
+def _tier_ab_band(spec):
+    """Whether the forward Scanner's first-scan A/B applies to static
+    tables ``spec``: their band is "ab", SREGEX_TIER_AB=0 does not turn
+    the A/B off and SREGEX_CORE=0 does not keep the core tiers out."""
+    return _core_band(spec) == "ab" \
+        and os.environ.get("SREGEX_TIER_AB") != "0" \
+        and os.environ.get("SREGEX_CORE") != "0"
 
 
 # per api: the fused, legacy core, phi and static tiers' entry points
@@ -433,6 +456,9 @@ class Scanner:
         # first use: None untried, False declined
         self._coret = None
         self._fusedct = None
+        # an "ab"-band core built and not yet timed against the static
+        # tier (_maybe_tier_ab)
+        self._ab_pending = False
         self._core_strikes = 0     # the legacy core's drifted scans
         self._core_rebuilds = 0    # its re-cores
         self._rev_core_strikes = 0     # the same for the reverse core
@@ -482,11 +508,12 @@ class Scanner:
         is made on the device (torch.zeros, so nothing is uploaded),
         prepared (a host zeros array stands in for the ragged tail the
         host walks) and counted through count()'s flow: the fused tier
-        where ``sample`` gives it a core (SREGEX_FUSED=1) and fused_chunk
-        accepts it, else the static tier.  On the card this takes the
-        kernels' nvcc build and load, the class map's upload and the
-        allocator's first blocks out of the first real call; run it
-        beside host work (the oracle's count, reading the corpus).
+        where ``sample`` gives it a core (SREGEX_FUSED=1, or the "ab"
+        band: _fused_core_tables) and fused_chunk accepts it, else the
+        static tier (an "ab"-band core's A/B waits for the first real
+        count or scan).  On the card this takes the kernels' nvcc build
+        and load, the class map's upload and the allocator's first blocks
+        out of the first real call; run it beside host work (the oracle's count, reading the corpus).
         ``sample`` seeds the core tiers as the real corpus would (pass
         its head: a zeros sample builds another core).  Returns wall
         seconds, 0.0 when there is nothing to warm (no dense machine, no
@@ -575,16 +602,14 @@ class Scanner:
                        max(0, n - w)})
         return b"".join(bytes(data[c:c + w]) for c in cuts)
 
-    def _new_core(self, dfa, lazy, spec, sample):
+    def _new_core(self, dfa, lazy, sample, req):
         """A legacy core of the machine ``dfa`` (the lazy machine
-        ``lazy`` where dfa is None) whose static tier is ``spec``, built
-        from ``sample`` where the card's band gives the machine one
-        (_core_requirement); the pair/narrow/wide kernels run it.
-        Escapes repair natively, so a poor core only costs speed.  False
-        = declined (no device, the band, or no core covers the
-        sample)."""
-        req = None if self.device is None else _core_requirement(spec)
-        if req is None:
+        ``lazy`` where dfa is None), built from ``sample`` where ``req``,
+        its eligibility (_core_requirement or _core_eligible), is not
+        None; the pair/narrow/wide kernels run it.  Escapes repair
+        natively, so a poor core only costs speed.  False = declined (no
+        device, the band, or no core covers the sample)."""
+        if self.device is None or req is None:
             return False
         try:
             if dfa is not None:
@@ -595,14 +620,13 @@ class Scanner:
         except ValueError:
             return False
 
-    def _new_fused_core(self, dfa, spec, sample):
-        """The core of the fused two-phase tier over the machine ``dfa``
-        whose static tier is ``spec``: escaped chunks are redone on the
-        device by the static tier's kernel, so a wide core and a loose
-        escape budget are fine.  Built only where _fused_eligible allows
-        it (SREGEX_FUSED=1); False = declined (the static tier
-        serves)."""
-        if self.device is None or not _fused_eligible(spec):
+    def _new_fused_core(self, dfa, sample, admit):
+        """The core of the fused two-phase tier over the machine ``dfa``:
+        escaped chunks are redone on the device by the static tier's
+        kernel, so a wide core and a loose escape budget are fine.  Built
+        only where ``admit`` (_fused_eligible, or the "ab" band for the
+        forward machine); False = declined (the static tier serves)."""
+        if self.device is None or not admit:
             return False
         try:
             return CoreTables(dfa, sample,
@@ -612,22 +636,62 @@ class Scanner:
         except ValueError:
             return False
 
+    @staticmethod
+    def _core_eligible(spec):
+        """The forward legacy core's eligibility over static tables
+        ``spec``, as in the JAX package: None = it stays out, else the
+        require_fast flag for CoreTables.  In the "ab" band with the A/B
+        on (_tier_ab_band) it is True, since over a wide tier that
+        survives only a fast core can help; elsewhere, and under
+        SREGEX_TIER_AB=0 or SREGEX_CORE=0, it is _core_requirement's."""
+        return True if _tier_ab_band(spec) else _core_requirement(spec)
+
+    @staticmethod
+    def _fused_admit(spec):
+        """Whether the forward fused core may be built over static tables
+        ``spec``: where SREGEX_FUSED=1 asks for it (_fused_eligible), or,
+        as the JAX package builds it, for an "ab"-band machine past 4
+        rows with the A/B on, unless SREGEX_FUSED=0."""
+        return _fused_eligible(spec) or (
+            _tier_ab_band(spec) and spec.rows > 4
+            and os.environ.get("SREGEX_FUSED") != "0")
+
+    def _ab_kept(self, attr):
+        """Whether a path that runs no A/B (the batch and stream paths)
+        may take the core held in ``attr``: always outside the band or
+        with the A/B off; in the band only the core an A/B timed and
+        kept.  Until then those paths take the static tier, which every
+        A/B on the card has chosen (PERF.md), where the JAX package lets
+        them ride the band's untimed core."""
+        if not _tier_ab_band(self._spec):
+            return True
+        ab = getattr(self, "tier_ab", None)
+        return not self._ab_pending and ab is not None \
+            and ab["winner"] == "core" and ab["core_arm"] == attr
+
     def _core_tables(self, data):
-        """The legacy core tier (_new_core; LazyCoreTables over the lazy
-        machine when there is no dense one), sampled from the corpus.
-        Cached (False = declined)."""
+        """The legacy core tier (_new_core under _core_eligible;
+        LazyCoreTables over the lazy machine when there is no dense one),
+        sampled from the corpus.  An "ab"-band core waits for its A/B
+        (_ab_pending).  Cached (False = declined)."""
         if self._coret is None:
             self._coret = self._new_core(
                 self.dfa, self.dfa is None and self._lazy_dfa(),
-                self._spec, self._core_sample(data))
+                self._core_sample(data), self._core_eligible(self._spec))
+            if self._coret and _tier_ab_band(self._spec):
+                self._ab_pending = True
         return self._coret or None
 
     def _fused_core_tables(self, data):
-        """The fused tier's core (_new_fused_core), sampled from the
-        corpus.  Cached (False = declined)."""
+        """The fused tier's core (_new_fused_core under _fused_admit),
+        sampled from the corpus; an "ab"-band core waits for its A/B
+        (_ab_pending).  Cached (False = declined)."""
         if self._fusedct is None:
             self._fusedct = self._new_fused_core(
-                self.dfa, self._spec, self._core_sample(data))
+                self.dfa, self._core_sample(data),
+                self._fused_admit(self._spec))
+            if self._fusedct and _tier_ab_band(self._spec):
+                self._ab_pending = True
         return self._fusedct or None
 
     def _core_note(self, ct, attr="_coret"):
@@ -694,6 +758,98 @@ class Scanner:
         else:
             self._fused_warm_strikes = 0
 
+    # the first-scan A/B of the "ab" band, as in the JAX package: the
+    # corpus slice both arms count, and how far the static tier must
+    # beat the core to displace it (the arms interleave in one process,
+    # each the min of 2 reps)
+    TIER_AB_BYTES = 32 << 20
+    TIER_AB_MARGIN = 1.1
+
+    def _maybe_tier_ab(self, data):
+        """The first-scan A/B of an "ab"-band machine, once per core
+        built (_ab_pending): after that core served a count or scan of
+        ``data``, count the first TIER_AB_BYTES of it with the core (the
+        fused tier's core_count_fused where the core is _fusedct, else
+        core_count_bytes) and with the static tier (spec_count_bytes),
+        one untimed rep of each and then the min of 2 timed reps,
+        interleaved.  Each arm reads its count back to the host, so the
+        host clock covers the device's work; the slice is prepared for
+        both arms before the clock starts.  The static tier wins only
+        when it beats the core by more than TIER_AB_MARGIN, and the loser
+        is declined for the Scanner's life (the core attribute set to
+        False).  The result is kept in ``self.tier_ab``: bytes, static_s,
+        core_s, winner ("static" or "core"), core_arm ("_fusedct" or
+        "_coret"), static_gbps and core_gbps.  A corpus below
+        DEVICE_THRESHOLD leaves the A/B pending.
+
+        Four departures from the JAX package: a failing arm raises (the
+        JAX package declines it and lets the other serve); arms that
+        disagree raise (the JAX package warns and keeps the core), since
+        one tier is then wrong; a fused core that overflowed its device
+        cap on the call it served was declined there by the port's
+        overflow rule (_fused_note), so it loses before it is timed: the
+        A/B finds no core and records nothing; and the batch and stream
+        paths, which run no A/B, take the band's core only once an A/B
+        has kept it (_ab_kept), where the JAX package serves them the
+        untimed core."""
+        if not self._ab_pending:
+            return
+        fct = self._fusedct
+        ct = fct or self._coret
+        if not ct:
+            self._ab_pending = False       # declined or re-cored since
+            return
+        if len(data) < self.DEVICE_THRESHOLD:
+            return
+        self._ab_pending = False
+        spec = self._spec
+        ab = data[:self.TIER_AB_BYTES]
+        abp = PreparedCorpus(ab, self.device, mesh=self.mesh)
+        mesh = self.mesh
+        attr = "_fusedct" if fct else "_coret"
+        if fct:
+            ck = fused_chunk(fct.inner, spec)
+            pcore, pfull = abp.for_tables(fct.inner, ck), \
+                abp.for_tables(spec, ck)
+
+            def core_arm():
+                return core_count_fused(fct, spec, ab, prepared_core=pcore,
+                                        prepared_full=pfull, mesh=mesh)
+        else:
+            pcore = abp.for_tables(ct.inner)
+
+            def core_arm():
+                return core_count_bytes(ct, ab, prepared=pcore, mesh=mesh)
+        pstatic = abp.for_tables(spec)
+
+        def static_arm():
+            return spec_count_bytes(spec, ab, prepared=pstatic, mesh=mesh)
+
+        r_s, r_c = static_arm(), core_arm()
+        if r_s != r_c:
+            raise RuntimeError(
+                "tier A/B: the core (%s) and the static tier disagree on "
+                "the first %d bytes: %r against %r" % (attr, len(ab), r_c,
+                                                       r_s))
+        ts, tc = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            static_arm()
+            ts.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            core_arm()
+            tc.append(time.perf_counter() - t0)
+        s, c = min(ts), min(tc)
+        winner = "static" if s * self.TIER_AB_MARGIN < c else "core"
+        self.tier_ab = {
+            "bytes": len(ab), "static_s": s, "core_s": c,
+            "winner": winner, "core_arm": attr,
+            "static_gbps": len(ab) / s / 1e9,
+            "core_gbps": len(ab) / c / 1e9,
+        }
+        if winner == "static":
+            setattr(self, attr, False)
+
     def _escalate_warmup(self):
         """Move the tables one rung up WARM_LADDER.  Returns True on
         escalation."""
@@ -746,7 +902,9 @@ class Scanner:
         static.  Returns (tables, (state, value)), value the count or
         the first match boundary, or (None, None) when no device tier
         serves the corpus (the caller asks the native engine).  Records
-        the stats and makes the serving tier's post-scan note."""
+        the stats and makes the serving tier's post-scan note; after a
+        core tier served, runs an "ab"-band machine's pending A/B
+        (_maybe_tier_ab)."""
         if not self._on_device(data):
             return None, None
         fused_fn, core_fn, phi_fn, spec_fn = _TIER_CALLS[api]
@@ -766,12 +924,14 @@ class Scanner:
             else:
                 self._fused_note(fct)
                 self._note_stats(api, fct, len(data), t0)
+                self._maybe_tier_ab(data)
                 return fct, r
         ct = self._core_tables(data)
         if ct is not None:
             r = core_fn(ct, data, prepared=prep(ct.inner), mesh=self.mesh)
             self._core_note(ct)
             self._note_stats(api, ct, len(data), t0)
+            self._maybe_tier_ab(data)
             return ct, r
         if self._phi_active:
             pt = self._phi
@@ -1026,24 +1186,27 @@ class Scanner:
 
     def _batch_core(self, docs):
         """The legacy core tier for a batched scan: the single-buffer
-        selector (_core_tables: the card's band, the Scanner's cache),
+        selector (_core_tables: the band, the Scanner's cache),
         its sample spread over the document set.  None where the core
-        stays out (the static batch path or the loop serves)."""
-        if not self._batch_on_device(docs):
+        stays out (the static batch path or the loop serves), an
+        "ab"-band core among them until its A/B keeps it (_ab_kept)."""
+        if not self._batch_on_device(docs) or not self._ab_kept("_coret"):
             return None
         if self._coret is not None:
             return self._coret or None      # cached: no sample needed
         return self._core_tables(self._batch_sample(docs))
 
     def _batch_fused_core(self, docs):
-        """The fused tier's core for a batched scan (_fused_core_tables,
-        SREGEX_FUSED=1): the set's escaped chunks are redone by the full
-        machine's kernel inside the one batch dispatch, not walked on the
-        host one each.  None where the fused tier stays out.
+        """The fused tier's core for a batched scan (_fused_core_tables):
+        the set's escaped chunks are redone by the full machine's kernel
+        inside the one batch dispatch, not walked on the host one each.
+        None where the fused tier stays out, an "ab"-band core among them
+        until its A/B keeps it (_ab_kept).
 
         Declined on a mesh Scanner, as in the JAX package: its batches take
         the sharded legacy core or static paths."""
-        if not self._batch_on_device(docs) or self.mesh is not None:
+        if not self._batch_on_device(docs) or self.mesh is not None \
+                or not self._ab_kept("_fusedct"):
             return None
         if self._fusedct is not None:
             return self._fusedct or None
@@ -1230,14 +1393,15 @@ class Scanner:
         """Tables and segment iterator for the pipelined stream calls.
         Peeks segments until DEVICE_THRESHOLD bytes have come (below it
         the host carry loop wins, as for a whole corpus).  Where the
-        card's band gives the machine the legacy core (_core_tables: no
-        static tier, the dense or the lazy machine) and the first
-        segment holds CORE_SAMPLE bytes, the core is sampled from it and
-        rides the pipeline; else the static tier.  Never the fused or
-        the phi tier.  A producer may refill its read buffer once the
-        next segment is asked for, so each peeked segment but the last
-        is snapshotted.  Returns (tables or None, iterator, whether the
-        tables are the legacy core)."""
+        band gives the machine the legacy core (_core_tables: no static
+        tier, the dense or the lazy machine, or an "ab"-band machine
+        whose core an A/B kept: _ab_kept) and the first segment holds
+        CORE_SAMPLE bytes, the core is sampled from it and rides the
+        pipeline; else the static tier.  Never the fused or the phi
+        tier, and no A/B.  A producer may refill its read buffer once
+        the next segment is asked for, so each peeked segment but the
+        last is snapshotted.  Returns (tables or None, iterator, whether
+        the tables are the legacy core)."""
         it = iter(segments)
         peeked = []
         total = 0
@@ -1250,7 +1414,8 @@ class Scanner:
         rest = itertools.chain(peeked, it)
         if total < self.DEVICE_THRESHOLD:
             return None, rest, False
-        if memoryview(peeked[0]).nbytes >= self.CORE_SAMPLE:
+        if memoryview(peeked[0]).nbytes >= self.CORE_SAMPLE \
+                and self._ab_kept("_coret"):
             ct = self._core_tables(peeked[0])
             if ct is not None:
                 return ct, rest, True
@@ -1363,13 +1528,14 @@ class Scanner:
 
     def _rev_core_tables(self, data):
         """The legacy core of the REVERSE machine (the finditer start
-        locator; _new_core over its static tier), sampled from the
+        locator; _new_core over its static tier, under _core_requirement:
+        the band's A/B is the forward machine's), sampled from the
         forward corpus and reversed.  Cached (False = declined)."""
         if self._rev_coret is None:
             rev = self._rev_dfa()
             self._rev_coret = rev is not None and self._new_core(
-                rev.dfa, None, self._rev_spec,
-                self._core_sample(data)[::-1])
+                rev.dfa, None, self._core_sample(data)[::-1],
+                _core_requirement(self._rev_spec))
         return self._rev_coret or None
 
     def _rev_fused_core_tables(self, data):
@@ -1380,7 +1546,8 @@ class Scanner:
         if self._rev_fusedct is None:
             rev = self._rev_dfa()
             self._rev_fusedct = rev is not None and self._new_fused_core(
-                rev.dfa, self._rev_spec, self._core_sample(data)[::-1])
+                rev.dfa, self._core_sample(data)[::-1],
+                _fused_eligible(self._rev_spec))
         return self._rev_fusedct or None
 
     def _rev_lazy_core(self, data):
@@ -1390,7 +1557,8 @@ class Scanner:
         if self._rev_lz_coret is None:
             rl = self._rev_lazy_dfa()
             self._rev_lz_coret = rl is not None and self._new_core(
-                None, rl, None, self._core_sample(data)[::-1])
+                None, rl, self._core_sample(data)[::-1],
+                _core_requirement(None))
         return self._rev_lz_coret or None
 
     def make_index(self, data):

@@ -1460,3 +1460,44 @@ def test_scanner_on_a_virtual_mesh_runs_on_the_card(cuda):
         assert tscan.pair_scan_launches == before + mesh.size
         assert (sc.scan(data), sc.count_many(docs),
                 sc.count_stream(segs)) == want[1:]
+
+
+@pytest.mark.parametrize("pattern,plant", [
+    (rb"(foo|bar|baz|qux)=[0-9a-f]{2,8}", b"foo=1a2b"),
+    (rb"(GET|POST|PUT|HEAD) /[a-z]{1,12}\.(html|php|js)",
+     b"GET /index.html")])
+def test_tier_ab_runs_on_the_card(cuda, monkeypatch, pattern, plant):
+    """A mid-band wide machine (4 rows: the fast legacy core's arm; 6
+    rows: the fused core's) on the card with SREGEX_TIER_AB=1: the first
+    count is served by the core and times it against the static tier,
+    tier_ab records the arms, count_many follows the winner, and every
+    count, the winner's included, equals the native engine's."""
+    import sregex_tpu_torch
+    from sregex_tpu_torch import stream as tstream
+    monkeypatch.setenv("SREGEX_TIER_AB", "1")
+    sc = sregex_tpu_torch.compile_pattern(pattern)
+    assert tstream._core_band(sc._spec) == "ab"
+    n = 24 << 20
+    unit = b"0123 456 789 -- 01 2345 "
+    text = bytearray((unit * (n // len(unit) + 1))[:n])
+    # plants outside the core's four sample slices, so that it builds
+    for pos in range(300_000, n - 64, 1 << 20):
+        text[pos:pos + len(plant)] = plant
+    data = bytes(text)
+    host = sregex_tpu_torch.compile_pattern(pattern, device=None)
+    want = host.count(data)
+    assert want > 0
+    assert sc.count(data) == want
+    assert sc.stats().tier == "CoreTables"
+    ab = sc.tier_ab
+    assert ab["bytes"] == n and ab["static_s"] > 0 and ab["core_s"] > 0
+    assert ab["core_arm"] == ("_coret" if sc._spec.rows <= 4
+                              else "_fusedct")
+    for _ in range(2):
+        assert sc.count(data) == want
+    assert sc.scan(data) == host.scan(data)
+    # the batch path runs no A/B and follows its winner
+    docs = [data[i:i + (1 << 20)] for i in range(0, n, 1 << 20)]
+    assert sc.count_many(docs) == [host.count(d) for d in docs]
+    assert sc.stats().tier == ("SpecTablesWide" if ab["winner"] == "static"
+                               else "CoreTables")

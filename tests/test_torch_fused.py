@@ -339,9 +339,12 @@ def test_scanner_serves_a_big_tier_machine_with_the_fused_tier(monkeypatch):
 
 @pytest.mark.parametrize("fused", [None, "1"])
 def test_scanner_keeps_wide_machines_on_the_static_tier(monkeypatch, fused):
-    """The card's band: a wide machine, long chain or not, stays on
-    its static tier, and no legacy core is built; SREGEX_FUSED=1 puts a
-    long-chain one on the fused tier, the TPU's route for it."""
+    """The card's band without the first-scan A/B: a wide machine,
+    long chain or not, stays on its static tier, and no legacy core is
+    built; SREGEX_FUSED=1 puts a long-chain one on the fused tier, the
+    TPU's route for it.  This 7-row machine is in the "ab" band, whose
+    A/B (tests/test_torch_tier_ab.py) SREGEX_TIER_AB=0 turns off."""
+    monkeypatch.setenv("SREGEX_TIER_AB", "0")
     if fused:
         monkeypatch.setenv("SREGEX_FUSED", fused)
     dfa, words = _multi_machine()
@@ -351,7 +354,7 @@ def test_scanner_keeps_wide_machines_on_the_static_tier(monkeypatch, fused):
     sc = tstream.Scanner(tcompile(ast), device="cpu", ast=ast)
     sc.DEVICE_THRESHOLD = 1 << 14
     assert isinstance(sc._spec, tscan.SpecTablesWide) and sc._spec.rows > 4
-    assert tstream._core_band(sc._spec) == "static"
+    assert tstream._core_band(sc._spec) == "ab"
     data = _corpus(words, 200_000, seed=31)
     assert sc.count(data) == _expect(sc, data)
     assert not sc._coret
