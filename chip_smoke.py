@@ -18,7 +18,8 @@ engine:
     against the lazy machine's own count;
   - affine: Scanner.count and Scanner.scan of a base64-blob detector,
     [A-Za-z0-9+/]{400,499}=, over 1920 MB of log-like text with base64
-    runs, after the warmup ladder has settled (the affine tier);
+    runs, after the warmup ladder has settled on the corpus's first
+    AFFINE_SETTLE_MB (the affine tier);
   - big: Scanner.count of a 500-keyword dictionary over the multi
     corpus with dictionary words planted (the static big tier, where the
     card's band keeps it, on the 16-bit shared-memory kernel);
@@ -41,7 +42,7 @@ engine:
     reversed corpus, the Pike engine over the match);
   - find_core: find past the static tiers: Scanner.find of a log-field
     extractor whose tagged DFA is past the card's dense budget,
-    user=([a-z_]{1,40}) id=([0-9]{4,12}), over SREGEX_BENCH_FIND_MB of
+    user=([a-z_]{1,40}) id=([0-9]{4,12}), over FIND_CORE_MB of
     log lines whose ids have 1-3 digits, one match planted near the end
     (the hot core, TdfaCoreTables: certified in one tagged launch, the
     host repair fold over every chunk), a certified no-match over the
@@ -129,9 +130,27 @@ engine:
     MESH_PROC_MB) against the native engine; where torch sees several
     cards, the same over every card (each process on half of them).
 
-Every phase prints one line; any failure raises, so the script exits
-non-zero without the final line.  The kernel launch counts are set to
-0 just before each path is driven and read just after it.
+Depth cut to keep the run inside half its time limit, each path still
+driven to the same tiers and kernels: the warmup ladder settles on
+AFFINE_SETTLE_MB = 128 MB of the affine corpus (it settled on all 1920
+MB); the hot-core find runs over FIND_CORE_MB = 512 MB (it ran over
+SREGEX_BENCH_FIND_MB, 1920), and precompile's first counts reuse the
+multi phase's corpus and oracle (a second 1920 MB copy was made); the
+batch phase's keyword and headline sets hold BATCH_MB = 512 MB (1024)
+and its find_many set BATCH_FIND_MB = 128 MB (256); each other index
+route, and find_core's reverse cores and lazy hot core, run over
+INDEX_ROUTE_MB = 128 MB (256).  The kernels build while the first
+corpora (headline, multi, affine, big) and their native oracles are
+made (so the ``build`` line's overlapped_s and nvcc_s are times under
+that load, longer than a build alone); a phase's native oracles run in threads of their own, and the
+stream phase's native counts are the pipeline phase's oracles; the core
+and index-route phases' dictionary Scanners share the big phase's
+machine instead of building it again.
+
+Every phase prints one line, with the script's wall time so far
+(``at_s``); any failure raises, so the script exits non-zero without the
+final line.  The kernel launch counts are set to 0 just before each
+path is driven and read just after it.
 
 Output, in order: one line per phase, the card's name and power limit
 as nvidia-smi reports them, a JSON line {"kernels": [...]} with each
@@ -155,6 +174,7 @@ import random
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -215,10 +235,10 @@ NO_TIER_PATTERN = "a.{10}b|cdefghijklmnopqrstuvwxyz"
 STREAM_CORE_MB = 256          # the legacy-core stream's corpus
 PIPE_SEGMENT = 64 << 20       # the pipeline phase's segments
 PIPE_DICT_MB = 256            # the dictionary's stream in that phase
-INDEX_ROUTE_MB = 256          # each other index route's corpus
-BATCH_MB = 1024               # the batch phase's keyword and headline sets
+INDEX_ROUTE_MB = 128          # each other index route's corpus
+BATCH_MB = 512                # the batch phase's keyword and headline sets
 BATCH_DICT_MB = 256           # its dictionary and no-static-tier sets
-BATCH_FIND_MB = 256           # its find_many set, cut from finditer's corpus
+BATCH_FIND_MB = 128           # its find_many set, cut from finditer's corpus
 BATCH_SUB_MB = 64             # its finditer_many / sub_many set
 # the dictionary set's words: one every 64 KB, as in the big phase, and
 # past each document's first 64 KB (where the batch's core sample never
@@ -243,13 +263,31 @@ FIND_CORE_REPS = 2
 # past the eager budget forward and reversed, and on text full of a's no
 # hot tagged core fits it: find's start locator is the lazy reverse core
 LAZY_FIND_PATTERN = "a.{13}b|cdefghijklmnopqrstuvwxyz"
+# the head of the affine corpus the warmup ladder settles on
+AFFINE_SETTLE_MB = 128
+# the hot-core find's corpus (find_core_phase)
+FIND_CORE_MB = 512
 REPS = 5
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 SCALAR_OPS_PER_S = 67e12      # H100 SXM, non-tensor 32-bit rate
 
 
+T_START = time.perf_counter()
+
+
 def say(phase, **fields):
+    """One phase's line; ``at_s`` is the script's wall time so far."""
+    fields["at_s"] = time.perf_counter() - T_START
     print("%s: %s" % (phase, json.dumps(fields)), flush=True)
+
+
+def concurrently(*calls):
+    """The results of ``calls`` (no-argument callables, native oracles
+    over whole corpora), run in threads of their own: the native engine
+    releases the GIL, so two oracles take the time of the longer."""
+    with ThreadPoolExecutor(len(calls)) as pool:
+        futures = [pool.submit(c) for c in calls]
+        return [f.result() for f in futures]
 
 
 def mb_env(name, default=1920):
@@ -1117,9 +1155,12 @@ def feed_stream(ss, corpus, chunk):
 def stream_case(dev, name, sc, corpus, plant_end, rid, chunk):
     """One StreamScanner run over ``corpus`` with the Scanner's tables,
     checked against the planted match's end and regex id, the native
-    engine and Scanner.scan of the whole corpus.  Returns its fields."""
+    engine and Scanner.scan of the whole corpus.  Returns its fields,
+    the corpus's native count among them (the pipeline phase's oracle)."""
     t0 = time.perf_counter()
-    native_first, _ = sc._native.scan_first(corpus, 0)
+    (native_first, _), ncount = concurrently(
+        lambda: sc._native.scan_first(corpus, 0),
+        lambda: native_count(sc, corpus))
     native_s = time.perf_counter() - t0
     if native_first != plant_end:
         raise AssertionError("%s: native first end %d, planted %d"
@@ -1147,7 +1188,8 @@ def stream_case(dev, name, sc, corpus, plant_end, rid, chunk):
                 stream_scan_gbps=fed / secs / 1e9, exec_s=secs,
                 nonzero_entries=sum(s != 0 for s in states),
                 entries_in_core=in_core, launches=launched,
-                scanner_scan_s=scan_s, native_s=native_s)
+                scanner_scan_s=scan_s, native_count=ncount,
+                native_s=native_s)
 
 
 def stream_phase(dev, mb, mmb, pats, tmb=STREAM_CORE_MB):
@@ -1314,15 +1356,21 @@ def refilled(corpus, size=PIPE_SEGMENT):
         yield buf[:m]
 
 
-def pipe_oracles(cases, dsc, words):
+def pipe_oracles(cases, dsc, words, known):
     """Each pipeline case's oracles, computed before the phase's
     launches are counted: Scanner.count of the whole corpus (a launch on
     the one-shot path, not the pipeline's) and the native count, held
-    equal.  Adds to ``cases`` the dictionary's stream (PIPE_DICT_MB of
-    its corpus, its native first match planted by the filler).  Returns
-    (count, Scanner.count seconds, native seconds) by case."""
+    equal.  ``known`` maps a stream case's name to its native count and
+    the seconds the stream phase took for it and its first match.  Adds
+    to ``cases`` the dictionary's stream (PIPE_DICT_MB of its corpus, its
+    native first match planted by the filler).  Returns (count,
+    Scanner.count seconds, native seconds) by case."""
     dcorpus = multi_corpus(PIPE_DICT_MB, words)
-    dfirst, dst = dsc._native.scan_first(dcorpus, 0)
+    t0 = time.perf_counter()
+    (dfirst, dst), dcount = concurrently(
+        lambda: dsc._native.scan_first(dcorpus, 0),
+        lambda: native_count(dsc, dcorpus))
+    known = dict(known, dictionary=(dcount, time.perf_counter() - t0))
     cases["dictionary"] = (dsc, dcorpus, dfirst,
                            dsc._id_at(dst, dcorpus[dfirst]))
     out = {}
@@ -1330,9 +1378,7 @@ def pipe_oracles(cases, dsc, words):
         t0 = time.perf_counter()
         whole = sc.count(corpus)
         whole_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        want = native_count(sc, corpus)
-        native_s = time.perf_counter() - t0
+        want, native_s = known[name]
         if whole != want:
             raise AssertionError("%s: Scanner.count %d != native %d"
                                  % (name, whole, want))
@@ -1537,11 +1583,12 @@ def route_case(sc, data, rev, oracle):
                 fired_chunks=len(loc._fires), native_walk_s=brute_s), loc
 
 
-def index_routes_phase(dev, words, pats, mb=INDEX_ROUTE_MB):
+def index_routes_phase(dev, bsc, words, pats, mb=INDEX_ROUTE_MB):
     """make_index on the three other routes over ``mb`` MB each: the
     legacy reverse core (NO_TIER_PATTERN), the lazy reverse core
     (LAZY_PATTERN) and, under SREGEX_FUSED=1, the fused reverse core (the
-    500-keyword dictionary).  Returns the phase's fields."""
+    500-keyword dictionary ``words``, a Scanner over the machine of
+    ``bsc``).  Returns the phase's fields."""
     out = {}
     n = mb << 20
     filler = multi_corpus(mb, pats, step=None).replace(b"b", b"B")
@@ -1601,7 +1648,7 @@ def index_routes_phase(dev, words, pats, mb=INDEX_ROUTE_MB):
                 oracle.append(s)
                 ends.update(s + L for L in hit)
     with env("SREGEX_FUSED", "1"):
-        fsc = sregex_tpu_torch.compile_pattern(words, device=dev)
+        fsc = Scanner(bsc.program, device=dev, ast=bsc.ast, dfa=bsc.dfa)
         fwd_count, _ = fsc._native.count(data, 0)
         if fwd_count != len(ends):
             raise AssertionError("the dictionary matches outside its "
@@ -1801,13 +1848,13 @@ def precompile_case(dev, pats, mcorpus, mexp, fused):
                 tier=sc.stats().tier)
 
 
-def find_core_phase(dev, fmb, pats, mmb, mexp):
+def find_core_phase(dev, fmb, pats, mcorpus, mexp):
     """find past the static tiers and Scanner.precompile: the hot-core
     tagged find over ``fmb`` MB (hot_core_find), the reverse legacy core
     (NO_TIER_PATTERN) and the lazy reverse core (LAZY_FIND_PATTERN) over
     INDEX_ROUTE_MB each (reverse_core_find), LAZY_PATTERN's find on its
     hot core, then precompile and a first count of the 90 keywords over
-    the multi corpus (``mmb`` MB, native count ``mexp``) on the static
+    the multi corpus (``mcorpus``, native count ``mexp``) on the static
     wide tier and on the fused tier, beside a first count without it.
     Returns (fields, the hot core's tables and prep)."""
     out, ct, prep = hot_core_find(dev, fmb)
@@ -1816,13 +1863,12 @@ def find_core_phase(dev, fmb, pats, mmb, mexp):
     out["reverse_lazy"] = reverse_core_find(dev, LAZY_FIND_PATTERN,
                                             INDEX_ROUTE_MB, pats, 13)
     out["lazy_hot_core"] = lazy_hot_core_find(dev, INDEX_ROUTE_MB, pats)
-    mcorpus = multi_corpus(mmb, pats)
     cold = sregex_tpu_torch.compile_pattern(pats, device=dev)
     t0 = time.perf_counter()
     if cold.count(mcorpus) != mexp:
         raise AssertionError("multi count != native %d" % mexp)
     out["precompile"] = dict(
-        mb=mmb, cold_first_count_s=time.perf_counter() - t0,
+        mb=len(mcorpus) >> 20, cold_first_count_s=time.perf_counter() - t0,
         static=precompile_case(dev, pats, mcorpus, mexp, False),
         fused=precompile_case(dev, pats, mcorpus, mexp, True))
     return out, ct, prep
@@ -2671,10 +2717,15 @@ def main():
         cuda=torch.version.cuda, device=kind,
         count=torch.cuda.device_count())
 
-    # --- 2. build -------------------------------------------------------
-    t0 = time.perf_counter()
-    _build.load()
-    kernel_s = time.perf_counter() - t0
+    # --- 2. build: nvcc compiles the kernels in the background while the
+    # headline's and multi's corpora and native oracles are made ---------
+    def build():
+        t0 = time.perf_counter()
+        _build.load()
+        return time.perf_counter() - t0
+
+    build_pool = ThreadPoolExecutor(1)
+    building = build_pool.submit(build)
     t0 = time.perf_counter()
     # the native engine is the oracle and the repair path; without it
     # NativeDfa walks the corpus in Python, far past the time limit
@@ -2683,8 +2734,73 @@ def main():
         raise RuntimeError("the native host engine (sregex_tpu_torch/"
                            "csrc/sre_host.cpp) did not build: g++ is "
                            "needed")
-    say("build", seconds=kernel_s, compiled=_build.build_seconds is not None,
-        native_seconds=time.perf_counter() - t0)
+    native_build_s = time.perf_counter() - t0
+    mb = mb_env("SREGEX_BENCH_MB")
+    corpus = headline_corpus(mb)
+    n = len(corpus)
+    ast, _ = parse(HEADLINE)
+    prog = compile_regex(ast)
+    dfa = build_dfa(prog)
+    sc = Scanner(prog, ast=ast)
+    t0 = time.perf_counter()
+    (exp_first, _), exp_count = concurrently(
+        lambda: sc._native.scan_first(corpus, 0),
+        lambda: native_count(sc, corpus))
+    native_s = time.perf_counter() - t0
+    mmb = mb_env("SREGEX_BENCH_MULTI_MB")
+    pats = [w.encode() for w in MULTI_WORDS]
+    msc = sregex_tpu_torch.compile_pattern(pats)
+    if type(msc._spec).__name__ != "SpecTablesWide":
+        raise AssertionError("multi set served by %s"
+                             % type(msc._spec).__name__)
+    mcorpus = multi_corpus(mmb, pats)
+    mn = len(mcorpus)
+    t0 = time.perf_counter()
+    mexp = native_count(msc, mcorpus)
+    mnative_s = time.perf_counter() - t0
+    amb = mb_env("SREGEX_BENCH_AFFINE_MB")
+    asc = sregex_tpu_torch.compile_pattern(BASE64_BLOB)
+    if type(asc._spec).__name__ != "SpecTablesAffine":
+        raise AssertionError("base64 detector served by %s"
+                             % type(asc._spec).__name__)
+    t0 = time.perf_counter()
+    acorpus = base64_corpus(amb)
+    gen_s = time.perf_counter() - t0
+    an = len(acorpus)
+    settle = acorpus[:min(AFFINE_SETTLE_MB, amb) << 20]
+    t0 = time.perf_counter()
+    aexp, (aexp_first, _), sexp = concurrently(
+        lambda: native_count(asc, acorpus),
+        lambda: asc._native.scan_first(acorpus, 0),
+        lambda: native_count(asc, settle))
+    anative_s = time.perf_counter() - t0
+    bmb = mb_env("SREGEX_BENCH_BIG_MB")
+    words = dictionary(500)
+    t0 = time.perf_counter()
+    bsc = sregex_tpu_torch.compile_pattern(words)
+    dfa_s = time.perf_counter() - t0
+    if type(bsc._spec).__name__ != "SpecTablesBig":
+        raise AssertionError("dictionary served by %s"
+                             % type(bsc._spec).__name__)
+    bcorpus = multi_corpus(bmb, words)
+    bn = len(bcorpus)
+    t0 = time.perf_counter()
+    bexp, (bexp_first, _) = concurrently(
+        lambda: native_count(bsc, bcorpus),
+        lambda: bsc._native.scan_first(bcorpus, 0))
+    bnative_s = time.perf_counter() - t0
+    if bexp_first < 0:
+        raise AssertionError("no dictionary word in the big corpus")
+    t0 = time.perf_counter()
+    kernel_s = building.result()
+    build_pool.shutdown()
+    # the build shares the cores with the corpora and oracles made beside
+    # it: overlapped_s is its wall time under that load (load() from
+    # start to end), nvcc_s the nvcc processes' part of it (None when
+    # the library was cached), waited_s what the main thread still waited
+    say("build", overlapped_s=kernel_s, nvcc_s=_build.build_seconds,
+        compiled=_build.build_seconds is not None,
+        native_seconds=native_build_s, waited_s=time.perf_counter() - t0)
     if _build.build_log:
         print(_build.build_log.strip(), flush=True)
 
@@ -2703,12 +2819,10 @@ def main():
         args, kw = random_case(rng, dev, **case)
         errs[tier] = max(errs[tier], compare(*spec, args, kw))
     # the pair tier's own tables on a pair-packed corpus, COUNT and OR
-    ast, _ = parse("abc")
-    pt = SpecTablesPair(build_dfa(compile_regex(ast)), dev,
+    pt = SpecTablesPair(build_dfa(compile_regex(parse("abc")[0])), dev,
                         narrow_only=True)
-    corpus = rng.choice(np.frombuffer(b"abcx", np.uint8),
-                        3 << 20).tobytes()
-    packed, _, _, _, B = prepare_on_device(pt, corpus, 2048)
+    abcx = rng.choice(np.frombuffer(b"abcx", np.uint8), 3 << 20).tobytes()
+    packed, _, _, _, B = prepare_on_device(pt, abcx, 2048)
     s0, j0 = scan._entry_planes(0, pt.warmup // 2, B, dev)
     for count in (True, False):
         for pair in (None, pt.pair):
@@ -2926,17 +3040,6 @@ def main():
     launches = {}
     timings = {}
     # --- 4. headline: the main path, launches counted from here -----------
-    mb = mb_env("SREGEX_BENCH_MB")
-    corpus = headline_corpus(mb)
-    n = len(corpus)
-    ast, _ = parse(HEADLINE)
-    prog = compile_regex(ast)
-    dfa = build_dfa(prog)
-    sc = Scanner(prog, ast=ast)
-    t0 = time.perf_counter()
-    exp_first, _ = sc._native.scan_first(corpus, 0)
-    exp_count = native_count(sc, corpus)
-    native_s = time.perf_counter() - t0
     assert exp_first > 0
     tables = scan.SpecTables(dfa, dev)
     assert type(sc._spec) is scan.SpecTables
@@ -2989,17 +3092,6 @@ def main():
     del sc_prep, sc
 
     # --- 5. multi: 90 keywords through Scanner.count ----------------------
-    mmb = mb_env("SREGEX_BENCH_MULTI_MB")
-    pats = [w.encode() for w in MULTI_WORDS]
-    msc = sregex_tpu_torch.compile_pattern(pats)
-    if type(msc._spec).__name__ != "SpecTablesWide":
-        raise AssertionError("multi set served by %s"
-                             % type(msc._spec).__name__)
-    mcorpus = multi_corpus(mmb, pats)
-    mn = len(mcorpus)
-    t0 = time.perf_counter()
-    mexp = native_count(msc, mcorpus)
-    mnative_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     mprep = msc.prepare(mcorpus)
@@ -3069,19 +3161,6 @@ def main():
                     multi=(mcorpus, msc, mprep, mexp))
 
     # --- 6. affine: a base64-blob detector over log-like text ------------
-    amb = mb_env("SREGEX_BENCH_AFFINE_MB")
-    asc = sregex_tpu_torch.compile_pattern(BASE64_BLOB)
-    if type(asc._spec).__name__ != "SpecTablesAffine":
-        raise AssertionError("base64 detector served by %s"
-                             % type(asc._spec).__name__)
-    t0 = time.perf_counter()
-    acorpus = base64_corpus(amb)
-    gen_s = time.perf_counter() - t0
-    an = len(acorpus)
-    t0 = time.perf_counter()
-    aexp = native_count(asc, acorpus)
-    aexp_first, _ = asc._native.scan_first(acorpus, 0)
-    anative_s = time.perf_counter() - t0
 
     def check_affine(c):
         if c != aexp:
@@ -3094,12 +3173,15 @@ def main():
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    # let the warmup ladder settle: scan until a scan needs no
-    # escalation, each checked against the native engine
+    # let the warmup ladder settle on the corpus's head: scan until a
+    # scan needs no escalation, each checked against the native engine
     ladder = []
     t0 = time.perf_counter()
     for _ in range(8):
-        check_affine(asc.count(acorpus))
+        c_ = asc.count(settle)
+        if c_ != sexp:
+            raise AssertionError("affine settle count %r != native %r"
+                                 % (c_, sexp))
         ast_ = asc.stats()
         ladder.append([asc._spec.warmup, ast_.repaired, ast_.chunks,
                        ast_.warm_events])
@@ -3107,6 +3189,7 @@ def main():
                 and asc._warm_strikes == 0:
             break
     settle_s = time.perf_counter() - t0
+    del settle
     aprep = asc.prepare(acorpus)
     check_affine(asc.count(acorpus, prepared=aprep))
     adt = min_rep_seconds(lambda: asc.count(acorpus, prepared=aprep),
@@ -3127,7 +3210,8 @@ def main():
         scan_gbps=an / asdt / 1e9, tier=ast_.tier,
         states=asc.dfa.nstates, classes=asc.dfa.nclasses,
         pieces=asc._spec.pieces, warmup=asc._spec.warmup,
-        ladder=ladder, warm_events=ast_.warm_events,
+        ladder=ladder, settle_mb=min(AFFINE_SETTLE_MB, amb),
+        warm_events=ast_.warm_events,
         repaired=ast_.repaired, chunks=ast_.chunks,
         launches=launches["affine"], corpus_s=gen_s, settle_s=settle_s,
         native_s=anative_s,
@@ -3136,22 +3220,6 @@ def main():
     mesh_inp["affine"] = (acorpus, asc, aprep, aexp)
 
     # --- 7. big: a 500-keyword dictionary --------------------------------
-    bmb = mb_env("SREGEX_BENCH_BIG_MB")
-    words = dictionary(500)
-    t0 = time.perf_counter()
-    bsc = sregex_tpu_torch.compile_pattern(words)
-    dfa_s = time.perf_counter() - t0
-    if type(bsc._spec).__name__ != "SpecTablesBig":
-        raise AssertionError("dictionary served by %s"
-                             % type(bsc._spec).__name__)
-    bcorpus = multi_corpus(bmb, words)
-    bn = len(bcorpus)
-    t0 = time.perf_counter()
-    bexp = native_count(bsc, bcorpus)
-    bexp_first, _ = bsc._native.scan_first(bcorpus, 0)
-    bnative_s = time.perf_counter() - t0
-    if bexp_first < 0:
-        raise AssertionError("no dictionary word in the big corpus")
 
     def check_big(c):
         if c != bexp:
@@ -3192,7 +3260,7 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     with env("SREGEX_FUSED", "1"):
-        csc = sregex_tpu_torch.compile_pattern(words)
+        csc = Scanner(bsc.program, ast=bsc.ast, dfa=bsc.dfa)
         cprep = csc.prepare(bcorpus)
         t0 = time.perf_counter()
         check_big(csc.count(bcorpus, prepared=cprep))
@@ -3240,7 +3308,7 @@ def main():
     cap0, tcore.FUSED_CAP = tcore.FUSED_CAP, ocap
     try:
         with env("SREGEX_FUSED", "1"):
-            osc = sregex_tpu_torch.compile_pattern(words)
+            osc = Scanner(bsc.program, ast=bsc.ast, dfa=bsc.dfa)
             t0 = time.perf_counter()
             check_big(osc.count(bcorpus, prepared=cprep))
             o_first_s = time.perf_counter() - t0
@@ -3398,7 +3466,8 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    kline, kct, kprep = find_core_phase(dev, fmb, pats, mmb, mexp)
+    kline, kct, kprep = find_core_phase(dev, min(FIND_CORE_MB, fmb), pats,
+                                        mcorpus, mexp)
     klaunch = launch_counts()
     tally(launches)
     if klaunch["tdfa"] <= 0 or klaunch["narrow"] + klaunch["wide"] <= 0 \
@@ -3421,8 +3490,9 @@ def main():
     scorpus = run_corpus(pmb, 60, 300, 1, odd=True, plant=(8192, 100))
     pgen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    pexp = native_count(psc, pcorpus)
-    pexp_first, _ = psc._native.scan_first(scorpus, 0)
+    pexp, (pexp_first, _) = concurrently(
+        lambda: native_count(psc, pcorpus),
+        lambda: psc._native.scan_first(scorpus, 0))
     pnative_s = time.perf_counter() - t0
     if not len(scorpus) - 8192 <= pexp_first < len(scorpus):
         raise AssertionError("the planted run ends at %d" % pexp_first)
@@ -3469,8 +3539,9 @@ def main():
                          plant=(40000, 4990))
     qgen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    qexp = native_count(qsc, qcorpus)
-    qexp_first, _ = qsc._native.scan_first(scorpus, 0)
+    qexp, (qexp_first, _) = concurrently(
+        lambda: native_count(qsc, qcorpus),
+        lambda: qsc._native.scan_first(scorpus, 0))
     qnative_s = time.perf_counter() - t0
     if not len(scorpus) - 40000 <= qexp_first < len(scorpus):
         raise AssertionError("the planted run ends at %d" % qexp_first)
@@ -3522,7 +3593,8 @@ def main():
     say("finditer", **fline, peak_mem_bytes=torch.cuda.max_memory_allocated())
     # the pipelined stream surface over the stream and finditer corpora;
     # the oracles' launches (Scanner.count) come before the reset
-    poracles = pipe_oracles(scases, bsc, words)
+    poracles = pipe_oracles(scases, bsc, words, {
+        k: (v["native_count"], v["native_s"]) for k, v in sline.items()})
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
@@ -3561,7 +3633,7 @@ def main():
     del scases, data, fsc, fevents, fsub
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    rline = index_routes_phase(dev, words, pats)
+    rline = index_routes_phase(dev, bsc, words, pats)
     rlaunch = launch_counts()
     tally(launches)
     if rlaunch["gated"] <= 0 or rlaunch["narrow"] + rlaunch["wide"] <= 0:

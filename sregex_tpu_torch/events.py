@@ -119,6 +119,8 @@ class StreamEvents:
         self.native_chunks = 0
         self.teleports = 0
         self.probes = 0
+        self.refine_calls = 0      # native scan_first calls of _refine
+        self._walks = {}           # chunk -> (boundary offset, state, bytes)
 
     # ---- byte access ------------------------------------------------
 
@@ -197,18 +199,36 @@ class StreamEvents:
 
     def _refine(self, c, pos):
         """First fire boundary >= pos inside chunk c (native walk from
-        the chunk's exact entry state)."""
+        the chunk's exact entry state).
+
+        The walk resumes where the chunk's last call stopped when pos
+        lies past the boundary it returned: from that boundary's state,
+        one byte on.  Any other call walks from the entry state.  The
+        boundaries are those of the JAX package's walk, which always
+        starts again at the entry state; this departs from it in cost
+        only, so a chunk's native calls grow with its fires, not with
+        their square."""
         lo, hi = self._chunk_span(c)
-        data = self.read(lo, hi)
-        st = int(self.entries[c - self.c0])
-        rel = 0
         trans = self.dfa.trans
         cmap = self.dfa.class_map
+        w = self._walks.get(c)
+        if w is not None and lo + w[0] <= pos:
+            rel, st2, data = w
+            if lo + rel == pos:
+                return pos
+            st = int(trans[st2, cmap[data[rel]]])
+            rel += 1
+        else:
+            data = np.frombuffer(self.read(lo, hi), dtype=np.uint8)
+            st = int(self.entries[c - self.c0])
+            rel = 0
         while rel < len(data):
             f, st2 = self.native.scan_first(data[rel:], st)
+            self.refine_calls += 1
             if f < 0:
                 return None
             b = lo + rel + f
+            self._walks[c] = (rel + f, st2, data)
             if b >= pos:
                 return b
             # step past this boundary: consume byte b, keep walking
@@ -416,6 +436,8 @@ class StreamEvents:
             self.counts = self.counts[drop:]
             self.entries = self.entries[drop:]
             self.c0 += drop
+            for k in [k for k in self._walks if k < self.c0]:
+                del self._walks[k]
 
     # ---- public -----------------------------------------------------
 

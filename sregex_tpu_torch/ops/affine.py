@@ -339,37 +339,55 @@ def affine_scan_ref(data, state0, j0, table, bp, *, W, CPW, BITS, NCLS,
     """The plain torch version of affine_scan, on any device: a loop
     over the units, vectorised over all streams.  An index outside the
     table reads entry (index & 127); int32 arithmetic wraps, as the
-    kernel's does."""
+    kernel's does.
+
+    Each word's codes are taken out of it once, the piece id is one
+    bucketize over the breakpoints, and the out-of-table rule is folded
+    into tables of the step's parts (s' = s * rel + add, the match bit)
+    padded to every index a piece and a code can form."""
     cmask = (1 << BITS) - 1
-    n = table.numel()
-    bps = list(bp)
+    dev = data.device
+    t = table.reshape(-1).long()
+    n = t.numel()
+    i = torch.arange(len(bp) * NCLS + cmask + 1, device=dev)
+    e = t[torch.where(i < n, i, i & 127)]
+    val = e & _VAL_MASK
+    rel = ((e >> _MODE_BIT) & 1).to(torch.int32)
+    add = torch.where(rel == 1, val - OFF, val).to(torch.int32)
+    mbit = ((e >> _MATCH_BIT) & 1).to(torch.int32)
+    bounds = torch.tensor(sorted(bp), dtype=torch.int32, device=dev)
+    shape = state0.shape
+    s = state0.reshape(-1).to(torch.int32)
+    jj = j0.reshape(-1)
+    shifts = torch.arange(0, BITS * CPW, BITS, dtype=torch.int32,
+                          device=dev).view(CPW, 1)
+    sel = torch.index_select
 
-    def step(s, word, k):
-        pid = torch.zeros_like(s)
-        for b in bps:
-            pid += (s >= b).to(torch.int32)
-        idx = pid * NCLS + ((word >> (BITS * k)) & cmask)
-        idx = torch.where(idx < n, idx, idx & 127)
-        e = table[idx.long()]
-        val = e & _VAL_MASK
-        rel = (e >> _MODE_BIT) & 1
-        nxt = torch.where(rel == 1, s + val - OFF, val)
-        return nxt, (e >> _MATCH_BIT) & 1
+    def codes(w):
+        return (data[:, w].reshape(1, -1) >> shifts) & cmask
 
-    s = state0
+    def index(s, c):
+        pid = torch.bucketize(s, bounds, out_int32=True, right=True)
+        return pid * NCLS + c
+
     for w in range(W // CPW):
-        word = data[:, w]
+        cw = codes(w)
         for k in range(CPW):
-            nxt, _ = step(s, word, k)
-            s = torch.where(w * CPW + k >= j0, nxt, s)
+            idx = index(s, cw[k])
+            nxt = s * sel(rel, 0, idx) + sel(add, 0, idx)
+            s = torch.where(w * CPW + k >= jj, nxt, s)
     swarm = s
     acc = torch.zeros_like(s)
     for w in range(W // CPW, data.shape[1]):
-        word = data[:, w]
+        cw = codes(w)
         for k in range(CPW):
-            s, mbit = step(s, word, k)
-            acc = acc + mbit if COUNT else acc | mbit
-    return s, acc, swarm
+            idx = index(s, cw[k])
+            if COUNT:
+                acc += sel(mbit, 0, idx)
+            else:
+                acc |= sel(mbit, 0, idx)
+            s = s * sel(rel, 0, idx) + sel(add, 0, idx)
+    return tuple(x.reshape(shape) for x in (s, acc, swarm))
 
 
 def _wrap32(x):

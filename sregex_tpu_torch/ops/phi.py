@@ -437,25 +437,42 @@ def _phi_walk(data, table, entry, word_at, Kw, CPW, BITS, COUNT):
     """The plain loop both plain versions share: Kw words of CPW classes,
     vectorised over every slot.  ``entry`` int32 [8, 128] premultiplied
     entry states; ``word_at(w)`` the slots' word w.  An index outside
-    the table reads entry (index & 127), as the kernels do."""
+    the table reads entry (index & 127), as the kernels do.
+
+    Each word's codes are taken out of it once and the out-of-table
+    rule is folded into padded tables of the next state and the match
+    field, so a step is two gathers; scan mode keeps the least position
+    of a match (a gather of 0 or _SENT, plus the position)."""
     B, _, G = data.shape[:3]
-    n = table.numel()
+    dev = data.device
     cmask = (1 << BITS) - 1
-    state = entry.expand(B, G, 8, 128)
+    t = table.reshape(-1).long()
+    n = t.numel()
+    ent = entry.expand(B, G, 8, 128).reshape(-1).long()
+    hi = max(n, int((t & _STATE_MASK).max()) + 1, int(ent.max()) + 1)
+    i = torch.arange(hi + cmask + 1, device=dev)
+    e = t[torch.where(i < n, i, i & 127)]
+    # int32 throughout: half the bytes of int64 a step on the card
+    nxt = (e & _STATE_MASK).to(torch.int32)
+    m = (e >> _MATCH_SHIFT).to(torch.int32)
+    pen = torch.where(m > 0, 0, _SENT).to(torch.int32)
+    shifts = torch.arange(0, BITS * CPW, BITS, dtype=torch.int32,
+                          device=dev).view(CPW, 1)
+    sel = torch.index_select
+    shape = (B, G, 8, 128)
+    state = ent.to(torch.int32)
     acc = torch.full_like(state, 0 if COUNT else _SENT)
     for w in range(Kw):
-        word = word_at(w)
+        word = word_at(w).expand(shape).reshape(1, -1).to(torch.int32)
+        cw = (word >> shifts) & cmask
         for k in range(CPW):
-            idx = state + ((word >> (BITS * k)) & cmask)
-            idx = torch.where(idx < n, idx, idx & 127)
-            e = table[idx.long()]
+            idx = state + cw[k]
             if COUNT:
-                acc = acc + (e >> _MATCH_SHIFT)
+                acc += sel(m, 0, idx)
             else:
-                hit = ((e >> _MATCH_SHIFT) > 0) & (acc == _SENT)
-                acc = torch.where(hit, w * CPW + k, acc)
-            state = e & _STATE_MASK
-    return state, acc
+                acc = torch.minimum(acc, sel(pen, 0, idx) + (w * CPW + k))
+            state = sel(nxt, 0, idx)
+    return state.reshape(shape), acc.reshape(shape)
 
 
 def phi_scan_ref(data, table, *, Kw, WL, CPW, BITS, S, NSEG, NCLS, COUNT):

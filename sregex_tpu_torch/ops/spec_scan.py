@@ -281,33 +281,77 @@ def launch_planes(entry, data, state0, j0, table, extra, out=None):
     return phi, fm, swarm
 
 
+def _padded_rule(table, cmask, lo):
+    """The table read through the out-of-table rule, laid out so that a
+    step is one gather: ``(padded, R, virt)``.  ``padded[i - lo]`` for
+    i in [lo, R + cmask] is the entry an index i reads (entry i inside
+    the table, entry i & 127 outside it), R past every state the table
+    produces; ``padded[virt + r + c]`` is the entry read at a state
+    outside [lo, R) with low seven bits r on code c (every such index
+    lies outside the table, so only i & 127 matters)."""
+    t = table.reshape(-1).long()
+    n = t.numel()
+    R = max(n, int((t & _STATE_MASK).max()) + 1 if n else 0)
+    i = torch.arange(lo, R + cmask + 1, device=t.device)
+    real = t[torch.where((i >= 0) & (i < n), i, i & 127)]
+    virt = t[torch.arange(128 + cmask + 1, device=t.device) & 127]
+    return torch.cat([real, virt]), R, real.numel()
+
+
 def spec_scan_ref(data, state0, j0, table, *, W, CPW, BITS, COUNT):
     """The plain torch version of spec_scan, on any device: a loop over
     the J units, vectorised over all streams.  An index outside the
-    table reads entry (index & 127), as the kernel does."""
+    table reads entry (index & 127), as the kernel does.
+
+    A step is one gather and one add: each word's codes are taken out
+    of it once, the out-of-table rule is folded into a padded table
+    (_padded_rule) that the walk indexes by state - lo, and the match
+    fields are kept apart from the next states."""
     cmask = (1 << BITS) - 1
-    n = table.numel()
+    shape = state0.shape
+    s0 = state0.reshape(-1).long()
+    # states below -cmask read outside the table on every code, as the
+    # states past R do: both ride the padded table's last rows
+    lo = max(min(int(s0.min()), 0), -cmask - 1) if s0.numel() else 0
+    e, R, virt = _padded_rule(table, cmask, lo)
+    # int32 throughout the walk (indices below 2**21; the count wraps as
+    # the kernel's does): half the bytes of int64 a step on the card
+    nxt = ((e & _STATE_MASK) - lo).to(torch.int32)
+    mfield = (e >> _MATCH_SHIFT).to(torch.int32)
+    inside = (s0 >= lo) & (s0 < R)
+    s = torch.where(inside, s0 - lo, virt + (s0 & 127)).to(torch.int32)
+    jj = j0.reshape(-1)
+    shifts = torch.arange(0, BITS * CPW, BITS, dtype=torch.int32,
+                          device=data.device).view(CPW, 1)
+    sel = torch.index_select
 
-    def lookup(s, word, k):
-        idx = s + ((word >> (BITS * k)) & cmask)
-        idx = torch.where((idx >= 0) & (idx < n), idx, idx & 127)
-        return table[idx.long()]
+    def codes(w):
+        return (data[:, w].reshape(1, -1) >> shifts) & cmask
 
-    s = state0
+    warm = W // CPW * CPW
     for w in range(W // CPW):
-        word = data[:, w]
+        cw = codes(w)
         for k in range(CPW):
-            e = lookup(s, word, k)
-            s = torch.where(w * CPW + k >= j0, e & _STATE_MASK, s)
-    swarm = s
+            s = torch.where(w * CPW + k >= jj, sel(nxt, 0, s + cw[k]), s)
+    # a stream frozen through the whole warmup keeps its entry state
+    swarm = torch.where(jj >= warm, s0, s.long() + lo) if warm else s0
     acc = torch.zeros_like(s)
-    for w in range(W // CPW, data.shape[1]):
-        word = data[:, w]
+    steps = range(W // CPW, data.shape[1])
+    for w in steps:
+        cw = codes(w)
         for k in range(CPW):
-            e = lookup(s, word, k)
-            acc = acc + (e >> _MATCH_SHIFT) if COUNT else acc | e
-            s = e & _STATE_MASK
-    return s, (acc if COUNT else acc >> _MATCH_SHIFT), swarm
+            idx = s + cw[k]
+            if COUNT:
+                acc += sel(mfield, 0, idx)
+            else:
+                acc |= sel(mfield, 0, idx)
+            s = sel(nxt, 0, idx)
+    phi = s.long() + lo if len(steps) else swarm
+
+    def out(x):
+        return x.to(torch.int32).reshape(shape)
+
+    return out(phi), out(acc), out(swarm)
 
 
 # The two-code kernel's table: ``table`` int32 [rows * (2**(2 BITS) + 1)]

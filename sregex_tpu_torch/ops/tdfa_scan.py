@@ -473,75 +473,94 @@ def tdfa_scan(data, state0, j0, t_next, t_regsrc, t_csrc, t_cmeta, *,
     return phi, swarm, bank, regs
 
 
-def _resolve_ref(codes, regs, j, CODE):
-    """Source codes [K, ...] -> values: old register, -1 (UNSET), j
-    (CUR), j + 1 (NEXT); a register id past R resolves to BAD."""
-    c_unset, c_cur, c_next = _specials(CODE)
-    R = regs.shape[0]
-    if R:
-        v = regs.gather(0, codes.clamp(max=R - 1).long())
-        v = torch.where(codes < R, v, BAD)
-    else:
-        v = torch.full_like(codes, BAD)
-    v = torch.where(codes == c_unset, -1, v)
-    v = torch.where(codes == c_cur, j, v)
-    return torch.where(codes == c_next, j + 1, v)
-
-
 def tdfa_scan_ref(data, state0, j0, t_next, t_regsrc, t_csrc, t_cmeta, *,
                   W, CPW, BITS, CODE, R, T):
     """The plain torch version of tdfa_scan, on any device: a loop over
     the J window positions, vectorised over all streams.  An index
     outside the tables reads entry (index & 127), as the kernel and the
-    TPU kernel's row-select chain do."""
+    TPU kernel's row-select chain do.
+
+    Each word's codes are taken out of it once, and every register and
+    bank slot's source code is turned once, before the loop, into a
+    column of the step's value table (the registers, BAD, UNSET, CUR,
+    NEXT), so a step resolves all of them in one gather."""
+    dev = data.device
     n = t_next.numel()
-    spp = 32 // CODE
     cmask = (1 << BITS) - 1
-    kmask = (1 << CODE) - 1
     shape = tuple(state0.shape)
-    rplane = torch.tensor([k // spp for k in range(R)], dtype=torch.long,
-                          device=data.device)
-    rshift = torch.tensor([CODE * (k % spp) for k in range(R)],
-                          dtype=torch.int32, device=data.device)
-    tplane = torch.tensor([k // spp for k in range(T)], dtype=torch.long,
-                          device=data.device)
-    tshift = torch.tensor([CODE * (k % spp) for k in range(T)],
-                          dtype=torch.int32, device=data.device)
-    bcast = (-1,) + (1,) * len(shape)
+    c_unset, c_cur, c_next = _specials(CODE)
+    tn = t_next.reshape(-1).long()
+    cm = t_cmeta.reshape(-1).long()
 
-    def codes(planes, idx, plane, shift):
-        words = planes[:, idx][plane]                 # [K, ...]
-        return (words >> shift.view(bcast)) & kmask
+    def columns(planes, K):
+        """[n, K] columns of ext for slots 0..K-1 of every entry."""
+        spp = 32 // CODE
+        kmask = (1 << CODE) - 1
+        out = torch.empty((n, K), dtype=torch.long, device=dev)
+        for k in range(K):
+            c = (planes[k // spp].long() >> (CODE * (k % spp))) & kmask
+            col = torch.where(c < R, c, R)
+            col = torch.where(c == c_unset, R + 1, col)
+            col = torch.where(c == c_cur, R + 2, col)
+            out[:, k] = torch.where(c == c_next, R + 3, col)
+        return out
 
-    def index(s, j):
-        idx = s + ((data[:, j // CPW] >> (BITS * (j % CPW))) & cmask)
-        return torch.where((idx >= 0) & (idx < n), idx, idx & 127).long()
+    rcols = columns(t_regsrc, R)
+    tcols = columns(t_csrc, T)
+    has_t = (cm & 1) == 1
+    rid_t = (cm >> 1).to(torch.int32)
+    s0 = state0.reshape(-1).long()
+    shifts = torch.arange(0, BITS * CPW, BITS, device=dev).view(CPW, 1)
 
+    def codes(w):
+        return (data[:, w].reshape(1, -1).long() >> shifts) & cmask
+
+    def eff(s, c):
+        i = s + c
+        return torch.where((i >= 0) & (i < n), i, i & 127)
+
+    sel = torch.index_select
+    jj = j0.reshape(-1).long()
     # the warmup advances the state only, frozen below j0
-    s = state0
+    s = s0
     for j in range(W):
-        s = torch.where(j >= j0, t_next[index(s, j)], s)
+        if j % CPW == 0:
+            cw = codes(j // CPW)
+        s = torch.where(j >= jj, sel(tn, 0, eff(s, cw[j % CPW])), s)
     swarm = s
     # registers start at the entry position on the true-entry stream
-    # (j0 > 0), BAD elsewhere; the bank starts BAD with no regex id
-    regs = torch.where(j0 > 0, j0, BAD).expand((R,) + shape).clone()
-    bank = torch.full((T + 1,) + shape, BAD, dtype=torch.int32,
-                      device=data.device)
-    bank[T] = -1
+    # (j0 > 0), BAD elsewhere; the bank starts BAD with no regex id.
+    # Values are int32, as the kernel's (half the bytes a step on the
+    # card); the gathers' column indices are int64.
+    N = s.numel()
+    ext = torch.empty((N, R + 4), dtype=torch.int32, device=dev)
+    ext[:, :R] = torch.where(jj > 0, jj, BAD).view(N, 1)
+    ext[:, R] = BAD
+    ext[:, R + 1] = -1
+    bank = torch.full((N, T), BAD, dtype=torch.int32, device=dev)
+    rid = torch.full((N,), -1, dtype=torch.int32, device=dev)
     for j in range(W, data.shape[1] * CPW):
-        idx = index(s, j)
-        e = t_next[idx]
-        cm = t_cmeta[idx]
-        has = (cm & 1) == 1
+        if j % CPW == 0 or j == W:
+            cw = codes(j // CPW)
+        idx = eff(s, cw[j % CPW])
+        has = sel(has_t, 0, idx)
+        ext[:, R + 2] = j
+        ext[:, R + 3] = j + 1
         if T:
-            nb = _resolve_ref(codes(t_csrc, idx, tplane, tshift), regs,
-                              j, CODE)
-            bank[:T] = torch.where(has, nb, bank[:T])
-        bank[T] = torch.where(has, cm >> 1, bank[T])
-        regs = _resolve_ref(codes(t_regsrc, idx, rplane, rshift), regs,
-                            j, CODE)
-        s = e
-    return s, swarm, bank, regs
+            nb = ext.gather(1, sel(tcols, 0, idx))
+            bank = torch.where(has.view(N, 1), nb, bank)
+        rid = torch.where(has, sel(rid_t, 0, idx), rid)
+        if R:
+            ext[:, :R] = ext.gather(1, sel(rcols, 0, idx))
+        s = sel(tn, 0, idx)
+
+    def out(x):
+        return x.to(torch.int32).reshape(shape)
+
+    bank = torch.cat([bank.t(), rid.view(1, N)])
+    regs = ext[:, :R].t()
+    return (out(s), out(swarm), bank.reshape((T + 1,) + shape),
+            regs.reshape((R,) + shape))
 
 
 def _summarize(phi, swarm, bank, regs, state0, C, dead_val):

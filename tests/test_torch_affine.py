@@ -1,7 +1,7 @@
 """The port's piecewise-affine tier (ops/affine.py) against the JAX
 package's (ops/pallas_affine.py in interpret mode on the CPU mesh, as
-its own tests run it), and the port's warmup ladder against the JAX
-Scanner's.
+its own tests run it); the warmup ladder, and the chained and digit
+machines' plane and result cases, are in tests/test_torch_affine_ladder.py.
 
 Planes: on identical seeded inputs, affine_scan_ref (which the wrapper
 takes for CPU tensors) and affine_relaid_ref (the plain model of the
@@ -61,15 +61,19 @@ def _dfa(pattern):
     return build_dfa(compile_regex(ast), max_states=65536)
 
 
-@pytest.fixture(scope="module")
-def tiers():
-    """name -> (jax tables, port tables, dfa)."""
+def make_tiers(names):
+    """name -> (jax tables, port tables, dfa) for CASES[name]."""
     out = {}
-    for name, (pattern, _, _) in CASES.items():
-        d = _dfa(pattern)
+    for name in names:
+        d = _dfa(CASES[name][0])
         out[name] = (jaff.SpecTablesAffine(d), taff.SpecTablesAffine(d, CPU),
                      d)
     return out
+
+
+@pytest.fixture(scope="module")
+def tiers():
+    return make_tiers(CASES)
 
 
 def test_tables_equal_the_jax_tables(tiers):
@@ -136,10 +140,22 @@ def _random_inputs(rng, tables, W):
 
 PLANE_CASES = [("counted", True), ("counted", False), ("perm", True),
                ("perm", False), ("chained", True), ("digit", False)]
+# Each machine's plane and result cases share its interpret-mode JAX
+# programs (one per COUNT mode); the chained and digit machines' cases
+# run in tests/test_torch_affine_ladder.py, beside the ladder, to
+# balance the test workers.
+LADDER_FILE_MACHINES = ("chained", "digit")
 
 
-@pytest.mark.parametrize("name,count", PLANE_CASES)
+@pytest.mark.parametrize("name,count", [
+    c for c in PLANE_CASES if c[0] not in LADDER_FILE_MACHINES])
 def test_planes_and_summary_match_jax(tiers, name, count):
+    planes_and_summary_match_jax(tiers, name, count)
+
+
+def planes_and_summary_match_jax(tiers, name, count):
+    """The JAX kernel and the port's plain version and re-laid model on
+    identical seeded inputs: the summary and the planes equal."""
     jt, tt, _ = tiers[name]
     W = tt.warmup
     rng = np.random.default_rng(len(name) + 13 * count)
@@ -172,8 +188,16 @@ def test_planes_and_summary_match_jax(tiers, name, count):
         assert jfm.max() > 1         # counts, not a 0/1 flag
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(set(CASES)
+                                        - set(LADDER_FILE_MACHINES)))
 def test_results_match_jax_and_native(tiers, name):
+    results_match_jax_and_native(tiers, name)
+
+
+def results_match_jax_and_native(tiers, name):
+    """spec_scan_bytes / spec_count_bytes over two seeded corpora (one
+    with the machine's plant) equal the JAX package's and the native
+    engine's, last_repair too."""
     jt, tt, dfa = tiers[name]
     _, alphabet, plant = CASES[name]
     native = NativeDfa(dfa)
@@ -221,51 +245,6 @@ def test_with_warmup_matches_the_jax_eligibility(tiers):
     from sregex_tpu_torch.ops.pair import SpecTablesPair
     pair = SpecTablesPair(_dfa(rb"abc"), CPU, narrow_only=True)
     assert tscan.with_warmup(pair, 128) is None
-
-
-def _long_runs(n, seed):
-    """tests/test_pallas_affine.py::test_affine_warmup_escalation_window's
-    corpus: runs of 300-519 a's, each closed by a b."""
-    rng = random.Random(seed)
-    data = bytearray()
-    while len(data) < n:
-        data += b"a" * rng.randrange(300, 520) + b"b"
-    return bytes(data[:n])
-
-
-def test_ladder_escalates_as_the_jax_scanner_does():
-    ast, _ = parse(rb"a{400,499}b")
-    prog = compile_regex(ast)
-    data = _long_runs(150_000, 9)
-    jsc = jstream.Scanner(prog, use_device=True, ast=ast)
-    tsc = tstream.Scanner(prog, device="cpu", ast=ast)
-    jsc.DEVICE_THRESHOLD = tsc.DEVICE_THRESHOLD = 1 << 12
-    native = NativeDfa(tsc.dfa)
-    k, st = native.count(data, 0)
-    exp = k + int(tsc.dfa.match_eof[st])
-    seen = []
-    for _ in range(5):
-        assert tsc.count(data) == jsc.count(data) == exp
-        ts, js = tsc.stats(), jsc.stats()
-        assert (ts.tier, ts.chunks, ts.repaired, ts.warm_events) == \
-            (js.tier, js.chunks, js.repaired, js.warm_events)
-        assert tsc._spec.warmup == jsc._spec.warmup
-        seen.append(tsc._spec.warmup)
-    assert seen == [32, 128, 128, 512, 512]
-    assert ts.tier == "SpecTablesAffine"
-    assert ts.repaired <= 1 and ts.warm_events == 2
-    # scan and match ride the escalated tables
-    assert tsc.scan(data) == jsc.scan(data)
-    assert tsc.stats().repaired == 0 and tsc.stats().warm_events == 2
-
-
-def test_ladder_stops_at_its_last_rung():
-    sc = tstream.Scanner(compile_regex(parse(rb"a{400,499}b")[0]),
-                         device="cpu")
-    for w in (128, 512, 2048):
-        assert sc._escalate_warmup() and sc._spec.warmup == w
-    assert not sc._escalate_warmup()
-    assert sc._warm_escalations == 3 and sc._spec.warmup == 2048
 
 
 def test_wrapper_checks_and_counts_no_cpu_launch(tiers):

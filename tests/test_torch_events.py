@@ -16,6 +16,7 @@ tolerance is exact equality; inputs come from seeded generators.
 """
 
 import random
+import re
 
 import pytest
 import torch
@@ -26,6 +27,7 @@ from test_stream_events import _corpus as _events_corpus
 from test_stream_events import _segmentations
 
 import sregex_tpu_torch
+from sregex_tpu_torch.native import NativeDfa
 
 # The tier-1 run puts several test workers on the machine's cores; torch's
 # own intra-op threads would spin against them and make these small ops
@@ -153,3 +155,48 @@ def test_events_engine_memory_is_bounded():
     assert events == [(0, [4 * len(seg) + 100, 4 * len(seg) + 106])]
     assert peak <= 80 << 10, peak
     assert eng.teleports >= 1 and eng.device_chunks > 0
+
+
+@pytest.mark.parametrize("case", ["dense", "straddle"])
+def test_refine_walk_is_linear_in_the_fires(case):
+    """Dense fires over several chunks, and fires that straddle a chunk
+    edge: finditer_stream and sub_stream give the JAX package's results
+    and re's, and the fire map's native walk (StreamEvents._refine)
+    makes a number of calls linear in the fires: it resumes where it
+    stopped in a chunk instead of walking again from the chunk's entry
+    state past every earlier fire."""
+    if case == "dense":
+        # a fire every 4 bytes, 32 to a 128-byte chunk
+        pat, data = rb"(a+)(b)", b"xaab" * 600
+    else:
+        # the 130-byte period drifts the matches across the 128-byte
+        # grid: some end on a chunk's last byte, some straddle an edge
+        pat, data = rb"a+b", b"." * 126 + (b"." * 127 + b"aab") * 12
+    jsc, sc = _scanners(pat)
+    want = [(0, [x for g in range(re.compile(pat).groups + 1)
+                 for x in m.span(g)])
+            for m in re.finditer(pat, data)]
+    assert list(sc.finditer(data)) == want
+    segs = [data[i:i + 301] for i in range(0, len(data), 301)]
+    assert list(jsc.finditer_stream(segs, chunk_len=CHUNK,
+                                    map_window=WINDOW)) == want
+    eng = sc._events_engine(CHUNK, WINDOW)
+    got = []
+    for s in segs:
+        got += eng.push(s)
+    got += eng.push(b"", eof=True)
+    assert got == want and eng.device_chunks > 0
+    fires, _ = NativeDfa(sc.dfa).count(data)
+    chunks = -(-len(data) // eng.K)
+    if case == "straddle":
+        assert any(m[1][0] < c * eng.K < m[1][1]
+                   for m in want for c in range(1, chunks))
+    # one call per fire and per refined chunk's end; the walk from the
+    # entry state would make about fires * fires_per_chunk / 2
+    assert eng.refine_calls <= fires + 2 * chunks, \
+        (eng.refine_calls, fires, chunks)
+    sub_want = re.sub(pat, b"<\\g<0>>", data)
+    assert b"".join(sc.sub_stream(b"<$0>", segs, chunk_len=CHUNK,
+                                  map_window=WINDOW)) == sub_want
+    assert b"".join(jsc.sub_stream(b"<$0>", segs, chunk_len=CHUNK,
+                                   map_window=WINDOW)) == sub_want

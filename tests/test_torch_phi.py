@@ -9,11 +9,10 @@ give, for every chunk and every entry state, the native engine's exit
 state and count or first match; the plain models of both kernels'
 k-gram walks (phi_stride_ref, phi_big_stride_ref) equal the plain
 versions, and the lane-packed one equals the JAX kernel's planes.
-Summaries: _phi_dispatch equals the
-JAX one for COUNT and scan on both layouts, 4- and 8-bit words.
-Results: phi_count_bytes / phi_scan_bytes equal the JAX package's and
-the native engine's on tests/test_pallas_phi.py's machines, and the
-Scanner switches to the phi tier when the warmup ladder runs out.
+The summaries of _phi_dispatch and the results of phi_count_bytes /
+phi_scan_bytes against the JAX package's are in
+tests/test_torch_phi_dispatch.py.  The Scanner switches to the phi tier
+when the warmup ladder runs out.
 Small corpora and chunk_len=512 keep the interpret-mode compiles few
 (one per machine, mode and block count); every quantity is an integer,
 so the tolerance is exact equality.
@@ -192,55 +191,6 @@ def test_plain_transfers_equal_native_from_every_entry(name, C):
             assert int(first[c, s]) == (f if f >= 0 else tphi._SENT)
             fires += f >= 0
     assert 0 < fires < C * tt.nstates
-
-
-SUMMARY_CASES = [(name, count) for name in ("lane-parity", "lane-8bit",
-                                            "big-137")
-                 for count in (True, False)]
-
-
-@pytest.mark.parametrize("name,count", SUMMARY_CASES)
-def test_summaries_equal_the_jax_dispatch(name, count):
-    jt, tt, _ = _pair(MACHINES[name])
-    alpha = WIDE_ALPHA if name == "lane-8bit" else b"aaaaaaab"
-    n = _one_block(tt) - 300             # a ragged tail: C*K < n
-    data = _corpus(alpha, n, 5)
-    jp = jphi.phi_prepare(jt, data, CHUNK)
-    tp = tphi.phi_prepare(tt, data, CHUNK)
-    C = tp[1]
-    assert C * CHUNK < n
-    for c in (C, C - 3, 1):
-        for entry in (0, 1, tt.nstates - 1):
-            want = np.asarray(jphi._phi_dispatch(jt, jp, c, entry, count))
-            got = tphi._phi_dispatch(tt, tp, c, entry, count)
-            assert got.dtype == np.int64
-            assert np.array_equal(got, want.astype(np.int64)), (c, entry)
-
-
-@pytest.mark.parametrize("pat,alpha", CASES + BIG_CASES,
-                         ids=[repr(p) for p, _ in CASES + BIG_CASES])
-def test_results_equal_jax_and_native(pat, alpha):
-    jt, tt, d = _pair(pat)
-    native = NativeDfa(d)
-    top = min(20_000, _one_block(tt))
-    for n, entry in [(top, 0), (4096, 2), (63, 0), (0, 0), (2049, 1),
-                     (top - 1, 77)]:
-        entry = entry % tt.nstates
-        data = _corpus(alpha, n, n + entry)
-        want = native.count(data, entry)[::-1]
-        got = tphi.phi_count_bytes(tt, data, chunk_len=CHUNK,
-                                   entry_state=entry)
-        assert got == want, (n, entry)
-        assert got == jphi.phi_count_bytes(jt, data, chunk_len=CHUNK,
-                                           entry_state=entry)
-        assert tt.last_repair == jt.last_repair
-        f, st = native.scan_first(data, entry)
-        got = tphi.phi_scan_bytes(tt, data, chunk_len=CHUNK,
-                                  entry_state=entry)
-        assert got == (st, f), (n, entry)
-        assert got == jphi.phi_scan_bytes(jt, data, chunk_len=CHUNK,
-                                          entry_state=entry)
-        assert tt.last_repair == jt.last_repair
 
 
 def test_prepared_reuse_and_a_corpus_of_no_full_chunk():

@@ -191,10 +191,25 @@ KERNEL_CASES = {
     "random-code8-edge-8bit": (3, 40, 8, 8, 24, 24),
     "random-code16-rows2": (2, 16, 16, 4, 10, 14),
 }
+# Each case compiles its own interpret-mode JAX program (its code width,
+# R, T and rows are static), so the cases are shared out between this
+# file, tests/test_torch_tdfa_kernel.py and tests/test_torch_tdfa_edges.py
+# to balance the test workers.
+KERNEL_CASES_KERNEL_FILE = ("pattern-code8-rows1", "random-code8-edge-8bit")
+KERNEL_CASES_EDGES_FILE = ("pattern-code4-8bit", "random-code4-edge",
+                           "random-code16-rows2")
 
 
-@pytest.mark.parametrize("name", sorted(KERNEL_CASES))
+@pytest.mark.parametrize("name", sorted(set(KERNEL_CASES)
+                                        - set(KERNEL_CASES_KERNEL_FILE)
+                                        - set(KERNEL_CASES_EDGES_FILE)))
 def test_planes_and_summary_match_jax(name, monkeypatch):
+    planes_and_summary_match_jax(name, monkeypatch)
+
+
+def planes_and_summary_match_jax(name, monkeypatch):
+    """KERNEL_CASES[name] through the JAX kernel and the port's plain
+    version on identical seeded inputs: planes and summary equal."""
     rng = np.random.default_rng(sum(map(ord, name)))
     case = KERNEL_CASES[name]
     if name.startswith("pattern"):
