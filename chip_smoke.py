@@ -180,13 +180,13 @@ import numpy as np
 import torch
 
 import sregex_tpu_torch
-from sregex_tpu_torch import Scanner, build_dfa, compile_regex, parse
+from sregex_tpu_torch import (Scanner, build_dfa, compile_regex, diag,
+                              parse)
 from sregex_tpu_torch.consts import SRE_AGAIN, SRE_ERROR, SRE_OK, sre_isword
 from sregex_tpu_torch.dfa import LazyDfa
 from sregex_tpu_torch.native_pike import NativePikeCtx
 from sregex_tpu_torch.ops import _build
 from sregex_tpu_torch.ops import affine as aff
-from sregex_tpu_torch.ops import batch as tbatch
 from sregex_tpu_torch.ops import big
 from sregex_tpu_torch.ops import core as tcore
 from sregex_tpu_torch.ops import pair as tpair
@@ -732,6 +732,20 @@ def time_gpu(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def span_split(call):
+    """{span name: ms} of the last completed call ``call`` (a root span
+    of the diag recorder, such as "sregex.count"): the ms of each name
+    among its spans, summed."""
+    spans = diag.recent_spans()
+    root = next(s for s in reversed(spans)
+                if s.name == call and s.parent is None)
+    out = {}
+    for s in spans:
+        if s.query == root.query and s.id != root.id:
+            out[s.name] = out.get(s.name, 0.0) + s.ns / 1e6
+    return out
 
 
 def min_rep_seconds(fn, check):
@@ -1306,6 +1320,7 @@ def finditer_phase(dev, mb):
     t0 = time.perf_counter()
     idx = fsc.make_index(data)
     index_s = time.perf_counter() - t0
+    index_split = span_split("sregex.index")
     index_launches = launch_counts(launches0)
     t0 = time.perf_counter()
     got = list(fsc.finditer(data, index=idx))
@@ -1328,7 +1343,7 @@ def finditer_phase(dev, mb):
                 matches=len(got), index_gbps=n / index_s / 1e9,
                 finditer_gbps=n / finditer_s / 1e9,
                 sub_gbps=n / sub_s / 1e9, walker_gbps=n / walker_s / 1e9,
-                index_s=index_s, index_timing=idx.timing,
+                index_s=index_s, index_split_ms=index_split,
                 reverse_route=idx.route,
                 reverse_tier=type(idx.tables).__name__,
                 reverse_states=fsc._rev_dfa().dfa.nstates,
@@ -1563,6 +1578,7 @@ def route_case(sc, data, rev, oracle):
     t0 = time.perf_counter()
     loc = sc.make_index(data)
     index_s = time.perf_counter() - t0
+    split = span_split("sregex.index")
     if loc is None:
         raise AssertionError("no index")
     t0 = time.perf_counter()
@@ -1578,7 +1594,7 @@ def route_case(sc, data, rev, oracle):
                              % (len(starts), len(oracle)))
     return dict(bytes=len(data), tier=type(loc.tables).__name__,
                 index_gbps=len(data) / index_s / 1e9, index_s=index_s,
-                timing=loc.timing, route=loc.route, K=loc.CHUNK,
+                split_ms=split, route=loc.route, K=loc.CHUNK,
                 chunks=loc.C, repaired=loc.repaired, starts=len(starts),
                 fired_chunks=len(loc._fires), native_walk_s=brute_s), loc
 
@@ -1731,7 +1747,7 @@ def hot_core_find(dev, mb):
         dt, st = timed_find(sc, corpus, exp, prep)
         if (st.tier, st.certified) != ("TdfaCoreTables", True):
             raise AssertionError("a hot-core rep: %r" % (st,))
-        reps.append((dt, dict(ct.last_timing)))
+        reps.append((dt, span_split("sregex.find")))
     dt, split = min(reps, key=lambda r: r[0])
     cprep = sc.prepare(clean)
     nomatch_s, nst = timed_find(sc, clean, None, cprep)
@@ -1750,7 +1766,7 @@ def hot_core_find(dev, mb):
     fields = dict(
         mb=mb, bytes=n, pattern=FIND_CORE_PATTERN.decode(), match=exp,
         find_core_gbps=n / dt / 1e9, reps=FIND_CORE_REPS, rep_s=dt,
-        rep_split_s=split, first_call_s=first_s, nomatch_s=nomatch_s,
+        rep_split_ms=split, first_call_s=first_s, nomatch_s=nomatch_s,
         tier=st.tier, certified=st.certified, repaired=st.repaired,
         chunks=st.chunks, H=ct.H, rows=ct.rows, ncls=ct.ncls, R=ct.nregs,
         T=ct.ntags, CODE=ct.code_bits, bits=ct.bits,
@@ -1961,7 +1977,7 @@ def batch_case(name, sc, api, docs, want, loop, tier):
         got = fn(docs, prepared=handle)
         reps.append(time.perf_counter() - t0)
         batch_check(name, got, want)
-    timing = dict(tbatch.last_timing)
+    split = span_split("sregex." + api)
     launched = launch_counts(base)
     t0 = time.perf_counter()
     batch_check(name + " loop", [loop(d) for d in docs], want)
@@ -1972,9 +1988,10 @@ def batch_case(name, sc, api, docs, want, loop, tier):
         repaired=st.repaired, **{key + "_many_gbps": n / min(reps) / 1e9,
                                  key + "_many_first_gbps": n / first_s / 1e9},
         loop_gbps=n / loop_s / 1e9, rep_ms=min(reps) * 1e3,
-        dispatch_ms=timing["dispatch_s"] * 1e3,
-        readback_ms=timing["readback_s"] * 1e3,
-        fold_ms=timing["fold_s"] * 1e3, prepare_s=prepare_s,
+        dispatch_ms=sum(split.get(k, 0.0) for k in (
+            "sregex.tier", "sregex.launch", "sregex.summary")),
+        readback_ms=split.get("sregex.readback", 0.0),
+        fold_ms=split.get("sregex.fold", 0.0), prepare_s=prepare_s,
         first_s=first_s, loop_s=loop_s,
         launches={k: v for k, v in launched.items() if v}), launched
 
@@ -2132,7 +2149,8 @@ def batch_phase(dev, pats, words, bsc, fsc, fdata, fmatches, keep=None):
         out["fused"]["overflow_arm"] = dict(
             cap=ocap, count_many_gbps=sum(map(len, docs)) / o_s / 1e9,
             repaired=ost.repaired, chunks=ost.chunks,
-            fold_ms=tbatch.last_timing["fold_s"] * 1e3)
+            fold_ms=span_split("sregex.count_many").get("sregex.fold",
+                                                        0.0))
     del usc, fct
     nsc = sregex_tpu_torch.compile_pattern(NO_TIER_PATTERN, device=dev)
     ncounts = [native_count(nsc, d) for d in docs]
@@ -3267,6 +3285,7 @@ def main():
         cfirst_s = time.perf_counter() - t0
         cdt = min_rep_seconds(lambda: csc.count(bcorpus, prepared=cprep),
                               check_big)
+        csplit = span_split("sregex.count")
         cst = csc.stats()
         fct = csc._fusedct
         if cst.tier != "CoreTables" \
@@ -3368,7 +3387,7 @@ def main():
         inner=type(inner).__name__, inner_ncls=inner.ncls,
         inner_rows=inner.rows, K=ck, cap=cap, rep_ms=cdt * 1e3,
         phase1_ms=p1_ms, phase2_ms=g_ms, fused_device_ms=fused_ms,
-        host_timing=fct.last_timing, launches=claunch,
+        host_split_ms=csplit, launches=claunch,
         overflow_arm=overflow, no_static_tier=no_tier,
         first_count_s=cfirst_s,
         peak_mem_bytes=torch.cuda.max_memory_allocated())

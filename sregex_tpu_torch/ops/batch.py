@@ -34,18 +34,16 @@ machine's kernel, and the per-document validation folds on the device
 too (ops/core._fused_batch), so the common case reads back 2 + 2*ndocs
 ints and no planes.
 
-``last_timing`` holds the host clock's split of the last batch call
-(here or ops/tdfa_scan.tdfa_find_many): "dispatch_s" (the prep where
-needed, the entry planes, enqueueing the kernel), "readback_s" (waiting
-for the planes or the summary: the first sync) and "fold_s" (the
-per-document fold after it).
+A batch call's host time is recorded as the diag phases sregex.launch
+(the prep where needed, the entry planes, enqueueing the kernel),
+sregex.summary, sregex.readback (waiting for the planes or the
+summary: the first sync) and sregex.fold (the per-document fold).
 """
-
-import time
 
 import numpy as np
 import torch
 
+from .. import diag
 from ..native import NativeDfa
 from .big import SpecTablesBig
 from .core import (_fused_batch, _fused_cap, _hot_map, _tier_statics,
@@ -54,9 +52,6 @@ from .layout import DEFAULT_K, GROUPS, TILE, effective_chunk
 from .mesh import fits
 from .prep import prepare_auto
 from .spec_scan import SpecTables, SpecTablesWide, _unpack
-
-# the host clock's split of the last batch call (module docstring)
-last_timing = None
 
 
 class BatchUnsupported(Exception):
@@ -174,8 +169,7 @@ def _batch_dispatch(tables, docs, chunk_len, count, prepared=None,
     every document boundary by construction, and the per-document fold
     reads the planes, so a core tier's ESC check happens there too
     (_DocFold's ok_extra)."""
-    global last_timing
-    t0 = time.perf_counter()
+    diag.phase("sregex.launch")
     if not _fits(prepared, tables, docs, mesh=mesh):
         prepared = batch_prepare(tables, docs, chunk_len, mesh)
     data, C, _, _, B = prepared.prepared
@@ -185,16 +179,8 @@ def _batch_dispatch(tables, docs, chunk_len, count, prepared=None,
                                  topm(0) if topm else 0, B)
     _, packed = tables._scan(data, s0, j0, C, -1, W, COUNT=count,
                              summary=False, mesh=mesh)
-    t1 = time.perf_counter()
     phi, aux, swarm = _unpack(packed, C)
-    last_timing = {"dispatch_s": t1 - t0,
-                   "readback_s": time.perf_counter() - t1, "fold_s": 0.0}
     return prepared.K, prepared.spans, phi, aux, swarm
-
-
-def _fold_done(t_fold):
-    """Record the fold's host time in last_timing."""
-    last_timing["fold_s"] = time.perf_counter() - t_fold
 
 
 class _DocFold:
@@ -263,7 +249,6 @@ def spec_count_many(tables, docs, chunk_len=DEFAULT_K, prepared=None,
     ``mesh`` shards the one kernel pass over its devices."""
     K, spans, phi, cnt, swarm = _batch_dispatch(tables, docs, chunk_len,
                                                 True, prepared, mesh)
-    t_fold = time.perf_counter()
     ncls = tables.ncls
     topm = getattr(tables, "to_premult", None) or (lambda v: v * ncls)
     frpm = getattr(tables, "from_premult", None) or (lambda v: v // ncls)
@@ -294,7 +279,6 @@ def spec_count_many(tables, docs, chunk_len=DEFAULT_K, prepared=None,
             c += 1
         counts.append(total)
         finals.append(frpm(e))
-    _fold_done(t_fold)
     return counts, finals, nat, len(phi)
 
 
@@ -307,7 +291,6 @@ def spec_scan_many(tables, docs, chunk_len=DEFAULT_K, prepared=None,
     spec_scan_bytes.  ``mesh`` as for spec_count_many."""
     K, spans, phi, many, swarm = _batch_dispatch(tables, docs, chunk_len,
                                                  False, prepared, mesh)
-    t_fold = time.perf_counter()
     ncls = tables.ncls
     topm = getattr(tables, "to_premult", None) or (lambda v: v * ncls)
     frpm = getattr(tables, "from_premult", None) or (lambda v: v // ncls)
@@ -339,7 +322,6 @@ def spec_scan_many(tables, docs, chunk_len=DEFAULT_K, prepared=None,
             e = topm(st)
             c += 1
         results.append(hit if hit is not None else (frpm(e), -1))
-    _fold_done(t_fold)
     return results, nat, len(phi)
 
 
@@ -373,8 +355,6 @@ def _fused_batch_dispatch(ct, full_tables, docs, chunk_len, prepared_core,
     caller falls back to the legacy core or the static tier), else a
     dict with the summary read back and the planes left on the device.
     The document metadata is cached on the core prep's handle (aux)."""
-    global last_timing
-    t0 = time.perf_counter()
     inner = ct.inner
     if not isinstance(inner, (SpecTables, SpecTablesWide)) \
             or not isinstance(full_tables, (SpecTables, SpecTablesWide,
@@ -386,6 +366,7 @@ def _fused_batch_dispatch(ct, full_tables, docs, chunk_len, prepared_core,
     K = fused_chunk(inner, full_tables, chunk_len)
     if K is None:
         return None
+    diag.phase("sregex.launch")
 
     def prep(tables, prepared):
         if not _fits(prepared, tables, docs, K):
@@ -417,10 +398,7 @@ def _fused_batch_dispatch(ct, full_tables, docs, chunk_len, prepared_core,
         _hot_map(ct), C, doc_id, fullv, startv, last_full,
         CAP=cap,
         ESC=ct.esc_premult, NDOCS=ndocs)
-    t1 = time.perf_counter()
-    summ = summary.cpu().numpy().astype(np.int64)
-    last_timing = {"dispatch_s": t1 - t0,
-                   "readback_s": time.perf_counter() - t1, "fold_s": 0.0}
+    summ = diag.read_back(summary).numpy().astype(np.int64)
     ct.last_escapes = (int(summ[1]), int(summ[1]) > cap)
     return {"K": K, "spans": spans, "C": C,
             "all_ok": bool(summ[0]), "n_esc": int(summ[1]),
@@ -442,7 +420,6 @@ def core_count_many_fused(ct, full_tables, docs, chunk_len=DEFAULT_K,
                               prepared_core, prepared_full)
     if d is None:
         return None
-    t_fold = time.perf_counter()
     K, spans = d["K"], d["spans"]
     native = ct.native
     ncls_f = full_tables.ncls
@@ -472,7 +449,8 @@ def core_count_many_fused(ct, full_tables, docs, chunk_len=DEFAULT_K,
     elif d["overflow"]:
         # more escapes than the device cap: the legacy fold over the
         # CORE-space planes (core_count_many's)
-        phi, cnt, swarm = d["packed_core"].cpu().numpy().astype(np.int64)
+        phi, cnt, swarm = diag.read_back(d["packed_core"]).numpy().astype(
+            np.int64)
         fold = _DocFold(phi, cnt, swarm, spans, K,
                         ok_extra=(phi != ct.esc_premult))
         for (c0, cd, n), doc in zip(spans, docs):
@@ -500,7 +478,8 @@ def core_count_many_fused(ct, full_tables, docs, chunk_len=DEFAULT_K,
             finals.append(e_full)
     else:
         # a merged chain broke: walk the merged (full-space) planes
-        phi_m, fm_m, swarm_m = d["merged"].cpu().numpy().astype(np.int64)
+        phi_m, fm_m, swarm_m = diag.read_back(d["merged"]).numpy().astype(
+            np.int64)
         fold = _DocFold(phi_m, fm_m, swarm_m, spans, K,
                         ok_extra=(phi_m >= 0))
         for (c0, cd, n), doc in zip(spans, docs):
@@ -526,7 +505,6 @@ def core_count_many_fused(ct, full_tables, docs, chunk_len=DEFAULT_K,
                 c += 1
             counts.append(total)
             finals.append(max(e, 0) // ncls_f)
-    _fold_done(t_fold)
     return counts, finals, nat, d["C"]
 
 
@@ -539,7 +517,6 @@ def core_scan_many_fused(ct, full_tables, docs, chunk_len=DEFAULT_K,
                               prepared_core, prepared_full)
     if d is None:
         return None
-    t_fold = time.perf_counter()
     K, spans = d["K"], d["spans"]
     native = ct.native
     ncls_f = full_tables.ncls
@@ -569,7 +546,8 @@ def core_scan_many_fused(ct, full_tables, docs, chunk_len=DEFAULT_K,
                     e_full = st
             results.append(hit if hit is not None else (e_full, -1))
     elif d["overflow"]:
-        phi, many, swarm = d["packed_core"].cpu().numpy().astype(np.int64)
+        phi, many, swarm = diag.read_back(d["packed_core"]).numpy().astype(
+            np.int64)
         fold = _DocFold(phi, many, swarm, spans, K, quiet=True,
                         ok_extra=(phi != ct.esc_premult))
         for (c0, cd, n), doc in zip(spans, docs):
@@ -598,7 +576,8 @@ def core_scan_many_fused(ct, full_tables, docs, chunk_len=DEFAULT_K,
                 c += 1
             results.append(hit if hit is not None else (e_full, -1))
     else:
-        phi_m, fm_m, swarm_m = d["merged"].cpu().numpy().astype(np.int64)
+        phi_m, fm_m, swarm_m = diag.read_back(d["merged"]).numpy().astype(
+            np.int64)
         fold = _DocFold(phi_m, fm_m, swarm_m, spans, K, quiet=True,
                         ok_extra=(phi_m >= 0))
         for (c0, cd, n), doc in zip(spans, docs):
@@ -627,7 +606,6 @@ def core_scan_many_fused(ct, full_tables, docs, chunk_len=DEFAULT_K,
                 c += 1
             results.append(hit if hit is not None
                            else (max(e, 0) // ncls_f, -1))
-    _fold_done(t_fold)
     return results, nat, d["C"]
 
 
@@ -645,7 +623,6 @@ def core_count_many(ct, docs, chunk_len=DEFAULT_K, prepared=None,
     total_chunks).  ``mesh`` as for spec_count_many."""
     K, spans, phi, cnt, swarm = _batch_dispatch(ct.inner, docs, chunk_len,
                                                 True, prepared, mesh)
-    t_fold = time.perf_counter()
     native = ct.native
     fold = _DocFold(phi, cnt, swarm, spans, K,
                     ok_extra=(phi != ct.esc_premult))
@@ -673,7 +650,6 @@ def core_count_many(ct, docs, chunk_len=DEFAULT_K, prepared=None,
             c += 1
         counts.append(total)
         finals.append(e_full)
-    _fold_done(t_fold)
     return counts, finals, nat, len(phi)
 
 
@@ -685,7 +661,6 @@ def core_scan_many(ct, docs, chunk_len=DEFAULT_K, prepared=None,
     ``mesh`` as for spec_count_many."""
     K, spans, phi, many, swarm = _batch_dispatch(ct.inner, docs, chunk_len,
                                                  False, prepared, mesh)
-    t_fold = time.perf_counter()
     native = ct.native
     fold = _DocFold(phi, many, swarm, spans, K, quiet=True,
                     ok_extra=(phi != ct.esc_premult))
@@ -714,5 +689,4 @@ def core_scan_many(ct, docs, chunk_len=DEFAULT_K, prepared=None,
             e_full = st
             c += 1
         results.append(hit if hit is not None else (e_full, -1))
-    _fold_done(t_fold)
     return results, nat, len(phi)

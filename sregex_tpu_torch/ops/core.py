@@ -52,11 +52,11 @@ summary, so the folds downstream are mesh-agnostic.
 
 import functools
 import os
-import time
 
 import numpy as np
 import torch
 
+from .. import diag
 from ..dfa import build_core_dfa, core_from_rows
 from ..native import NativeDfa
 from .big import MAX_ENTRIES as BIG_MAX_ENTRIES
@@ -188,9 +188,8 @@ class CoreTables:
         # it to re-core on drift
         self.last_repair = None
         # the fused tier's: why the last scan repaired on the host
-        # ("overflow", "miss" or None) and its host-clock split
+        # ("overflow", "miss" or None)
         self.last_fused_cause = None
-        self.last_timing = None
         # the fused tier's last (escaped chunks, overflow)
         self.last_escapes = None
         self._h2f_dev = None
@@ -333,6 +332,7 @@ def _run(ct, data_np, chunk_len, entry_state, prepared, COUNT, mesh=None):
     with the ESC check, sharded over ``mesh`` (the fold is
     mesh-agnostic).  Returns (summary int64 [10], packed planes on the
     device, raw host bytes, C, K, n)."""
+    diag.phase("sregex.launch")
     inner = ct.inner
     n = len(data_np)
     W = inner.warmup
@@ -346,7 +346,7 @@ def _run(ct, data_np, chunk_len, entry_state, prepared, COUNT, mesh=None):
     summary, packed = inner._scan(data, s0p, j0p, C, bad_tail, W,
                                   COUNT=COUNT, esc=ct.esc_premult,
                                   mesh=mesh)
-    summ = summary.cpu().numpy().astype(np.int64)
+    summ = diag.read_back(summary).numpy().astype(np.int64)
     ct.last_repair = None   # set by completed scans: (native chunks, C)
     return summ, packed, _host_bytes(data_np), C, K, n
 
@@ -786,6 +786,7 @@ def _fused_count(core_data, full_data, inner, full_tables, hot2full, C,
      overflow) = _fused_phases(core_data, full_data, s01, j01, inner,
                                full_tables, hot2full, live, CAP=CAP,
                                ESC=ESC)
+    diag.phase("sregex.summary")
     e0 = torch.full((1,), entry_full, dtype=torch.int32, device=dev)
     summary = _chain_summary(phi_m, fm_m, swarm_m, e0, idx, live, 0, C,
                              overflow, n_esc)
@@ -861,6 +862,7 @@ def _fused_batch(core_data, full_data, s01, j01, p2_j0, inner, full_tables,
      overflow) = _fused_phases(core_data, full_data, s01, j01, inner,
                                full_tables, hot2full, live, CAP=CAP,
                                ESC=ESC, p2_j0=p2_j0)
+    diag.phase("sregex.summary")
     # the per-document chains: a document start is entered at the seed
     prev = torch.cat([torch.zeros(1, dtype=i32, device=dev), phi_m[:-1]])
     entries = torch.where(doc_startv == 1, 0, prev)
@@ -917,6 +919,7 @@ def _fused_count_mesh(core_data, full_data, ct, inner, full_tables, C,
             replica(full_tables, dev), _hot_map(replica(ct, dev)), live,
             CAP=CAP, ESC=ESC)
         shards.append((dev, base, idx, live, out))
+    diag.phase("sregex.summary")
     summaries, merged, packed = [], [], []
     prev = torch.full((1,), entry_full, dtype=i32, device=lead)
     for dev, base, idx, live, out in shards:
@@ -1022,6 +1025,7 @@ def _fused_dispatch(ct, full_tables, data_np, chunk_len, entry_state,
     if n == 0:
         return {"summ": None, "C": 0, "Cfull": 0, "K": K1, "n": 0,
                 "B1": 0, "merged": None, "packed_core": None}
+    diag.phase("sregex.launch")
     if prepared_core is None:
         prepared_core = prepare_auto(inner, data_np, K1, mesh=mesh)
     if prepared_full is None:
@@ -1038,29 +1042,22 @@ def _fused_dispatch(ct, full_tables, data_np, chunk_len, entry_state,
     cap = _fused_cap(B1 // ndev)
     summ = merged = packed_core = shard_summ = None
     if Cfull > 0:
-        t_disp = time.perf_counter()
         if mesh is None:
             summary, merged, packed_core = _fused_count(
                 core_data, full_data, inner, full_tables,
                 _hot_map(ct), Cfull, ep,
                 entry_state * full_tables.ncls, CAP=cap,
                 ESC=ct.esc_premult)
-            t_read = time.perf_counter()
-            summ = summary.cpu().numpy().astype(np.int64)
+            summ = diag.read_back(summary).numpy().astype(np.int64)
         else:
             summary, merged, packed_core = _fused_count_mesh(
                 core_data, full_data, ct, inner, full_tables, Cfull, ep,
                 entry_state * full_tables.ncls, CAP=cap,
                 ESC=ct.esc_premult, mesh=mesh)
-            t_read = time.perf_counter()
-            shard_summ = summary.cpu().numpy().astype(np.int64)
+            shard_summ = diag.read_back(summary).numpy().astype(np.int64)
             summ = _combine_fused_summaries(
                 shard_summ, Cfull, B1 // ndev * GROUPS * TILE)
         ct.last_escapes = (int(summ[8]), bool(summ[7]))
-        # host clock: enqueueing the device work vs waiting for the
-        # summary (the first sync)
-        ct.last_timing = {"enqueue_s": t_read - t_disp,
-                          "readback_s": time.perf_counter() - t_read}
     return {"summ": summ, "C": C, "Cfull": Cfull, "K": K, "n": n,
             "B1": B1, "merged": merged, "packed_core": packed_core,
             "shard_summ": shard_summ}
@@ -1108,7 +1105,8 @@ def core_count_fused(ct, full_tables, data_np, chunk_len=DEFAULT_K,
         e_full = int(summ[5]) // ncls_f
         if n >= 2 ** 31:
             # the device prefix is int32: re-sum the merged counts
-            fm64 = d["merged"][1, :Cfull].cpu().numpy().astype(np.int64)
+            fm64 = diag.read_back(d["merged"][1, :Cfull]).numpy().astype(
+                np.int64)
             total = int(fm64.sum())
         else:
             total = int(summ[6])
@@ -1137,7 +1135,8 @@ def core_count_fused(ct, full_tables, data_np, chunk_len=DEFAULT_K,
         # a residual speculation miss: walk the MERGED (full-space)
         # planes from the first break
         ct.last_fused_cause = "miss"
-        phi_m, fm_m, swarm_m = d["merged"].cpu().numpy().astype(np.int64)
+        phi_m, fm_m, swarm_m = diag.read_back(d["merged"]).numpy().astype(
+            np.int64)
         c = int(summ[1])
         # an int64 prefix where the int32 device sum could wrap
         total = int(fm_m[:c].sum()) if n >= 2 ** 31 else int(summ[6])
@@ -1227,7 +1226,7 @@ def core_scan_fused(ct, full_tables, data_np, chunk_len=DEFAULT_K,
             # the chain broke before any fire: walk the merged planes
             ct.last_fused_cause = "miss"
             phi_m, fm_m, swarm_m = \
-                d["merged"].cpu().numpy().astype(np.int64)
+                diag.read_back(d["merged"]).numpy().astype(np.int64)
             e = int(summ[2])
             c = int(summ[1])
             nat = 0
@@ -1298,8 +1297,8 @@ def core_chunk_map_fused(ct, full_tables, data_np, chunk_len=DEFAULT_K,
     elif summ is not None:
         # the merged planes (FULL premult; -1 only where an escape was
         # not redone)
-        phi_m, fm_m, swarm_m = (
-            d["merged"][:, :Cfull].cpu().numpy().astype(np.int64))
+        phi_m, fm_m, swarm_m = diag.read_back(
+            d["merged"][:, :Cfull]).numpy().astype(np.int64)
         counts[:Cfull] = fm_m
         e_full, nat = _chain_map(
             phi_m, swarm_m, phi_m >= 0, entry_state, entries[:Cfull],

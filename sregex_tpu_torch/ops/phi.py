@@ -47,6 +47,7 @@ import os
 import numpy as np
 import torch
 
+from .. import diag
 from .layout import _MATCH_SHIFT, _STATE_MASK, DEFAULT_K, GROUPS, \
     SMEM_TABLE_MAX, TILE
 from .prep import _class_ids, _host_u8
@@ -299,10 +300,11 @@ def _phi_prepare_big(tables, data, chunk_len):
 
 def phi_prepare(tables, data, chunk_len=DEFAULT_K):
     """The layout's prep: lane-packed for PhiTables, sublane-group for
-    PhiTablesBig."""
-    if isinstance(tables, PhiTablesBig):
-        return _phi_prepare_big(tables, data, chunk_len)
-    return _phi_prepare(tables, data, chunk_len)
+    PhiTablesBig; a sregex.prep span (diag)."""
+    with diag.span("sregex.prep", len(data)):
+        if isinstance(tables, PhiTablesBig):
+            return _phi_prepare_big(tables, data, chunk_len)
+        return _phi_prepare(tables, data, chunk_len)
 
 
 # --- the kernels' wrappers and plain versions -------------------------------
@@ -619,7 +621,7 @@ def _compose(phi_cs, acc_cs, K, entry_state, COUNT):
             c = c[0::2] + torch.gather(c[1::2], 1, idx)
             p = torch.gather(p[1::2], 1, idx)
             del idx
-        return torch.stack([p[0, e0], c[0, e0]]).cpu().long()
+        return diag.read_back(torch.stack([p[0, e0], c[0, e0]])).long()
     levels = [phi_cs]
     while levels[-1].shape[0] > 1:
         p = levels[-1]
@@ -635,9 +637,9 @@ def _compose(phi_cs, acc_cs, K, entry_state, COUNT):
     fc = hit.to(torch.int8).argmax()       # first firing chunk (0: none)
     fired = hit[fc]
     first = torch.where(fired, fc * K + fm[fc].long(), -1)
-    return torch.stack([
+    return diag.read_back(torch.stack([
         exit_plain, first, torch.where(fired, fc, -1),
-        torch.where(fired, ent[fc], e0)]).cpu()
+        torch.where(fired, ent[fc], e0)]))
 
 
 def chunk_slots(tables, x):
@@ -670,6 +672,7 @@ def _phi_dispatch(tables, prepared, C, entry_state, COUNT):
     """Kernel and composition over a prepared corpus of C >= 1 full
     chunks.  Returns the summary (int64 numpy, see _compose); one small
     readback."""
+    diag.phase("sregex.launch")
     data, _, K, WL, _, _ = prepared
     kw = dict(Kw=K // tables.cpw, CPW=tables.cpw, BITS=tables.bits,
               S=tables.nstates, NCLS=tables.ncls, COUNT=COUNT)
@@ -679,6 +682,7 @@ def _phi_dispatch(tables, prepared, C, entry_state, COUNT):
     else:
         phi, acc = phi_scan(data, tables.fused, WL=WL, NSEG=tables.nseg,
                             stride=tables.stride(COUNT), **kw)
+    diag.phase("sregex.summary")
     return _summary(tables, phi, acc, C, K, entry_state, COUNT).numpy()
 
 

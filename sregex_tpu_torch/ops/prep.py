@@ -22,6 +22,7 @@ import warnings
 import numpy as np
 import torch
 
+from .. import diag
 from .layout import GROUPS, TILE, effective_chunk
 from .mesh import ShardedBlocks, b_multiple as _mesh_multiple, replica
 
@@ -287,16 +288,18 @@ def prepare_auto(tables, data, chunk_len, b_multiple=1,
     """Device prep for large corpora and for tensor input, host prep
     for small host corpora.  SREGEX_DEVICE_PREP=1 forces device prep,
     =0 host prep (the JAX package's knob).  ``mesh`` takes
-    prepare_shards (the block count divides over it)."""
-    if mesh is not None:
-        return prepare_shards(tables, data, chunk_len, mesh, b_multiple,
-                              prev_tail_cls)
-    knob = os.environ.get("SREGEX_DEVICE_PREP")
-    use_dev = (len(data) >= DEVICE_PREP_MIN if knob is None
-               else knob == "1")
-    if use_dev or isinstance(data, torch.Tensor):
-        return prepare_on_device(tables, data, chunk_len,
-                                 b_multiple=b_multiple,
-                                 prev_tail_cls=prev_tail_cls)
-    return _prepare(tables, data, chunk_len, b_multiple=b_multiple,
-                    prev_tail_cls=prev_tail_cls)
+    prepare_shards (the block count divides over it).  Recorded as a
+    sregex.prep span (diag) of the corpus's bytes."""
+    with diag.span("sregex.prep", len(data)):
+        if mesh is not None:
+            return prepare_shards(tables, data, chunk_len, mesh,
+                                  b_multiple, prev_tail_cls)
+        knob = os.environ.get("SREGEX_DEVICE_PREP")
+        use_dev = (len(data) >= DEVICE_PREP_MIN if knob is None
+                   else knob == "1")
+        if use_dev or isinstance(data, torch.Tensor):
+            return prepare_on_device(tables, data, chunk_len,
+                                     b_multiple=b_multiple,
+                                     prev_tail_cls=prev_tail_cls)
+        return _prepare(tables, data, chunk_len, b_multiple=b_multiple,
+                        prev_tail_cls=prev_tail_cls)

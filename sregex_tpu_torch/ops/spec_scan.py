@@ -36,6 +36,7 @@ from collections import namedtuple
 import numpy as np
 import torch
 
+from .. import diag
 from ..native import NativeDfa
 from .mesh import fits, shard_planes
 from .layout import (_MATCH_SHIFT, _STATE_MASK, DEFAULT_K, GROUPS,
@@ -118,10 +119,13 @@ class _Tables:
     def _scan(self, data, state0, j0, C, bad_tail, W, COUNT=False,
               esc=None, summary=True, mesh=None):
         """Kernel + summary (or none, summary=False): (summary int32
-        [10] or None, packed planes), both on the lead device."""
-        return _summary_and_planes(
-            self._planes(data, state0, j0, W, COUNT, mesh), state0, C,
-            bad_tail, COUNT, self.wide, esc, summary)
+        [10] or None, packed planes), both on the lead device.  The
+        enqueue of the ops after the kernel is the sregex.summary
+        phase."""
+        planes = self._planes(data, state0, j0, W, COUNT, mesh)
+        diag.phase("sregex.summary")
+        return _summary_and_planes(planes, state0, C, bad_tail, COUNT,
+                                   self.wide, esc, summary)
 
 
 class SpecTables(_Tables):
@@ -532,7 +536,7 @@ def _summary_and_planes(planes, state0, C, bad_tail, COUNT, wide,
 
 def _unpack(outs, C):
     """Host unpack of the repair planes of either format."""
-    outs = np.asarray(outs.cpu() if isinstance(outs, torch.Tensor)
+    outs = np.asarray(diag.read_back(outs) if isinstance(outs, torch.Tensor)
                       else outs).astype(np.int64)
     total = outs[0].size
     phi = outs[0].reshape(total)[:C]
@@ -563,6 +567,7 @@ def _launch(tables, data_np, chunk_len, entry_state, prepared, COUNT,
     """Prep (unless given and fit for ``mesh``: ops/mesh.fits), entry
     planes, kernel (sharded over ``mesh``) and summary.  Returns (summary
     as int64 numpy, packed planes on the device, C, K)."""
+    diag.phase("sregex.launch")
     n = len(data_np)
     W = tables.warmup
     if prepared is None or not fits(prepared, mesh):
@@ -577,7 +582,7 @@ def _launch(tables, data_np, chunk_len, entry_state, prepared, COUNT,
                                    COUNT=COUNT, mesh=mesh)
     # common case: a 40-byte readback; the planes stay on the device
     # and are read only on the repair path
-    return summary.cpu().numpy().astype(np.int64), packed, C, K
+    return diag.read_back(summary).numpy().astype(np.int64), packed, C, K
 
 
 def with_warmup(tables, W):

@@ -46,14 +46,13 @@ results to trust.
 
 import ctypes
 import os
-import time
 
 import numpy as np
 import torch
 
+from .. import diag
 from ..tdfa import (CTX_BOS, SRC_CUR, SRC_NEXT, SRC_UNSET, Tdfa,
                     TdfaTooLarge)
-from . import batch
 from .batch import _batch_entry_planes, _fits, batch_prepare
 from .layout import DEFAULT_K, GROUPS, TILE, max_chunk_bytes
 from .spec_scan import resolve_device
@@ -201,12 +200,11 @@ class TdfaSpecTables:
     What the prep and the folds read: device, class_map, bits, cpw,
     warmup (4 * cpw bytes), max_chunk, ncls; nregs (R), ntags (T),
     code_bits, rows, seed_premult, dead_premult (-1: no dead state),
-    the flat planes t_next, t_regsrc, t_csrc, t_cmeta, is_core,
+    the flat planes t_next, t_regsrc, t_csrc, t_cmeta, is_core and
     last_repair ((host-walked chunks, covered chunks) of the last device
-    find) and last_timing (its host-clock split, tdfa_spec_find)."""
+    find)."""
 
     last_repair = None
-    last_timing = None
     # the dense tables: kernel state k is full state k
     is_core = False
 
@@ -619,7 +617,13 @@ def _tdfa_scan(tables, data, state0, j0, C):
     """Kernel + device summary over ``tables``."""
     tabs, kw = tables.planes()
     planes = tdfa_scan(data, state0, j0, *tabs, **kw)
+    diag.phase("sregex.summary")
     return _summarize(*planes, state0, C, tables.dead_premult)
+
+
+def _read_planes(planes):
+    """The planes on the host, as numpy."""
+    return [p.numpy() for p in diag.read_back(planes)]
 
 
 def _host_walk(tables, sid, regs, bank, rid, data_np, pos, n):
@@ -786,7 +790,7 @@ def tdfa_find_many(tables, docs, chunk_len=DEFAULT_K, prepared=None):
     "fallback" per document, and sets tables.last_repair to (chunks
     walked on the host in all documents, chunks).  Raises
     BatchUnsupported where no byte maps to class 0."""
-    t0 = time.perf_counter()
+    diag.phase("sregex.launch")
     docs = [d if isinstance(d, (bytes, bytearray)) else bytes(d)
             for d in docs]
     t = tables.tdfa
@@ -803,9 +807,7 @@ def tdfa_find_many(tables, docs, chunk_len=DEFAULT_K, prepared=None):
     state0, j0 = _batch_entry_planes(W, prepared.starts,
                                      tables.seed_premult, B)
     _, *planes = _tdfa_scan(tables, data, state0, j0, C)
-    t1 = time.perf_counter()
-    phi, swarm, bank, regs = (p.cpu().numpy() for p in planes)
-    t2 = time.perf_counter()
+    phi, swarm, bank, regs = _read_planes(planes)
     out = []
     walked = 0
     for (c0, cd, n), doc in zip(spans, docs):
@@ -824,8 +826,6 @@ def tdfa_find_many(tables, docs, chunk_len=DEFAULT_K, prepared=None):
             r = "fallback"
         out.append(r)
     tables.last_repair = (walked, C)
-    batch.last_timing = {"dispatch_s": t1 - t0, "readback_s": t2 - t1,
-                         "fold_s": time.perf_counter() - t2}
     return out
 
 
@@ -862,30 +862,22 @@ def tdfa_spec_find(tables, data_np, chunk_len=DEFAULT_K, prepared=None):
         return _host_walk(tables, sid, regs, None, -1, data_np, 0, n)
 
     R, T = tables.nregs, tables.ntags
-    t0 = time.perf_counter()
+    diag.phase("sregex.launch")
     state0 = torch.full((B, GROUPS, 8, TILE // 8), tables.seed_premult,
                         dtype=torch.int32, device=data.device)
     j0 = torch.zeros_like(state0)
     j0[0, 0, 0, 0] = W
     summary, *planes = _tdfa_scan(tables, data, state0, j0, full_C)
-    summ = summary.cpu().numpy().astype(np.int64)
-    # host clock: the launch and the summary's readback (which waits for
-    # the kernel), the planes' readback and the repair fold
-    timing = tables.last_timing = {"scan_s": time.perf_counter() - t0,
-                                   "readback_s": 0.0, "fold_s": 0.0}
+    summ = diag.read_back(summary).numpy().astype(np.int64)
 
     def repair():
-        t1 = time.perf_counter()
-        phi_f, swarm_f, bank_f, regs_f = (p.cpu().numpy() for p in planes)
-        t2 = time.perf_counter()
+        phi_f, swarm_f, bank_f, regs_f = _read_planes(planes)
         try:
-            r = _chunk_repair(tables, phi_f, swarm_f, bank_f, regs_f,
-                              data_np, full_C, K, W, n)
+            return _chunk_repair(tables, phi_f, swarm_f, bank_f, regs_f,
+                                 data_np, full_C, K, W, n)
         except TdfaTooLarge:
             # a lazy machine can exhaust max_states mid-walk
-            r = "fallback"
-        timing.update(readback_s=t2 - t1, fold_s=time.perf_counter() - t2)
-        return r
+            return "fallback"
 
     if tables.is_core or not bool(summ[0]):
         # chunk-wise repair: validate the chain on the host per chunk,

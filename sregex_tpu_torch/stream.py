@@ -98,6 +98,7 @@ import time
 import numpy as np
 import torch
 
+from . import diag
 from .compiler import compile_regex
 from .consts import SRE_AGAIN, SRE_DECLINED, SRE_ERROR, SRE_OK, sre_isword
 from .dfa import DfaTooLarge, LazyDfa, build_dfa
@@ -371,19 +372,32 @@ class PreparedCorpus:
         key = (id(tables), ck)
         hit = self._by_tables.get(key)
         if hit is None:
-            knob = os.environ.get("SREGEX_DEVICE_PREP")
-            use_dev = (len(self.data) >= DEVICE_PREP_MIN if knob is None
-                       else knob == "1")
-            src = self._raw() if use_dev else self.data
-            if isinstance(tables, (PhiTables, PhiTablesBig)):
-                prep = phi_prepare(tables, src, ck)
-            else:
-                mesh = None if isinstance(tables, TdfaSpecTables) \
-                    else self.mesh
-                prep = prepare_auto(tables, src, ck, mesh=mesh)
-            hit = (tables, prep)
+            with diag.span("sregex.prep", len(self.data)):
+                hit = (tables, self._prepare(tables, ck))
+                self._settle()
             self._by_tables[key] = hit
         return hit[1]
+
+    def _settle(self):
+        """Wait until the cards hold the prep just built: it is made
+        once for every later scan, so its sregex.prep span holds the
+        upload and the prep's device work, not only their enqueue."""
+        for dev in (self.mesh.devices if self.mesh is not None
+                    else (torch.device(self.device),)):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    def _prepare(self, tables, ck):
+        """A new prep of the corpus for ``tables`` at chunk length
+        ``ck``."""
+        knob = os.environ.get("SREGEX_DEVICE_PREP")
+        use_dev = (len(self.data) >= DEVICE_PREP_MIN if knob is None
+                   else knob == "1")
+        src = self._raw() if use_dev else self.data
+        if isinstance(tables, (PhiTables, PhiTablesBig)):
+            return phi_prepare(tables, src, ck)
+        mesh = None if isinstance(tables, TdfaSpecTables) else self.mesh
+        return prepare_auto(tables, src, ck, mesh=mesh)
 
 
 class Scanner:
@@ -502,6 +516,7 @@ class Scanner:
         via ``prepared=`` on match/count/scan."""
         return PreparedCorpus(data, self.device, chunk_len, self.mesh)
 
+    @diag.call("sregex.precompile")
     def precompile(self, nbytes, sample=b"", chunk_len=DEFAULT_K):
         """Warm what a count() over an ``nbytes``-long corpus needs on the
         device, without the corpus: a zero-filled stand-in of that length
@@ -907,9 +922,12 @@ class Scanner:
         (_maybe_tier_ab)."""
         if not self._on_device(data):
             return None, None
+        diag.phase("sregex.tier")
         fused_fn, core_fn, phi_fn, spec_fn = _TIER_CALLS[api]
 
         def prep(tables, ck=None):
+            # the first step of a tier's launch: the prep's lookup
+            diag.phase("sregex.launch")
             return prepared.for_tables(tables, ck) if prepared else None
 
         fct = self._fused_core_tables(data)
@@ -921,6 +939,7 @@ class Scanner:
                 prepared_full=prep(spec, ck), mesh=self.mesh)
             if r is None:
                 self._fusedct = False     # the shapes disqualify it
+                diag.phase("sregex.tier")
             else:
                 self._fused_note(fct)
                 self._note_stats(api, fct, len(data), t0)
@@ -958,10 +977,12 @@ class Scanner:
         self._note_stats("scan", None, len(data), t0)
         return first, state, None
 
+    @diag.call("sregex.match")
     def match(self, data, prepared=None):
         first, state, _ = self._scan_first(data, prepared)
         return first >= 0 or self._eof_id(state) >= 0
 
+    @diag.call("sregex.scan")
     def scan(self, data, prepared=None):
         """Earliest match END with the matched regex id: (regex_id,
         end_boundary) or None; end_boundary == len(data) means the
@@ -1085,6 +1106,7 @@ class Scanner:
             return rid, ov
         return self._pike_from(data, start)
 
+    @diag.call("sregex.find")
     def find(self, data, prepared=None):
         """Leftmost-first match with captures (Pike semantics):
         (regex_id, ovector) or None.
@@ -1148,6 +1170,7 @@ class Scanner:
         self._note_stats("find", tier, n, t0, certified=certified)
         return result
 
+    @diag.call("sregex.count")
     def count(self, data, prepared=None):
         """Number of match-ending boundaries (including EOF)."""
         t0 = time.perf_counter()
@@ -1255,6 +1278,7 @@ class Scanner:
         Returns the tier's (results..., nat, C), recording last_repair and
         the stats, or None where no tier served (the caller loops)."""
         t0 = time.perf_counter()
+        diag.phase("sregex.tier")
         fused_fn, core_fn, spec_fn = (
             (core_count_many_fused, core_count_many, spec_count_many)
             if api == "count_many" else
@@ -1290,6 +1314,7 @@ class Scanner:
                 mesh=self.mesh))
         return None
 
+    @diag.call("sregex.count_many")
     def count_many(self, docs, chunk_len=DEFAULT_K, prepared=None):
         """Per-document count() over a document set in one device
         dispatch: every document is packed into one chunk stream
@@ -1308,6 +1333,7 @@ class Scanner:
         return [c + (1 if self._eof_id(s) >= 0 else 0)
                 for c, s in zip(counts, finals)]
 
+    @diag.call("sregex.scan_many")
     def scan_many(self, docs, chunk_len=DEFAULT_K, prepared=None):
         """Per-document scan() in one device dispatch: [self.scan(d) for
         d in docs], each (regex_id, end_boundary) or None."""
@@ -1324,11 +1350,13 @@ class Scanner:
                 out.append((rid, len(d)) if rid >= 0 else None)
         return out
 
+    @diag.call("sregex.match_many")
     def match_many(self, docs, chunk_len=DEFAULT_K, prepared=None):
         """Per-document match() in one device dispatch."""
         return [r is not None
                 for r in self.scan_many(docs, chunk_len, prepared)]
 
+    @diag.call("sregex.finditer_many")
     def finditer_many(self, docs, chunk_len=DEFAULT_K, prepared=None):
         """Per-document findall() over a document set: [self.findall(d)
         for d in docs].  One batched scan (scan_many) drops the
@@ -1342,6 +1370,7 @@ class Scanner:
         return [[] if f is None else self.findall(d)
                 for f, d in zip(firsts, docs)]
 
+    @diag.call("sregex.sub_many")
     def sub_many(self, repl, docs, count=0, chunk_len=DEFAULT_K,
                  prepared=None):
         """Per-document sub() over a document set: [(new_bytes,
@@ -1354,6 +1383,7 @@ class Scanner:
                 else self.sub(repl, d, count=count)
                 for f, d in zip(firsts, docs)]
 
+    @diag.call("sregex.find_many")
     def find_many(self, docs, chunk_len=DEFAULT_K, prepared=None):
         """Per-document find() (leftmost-first match with captures) in
         one tagged-kernel launch (ops/tdfa_scan.tdfa_find_many): every
@@ -1561,6 +1591,7 @@ class Scanner:
                 _core_requirement(None))
         return self._rev_lz_coret or None
 
+    @diag.call("sregex.index")
     def make_index(self, data):
         """The reusable corpus index of finditer: one COUNT pass of the
         REVERSE machine over the reversed corpus, mapping every chunk
@@ -2020,15 +2051,14 @@ class _StartLocator:
     device: the forward bytes are uploaded once and flipped there, and
     the prep packs the same words as the host prep of the reversed
     bytes; a host corpus is reversed into one contiguous copy for the
-    host prep.  ``route`` says which, ``timing`` the host-clock seconds
-    of the reversal, the prep and the map (launch, readback, fold),
-    ``tables`` the reverse machine's tables that served the map and
-    ``repaired`` their last_repair after it."""
+    host prep.  ``route`` says which, ``tables`` the reverse machine's
+    tables that served the map and ``repaired`` their last_repair after
+    it.  The reversal and each prep are sregex.prep spans (diag), the
+    map the phases of its tier."""
 
     CHUNK = DEFAULT_K
 
     def __init__(self, rev_native, rev_tables, data, full_tables=None):
-        t0 = time.perf_counter()
         fwd = _host_bytes(data)
         self.n = n = len(fwd)
         self.rdata = fwd[::-1]
@@ -2036,21 +2066,18 @@ class _StartLocator:
         self.tables = rev_tables
         knob = os.environ.get("SREGEX_DEVICE_PREP")
         on_dev = n >= DEVICE_PREP_MIN if knob is None else knob == "1"
-        if on_dev:
-            self.route = "device flip"
-            src = torch.flip(_host_u8(fwd).to(rev_tables.device), [0])
-        else:
-            self.route = "host copy"
-            src = np.ascontiguousarray(self.rdata)
-        self.timing = {"reverse_s": time.perf_counter() - t0,
-                       "prep_s": 0.0}
+        with diag.span("sregex.prep", n):
+            if on_dev:
+                self.route = "device flip"
+                src = torch.flip(_host_u8(fwd).to(rev_tables.device), [0])
+            else:
+                self.route = "host copy"
+                src = np.ascontiguousarray(self.rdata)
 
         def prep(tables, ck):
-            t = time.perf_counter()
-            p = (prepare_on_device if on_dev else prepare_auto)(
-                tables, src, ck)
-            self.timing["prep_s"] += time.perf_counter() - t
-            return p
+            with diag.span("sregex.prep", n):
+                return (prepare_on_device if on_dev else prepare_auto)(
+                    tables, src, ck)
 
         r = None
         if full_tables is not None and isinstance(rev_tables, CoreTables):
@@ -2059,12 +2086,10 @@ class _StartLocator:
             ck = fused_chunk(rev_tables.inner, full_tables, self.CHUNK)
             if ck is not None:
                 preps = prep(rev_tables.inner, ck), prep(full_tables, ck)
-                t = time.perf_counter()
                 r = core_chunk_map_fused(rev_tables, full_tables,
                                          self.rdata, ck,
                                          prepared_core=preps[0],
                                          prepared_full=preps[1])
-                self.timing["map_s"] = time.perf_counter() - t
                 del preps
             if r is not None:
                 self.CHUNK = ck
@@ -2077,9 +2102,7 @@ class _StartLocator:
             else:
                 self.CHUNK = effective_chunk(rev_tables, self.CHUNK)
                 fn, p = spec_chunk_map, prep(rev_tables, self.CHUNK)
-            t = time.perf_counter()
             r = fn(rev_tables, self.rdata, self.CHUNK, prepared=p)
-            self.timing["map_s"] = time.perf_counter() - t
             del p
         del src
         self.entries, self.counts, final = r
