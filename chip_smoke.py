@@ -1,9 +1,10 @@
 """Smoke run of sregex_tpu_torch on one CUDA card (run: python3 chip_smoke.py).
 
 Builds the CUDA kernels from this checkout, holds each against its
-plain torch version, then drives the port's main paths at full size
-through compile_pattern / Scanner, each checked against the native C++
-engine:
+plain torch version (the summary kernel, csrc/spec_summary.cu, against
+the torch summary on CPU copies of its planes: SUMMARY_CASES, ten
+random cases at the redux cell's planes, both pack formats), then drives the port's main paths at full size through
+compile_pattern / Scanner, each checked against the native C++ engine:
 
   - headline: a first-match scan of one pattern over 1920 MB (the
     narrow tier, on the two-code kernel);
@@ -323,7 +324,8 @@ LAUNCH_COUNTERS = dict(
     big=(big, "big_smem_launches"), big_global=(big, "big_scan_launches"),
     affine=(aff, "affine_scan_launches"), tdfa=(tdfa, "tdfa_scan_launches"),
     phi=(tphi, "phi_scan_launches"), phi_big=(tphi, "phi_big_scan_launches"),
-    gated=(tcore, "gated_scan_launches"))
+    gated=(tcore, "gated_scan_launches"),
+    summary=(scan, "spec_summary_launches"))
 
 
 def launch_counts(base=None):
@@ -772,6 +774,154 @@ def bound_ms(args, steps):
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     t_ops = steps / SCALAR_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+SUMMARY_CASES = ("all_valid", "bad_at_0", "bad_at_1023", "bad_at_1024",
+                 "bad_at_last", "short_C", "bad_tail", "esc", "scan_fm",
+                 "wrap")
+
+
+def summary_case(name, rng, shape):
+    """One input of the validation summary: numpy int32 planes phi, fm,
+    swarm and state0 of ``shape`` ([B, G, 8, 128]) and (C, bad_tail,
+    COUNT, ESC).  ``name``: one of SUMMARY_CASES, or "random" (random
+    C, bad tail, escape state, mode, and misses sprinkled at a random
+    rate).  The chain holds from state0[0] except where the case breaks
+    it; a later miss or two stands behind each planted one."""
+    Cp = int(np.prod(shape))
+    phi = rng.integers(0, 147, Cp) * 5
+    fm = rng.integers(1, 4, Cp) * (rng.random(Cp) < 0.2)
+    entry0 = int(rng.integers(0, 147)) * 5
+    swarm = np.concatenate([[entry0], phi[:-1]])
+    C, bad_tail, COUNT, ESC = Cp, -1, True, None
+
+    def miss(i):
+        swarm[i] ^= 1
+
+    if name == "all_valid":
+        pass
+    elif name.startswith("bad_at_"):
+        at = Cp - 1 if name == "bad_at_last" else int(name[7:])
+        miss(at)
+        for j in rng.integers(at + 1, Cp, 2) if at + 1 < Cp else ():
+            miss(j)
+    elif name in ("short_C", "bad_tail"):
+        C = Cp * 3 // 4 + 5
+        swarm[C:] = rng.integers(-2 ** 31, 2 ** 31, Cp - C)
+        fm[C:] = rng.integers(-2 ** 31, 2 ** 31, Cp - C)
+        if name == "bad_tail":
+            bad_tail = C - 1
+    elif name == "esc":
+        ESC = 147 * 5
+        at = Cp // 3
+        phi[at] = ESC
+        swarm[at + 1] = ESC
+    elif name == "scan_fm":
+        COUNT = False
+        fm[:] = 0
+        fm[Cp // 2 + 3] = 1
+        fm[Cp // 2 + 300:] = rng.integers(0, 2, Cp - Cp // 2 - 300)
+    elif name == "wrap":
+        fm = rng.integers(1 << 19, 1 << 20, Cp)
+    elif name == "random":
+        COUNT = bool(rng.integers(0, 2))
+        if not COUNT:
+            fm = (rng.random(Cp) < 1e-4).astype(np.int64)
+        rate = float(rng.choice([0.0, 1e-6, 1e-4, 1e-2]))
+        for j in np.flatnonzero(rng.random(Cp) < rate):
+            miss(j)
+        C = int(rng.integers(1, Cp + 1))
+        bad_tail = C - 1 if rng.integers(0, 2) else -1
+        if rng.integers(0, 2):
+            ESC = int(rng.choice(phi))
+    else:
+        raise ValueError("no summary case %r" % name)
+    state0 = np.zeros(Cp, np.int64)
+    state0[0] = entry0
+    planes = [a.astype(np.int32).reshape(shape)
+              for a in (phi, fm, swarm, state0)]
+    return planes, (C, bad_tail, COUNT, ESC)
+
+
+def summary_err(got, want, what):
+    """The largest absolute difference between the summary kernel's
+    (summary, packed) and the torch summary's, ``what`` naming the
+    launch; raises unless they are equal, dtypes and shapes included."""
+    pairs = list(zip(got, want))
+    for g, w in pairs:
+        if (g is None) != (w is None) or g is not None and (
+                g.dtype != w.dtype or g.shape != w.shape):
+            raise AssertionError("the summary kernel's result for %s is "
+                                 "not shaped as the torch summary's" % what)
+    pairs = [(g.cpu(), w.cpu()) for g, w in pairs if g is not None]
+    err = max_abs_err(*zip(*pairs))
+    if err:
+        g, w = next((g, w) for g, w in pairs if not torch.equal(g, w))
+        raise AssertionError(
+            "the summary kernel differs from the torch summary by %d (%s): "
+            "%s against %s" % (err, what, g.reshape(-1)[:10].tolist(),
+                               w.reshape(-1)[:10].tolist()))
+    return err
+
+
+def summary_check(dev, case, wide):
+    """The summary kernel against the torch summary (_summary_and_planes
+    on CPU copies) on one case: bit-exact summary and pack, and the
+    pack-only launch (summary=False).  Returns (the kernel's launches,
+    the largest absolute difference found)."""
+    arrays, (C, bad_tail, COUNT, ESC) = case
+    cpu = [torch.from_numpy(a) for a in arrays]
+    want = scan._summary_and_planes(cpu[:3], cpu[3], C, bad_tail, COUNT,
+                                    wide, ESC)
+    s0 = cpu[3].to(dev)
+    planes = [t.to(dev) for t in cpu[:3]]
+    before = scan.spec_summary_launches
+    got = scan.spec_summary(planes, s0, C, bad_tail, COUNT, wide, ESC)
+    alone = scan.spec_summary(planes, s0, C, bad_tail, COUNT, wide, ESC,
+                              summary=False)
+    torch.cuda.synchronize()
+    what = "wide=%s, C=%d, bad_tail=%d, COUNT=%s, ESC=%s" % (
+        wide, C, bad_tail, COUNT, ESC)
+    err = max(summary_err(got, want, what),
+              summary_err(alone, (None, want[1]), "pack alone, " + what))
+    return scan.spec_summary_launches - before, err
+
+
+def summary_phase(dev, rng, errs, shape=(2, GROUPS, 8, 128),
+                  big_shape=(120, GROUPS, 8, 128), randoms=10, reps=20):
+    """csrc/spec_summary.cu against the torch summary: each of
+    SUMMARY_CASES at ``shape``, ten random cases at ``big_shape`` (the
+    redux cell's planes), each in both pack formats, the largest
+    difference into errs["summary"]; then the kernel timed at
+    ``big_shape`` beside the torch ops it replaced.  Returns the summary
+    line's fields and the kernels line's timing tuple."""
+    runs = [summary_case(name, rng, shape) for name in SUMMARY_CASES]
+    runs += [summary_case("random", rng, big_shape) for _ in range(randoms)]
+    launched = 0
+    for case in runs:
+        for wide in (False, True):
+            n, err = summary_check(dev, case, wide)
+            launched += n
+            errs["summary"] = max(errs["summary"], err)
+    # two launches a check: the summary, the pack alone
+    checks = 2 * len(runs)
+    if launched != 2 * checks:
+        raise AssertionError("spec_summary_launches counted %d launches "
+                             "over %d checks" % (launched, checks))
+    arrays, (C, _, _, _) = summary_case("all_valid", rng, big_shape)
+    planes = [torch.from_numpy(a).to(dev) for a in arrays[:3]]
+    s0 = torch.from_numpy(arrays[3]).to(dev)
+    ms = time_gpu(lambda: scan.spec_summary(planes, s0, C, -1, True, True),
+                  reps)
+    torch_ms = time_gpu(lambda: (
+        scan._summarize(*planes, s0, C, -1, True),
+        scan._pack_planes(*planes, True)), reps)
+    Cp = s0.numel()
+    bms = (2 * 3 * Cp * 4 + 40) / HBM_BYTES_PER_S * 1e3
+    return (dict(checks=checks, launches=launched, shape=list(shape),
+                 big_shape=list(big_shape), ms=ms, torch_ops_ms=torch_ms,
+                 bound_ms=bms),
+            (ms, torch_ms, bms, "bytes", list(big_shape)))
 
 
 def affine_times(asc, aprep, acorpus, timings, errs, dev):
@@ -2197,25 +2347,28 @@ MESH_SHARDS = 4               # the mesh phase's virtual mesh on one card
 MESH_CORE_MB = 256            # its legacy-core and stream corpora
 MESH_PROC_MB = 256            # its two processes' corpus
 MESH_PROC_K = 2048
-# the scan kernels' wrappers, by each module that calls them, and the
-# kernel row each launch counts under
+# the summary kernel's wrapper, which _summary_and_planes calls
+SUMMARY_SITES = ((scan, "spec_summary"),)
+# the kernels' wrappers, by each module that calls them, and the kernel
+# row each launch counts under
 KERNEL_SITES = ((scan, "spec_scan"), (tpair, "spec_scan"),
                 (tcore, "spec_scan"), (big, "big_scan"),
-                (aff, "affine_scan"), (tcore, "gated_scan"))
+                (aff, "affine_scan"), (tcore, "gated_scan")) + SUMMARY_SITES
 
 
 @contextlib.contextmanager
-def recorded_launches():
-    """Record each scan kernel launch made inside: (wrapper, args,
-    keywords, a copy of its planes), in launch order."""
+def recorded_launches(sites=KERNEL_SITES):
+    """Record each launch of the wrappers ``sites`` made inside:
+    (wrapper, args, keywords, a copy of its results), in launch order."""
     rec, saved = [], []
-    for mod, name in KERNEL_SITES:
+    for mod, name in sites:
         fn = getattr(mod, name)
         saved.append((mod, name, fn))
 
         def wrapper(*a, _fn=fn, **kw):
             planes = _fn(*a, **kw)
-            rec.append((_fn, a, kw, tuple(p.clone() for p in planes)))
+            rec.append((_fn, a, kw, tuple(None if p is None else p.clone()
+                                          for p in planes)))
             return planes
         setattr(mod, name, wrapper)
     try:
@@ -2228,7 +2381,8 @@ def recorded_launches():
 def hold_against_plain(rec, errs):
     """Each recorded launch held against its kernel's plain version on
     the same inputs, bit-exact (the gated kernel on its active block
-    rows); each error goes to its row in ``errs``.  Returns {row: [the
+    rows, the summary kernel against the torch summary on CPU copies);
+    each error goes to its row in ``errs``.  Returns {row: [the
     block rows of each launch held]}."""
     def without(kw, *keys):
         return {k: v for k, v in kw.items() if k not in keys}
@@ -2245,13 +2399,22 @@ def hold_against_plain(rec, errs):
             row = "affine"
             want = aff.affine_scan_ref(*a, **without(kw, "relaid",
                                                      "generic"))
+        elif fn is scan.spec_summary:
+            row = "summary"
+            want = scan._summary_and_planes(
+                [p.cpu() for p in a[0]], a[1].cpu(), *a[2:], **kw)
         else:
             row = "gated"
             want = tcore.gated_scan_ref(*a, **without(kw, "big", "t16",
                                                       "out"))
             nblk = tcore._active_rows(a[4], a[1])
             got, want = [g[:nblk] for g in got], [w[:nblk] for w in want]
-        err = max_abs_err(got, want) if got[0].numel() else 0
+        if row == "summary":
+            err = summary_err(got, want, "a launch of the main path")
+        elif got[0].numel():
+            err = max_abs_err(got, want)
+        else:
+            err = 0
         if err:
             raise AssertionError("a %s launch differs from its plain "
                                  "version by %d (%d block rows)"
@@ -3057,6 +3220,11 @@ def main():
 
     launches = {}
     timings = {}
+    # --- 3b. the summary kernel against the torch summary ------------------
+    reset_launches()
+    errs["summary"] = 0
+    sline, timings["summary"] = summary_phase(dev, rng, errs)
+    say("summary", **sline)
     # --- 4. headline: the main path, launches counted from here -----------
     assert exp_first > 0
     tables = scan.SpecTables(dfa, dev)
@@ -3122,15 +3290,27 @@ def main():
         if c != mexp:
             raise AssertionError("multi rep %r != native %r" % (c, mexp))
 
+    with recorded_launches(SUMMARY_SITES) as rec:
+        check_multi(msc.count(mcorpus, prepared=mprep))
+    held = len(hold_against_plain(rec, errs).get("summary", ()))
+    del rec
+    if not held:
+        raise AssertionError("multi's count launched no summary kernel")
     mdt = min_rep_seconds(lambda: msc.count(mcorpus, prepared=mprep),
                           check_multi)
     mst = msc.stats()
     launches["wide"] = scan.spec_scan_launches
+    launches["summary"] = scan.spec_summary_launches
+    if launches["summary"] != launches["wide"]:
+        raise AssertionError("multi's counts: %d summary launches after %d "
+                             "scans" % (launches["summary"],
+                                        launches["wide"]))
     say("multi", mb=mmb, bytes=mn, count=mexp,
         multi_dfa_scan_gbps=mn / mdt / 1e9, tier=mst.tier,
         states=msc.dfa.nstates, classes=msc.dfa.nclasses,
         rows=msc._spec.rows, repaired=mst.repaired, chunks=mst.chunks,
-        launches=launches["wide"], first_call_s=first_s,
+        launches=launches["wide"], summary_launches=launches["summary"],
+        summary_launches_held=held, first_call_s=first_s,
         native_s=mnative_s,
         peak_mem_bytes=torch.cuda.max_memory_allocated())
 
@@ -3807,7 +3987,9 @@ def main():
             ("phi", "phi_scan.cu", "sregex_tpu/ops/pallas_phi.py:410"),
             ("phi_big", "phi_scan.cu", "sregex_tpu/ops/pallas_phi.py:206"),
             ("gated", "gated_scan.cu",
-             "sregex_tpu/ops/pallas_core.py:623")):
+             "sregex_tpu/ops/pallas_core.py:623"),
+            ("summary", "spec_summary.cu",
+             "sregex_tpu/ops/pallas_scan.py:405")):
         ms, plain_ms, bms, by, shape = timings[tier][:5]
         if tier == "tdfa":
             name = "tagged-DFA scan (shape %s)" % shape
@@ -3824,6 +4006,11 @@ def main():
             name = "two-code spec scan (narrow table, shape %s)" % shape
         elif tier == "big":
             name = "16-bit spec scan (big table, shape %s)" % shape
+        elif tier == "summary":
+            name = ("validation summary and pack (wide, planes %s; it "
+                    "replaces _summarize's jnp ops, no Pallas kernel; "
+                    "plain_ms: the torch ops it replaced, on the card)"
+                    % shape)
         else:
             name = "%s scan (%s table, shape %s)" % (
                 "affine" if tier == "affine" else "spec", tier, shape)

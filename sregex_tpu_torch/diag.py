@@ -29,7 +29,8 @@ Three facilities:
 
     sregex.tier      the tier choice (fused, core, phi, static)
     sregex.launch    prep lookup, entry planes, the kernel launches
-    sregex.summary   the enqueue of the validation summary's ops
+    sregex.summary   the enqueue of the validation summary (one kernel
+                     launch on the card, torch ops on the CPU)
     sregex.readback  the host blocked on a device-to-host copy (value:
                      bytes read back)
     sregex.fold      readback's return to the call's return

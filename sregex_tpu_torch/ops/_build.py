@@ -124,5 +124,8 @@ def load():
         lib.sre_phi_big_scan.restype = i
         lib.sre_phi_big_scan.argtypes = [p, p, i, p, p, i, i, i, i, i, i, i,
                                          i, i, p, i, i, p]
+        lib.sre_spec_summary.restype = i
+        lib.sre_spec_summary.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p,
+                                         p, p, i, p]
         _lib = lib
         return _lib

@@ -26,6 +26,12 @@ function, guard included, so a code pair costs a byte permute, one
 multiply-add for the address, the row mask and the match fold, and the
 kernel reads its words at 81% of the card's bandwidth (0.38 ms);
 spec_pair_ref is a plain model of its walk.
+
+After the kernel, CUDA planes take one more launch, csrc/spec_summary.cu
+(spec_summary): the validation summary and the packed repair planes in
+one pass, so a query enqueues no torch op between its kernel and its
+40-byte readback.  CPU planes keep the torch ops (_summarize,
+_pack_planes), its plain version.
 """
 
 import copy
@@ -44,10 +50,15 @@ from .layout import (_MATCH_SHIFT, _STATE_MASK, DEFAULT_K, GROUPS,
                      effective_chunk, max_chunk_bytes)
 
 # kernel launches since the last reset (the CUDA path only): the
-# one-lookup kernel (sre_spec_scan) and the two-code kernel
-# (sre_spec_scan_pair)
+# one-lookup kernel (sre_spec_scan), the two-code kernel
+# (sre_spec_scan_pair) and the summary kernel (sre_spec_summary)
 spec_scan_launches = 0
 pair_scan_launches = 0
+spec_summary_launches = 0
+
+# the chunks one block of the summary kernel validates (kSpan in
+# csrc/spec_summary.cu)
+SUMMARY_SPAN = 1024
 
 _CPW = {3: 10, 4: 8, 8: 4}
 
@@ -120,7 +131,7 @@ class _Tables:
               esc=None, summary=True, mesh=None):
         """Kernel + summary (or none, summary=False): (summary int32
         [10] or None, packed planes), both on the lead device.  The
-        enqueue of the ops after the kernel is the sregex.summary
+        enqueue of what follows the kernel is the sregex.summary
         phase."""
         planes = self._planes(data, state0, j0, W, COUNT, mesh)
         diag.phase("sregex.summary")
@@ -523,8 +534,11 @@ def _summary_and_planes(planes, state0, C, bad_tail, COUNT, wide,
     """A scan kernel's (phi, fm, swarm) -> (summary int32 [10], packed),
     packed as _pack_planes packs it.  summary=False skips the summary
     (None in its place): the pipeline folds every segment from its
-    planes."""
+    planes.  CUDA planes take spec_summary, CPU planes the torch ops."""
     phi, fm, swarm = planes
+    if phi.device.type == "cuda":
+        return spec_summary(planes, state0, C, bad_tail, COUNT, wide, ESC,
+                            summary)
     if not summary:
         return None, _pack_planes(phi, fm, swarm, wide)
     summ, packed = _summarize(phi, fm, swarm, state0, C, bad_tail, COUNT,
@@ -532,6 +546,76 @@ def _summary_and_planes(planes, state0, C, bad_tail, COUNT, wide,
     if wide:
         packed = _pack_planes(phi, fm, swarm, True)
     return summ, packed
+
+
+# (device index, stream) -> the summary kernel's (records, ticket)
+_summary_scratch = {}
+
+
+def _summary_scratch_for(device, stream, blocks):
+    """The summary kernel's scratch for launches on ``stream``: int32
+    records [>= blocks, 4] and a zeroed ticket, made once a device and
+    stream (again when a launch needs more blocks).  The kernel leaves
+    the ticket 0, so launches in stream order share them."""
+    key = (device.index, stream)
+    got = _summary_scratch.get(key)
+    if got is None or got[0].shape[0] < blocks:
+        got = (torch.empty((blocks, 4), dtype=torch.int32, device=device),
+               torch.zeros(1, dtype=torch.int32, device=device))
+        _summary_scratch[key] = got
+    return got
+
+
+def spec_summary(planes, state0, C, bad_tail, COUNT, wide, ESC=None,
+                 summary=True):
+    """_summarize and _pack_planes in one launch of
+    csrc/spec_summary.cu on the current stream, for CUDA planes: the
+    same (summary int32 [10] or None, packed) as the torch ops give,
+    byte for byte.  A block validates SUMMARY_SPAN chunks.  Raises when
+    the launch fails."""
+    global spec_summary_launches
+    phi, fm, swarm = planes
+    dev = phi.device
+    Cp = phi.numel()
+    if dev.type != "cuda":
+        raise ValueError("spec_summary runs on cuda tensors, got %s" % dev)
+    for t in (phi, fm, swarm, state0):
+        if t.dtype != torch.int32 or not t.is_contiguous() \
+                or t.device != dev:
+            raise ValueError("spec_summary takes contiguous int32 "
+                             "tensors on one device")
+    if fm.numel() != Cp or swarm.numel() != Cp or state0.numel() < 1 \
+            or not 0 < Cp < 2 ** 31 - 2 ** 16:
+        raise ValueError("planes of %d, %d and %d chunks, state0 of %d"
+                         % (Cp, fm.numel(), swarm.numel(), state0.numel()))
+    if summary and not 1 <= C <= Cp:
+        raise ValueError("C=%d outside [1, %d]" % (C, Cp))
+    if wide:
+        packed = torch.empty((3, *phi.shape), dtype=torch.int32, device=dev)
+    else:
+        packed = torch.empty((4, *phi.shape), dtype=torch.uint8, device=dev)
+    from . import _build
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        out = records = ticket = None
+        if summary:
+            records, ticket = _summary_scratch_for(
+                dev, stream, -(-Cp // SUMMARY_SPAN))
+            out = torch.empty(10, dtype=torch.int32, device=dev)
+        rc = lib.sre_spec_summary(
+            phi.data_ptr(), fm.data_ptr(), swarm.data_ptr(),
+            state0.data_ptr(), Cp, int(C), int(bad_tail), int(bool(COUNT)),
+            int(ESC is not None), 0 if ESC is None else int(ESC),
+            None if records is None else records.data_ptr(),
+            None if ticket is None else ticket.data_ptr(),
+            None if out is None else out.data_ptr(), packed.data_ptr(),
+            int(bool(wide)), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError("sre_spec_summary launch failed: cudaError %d"
+                           % rc)
+    spec_summary_launches += 1
+    return out, packed
 
 
 def _unpack(outs, C):

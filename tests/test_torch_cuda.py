@@ -1501,3 +1501,34 @@ def test_tier_ab_runs_on_the_card(cuda, monkeypatch, pattern, plant):
     assert sc.count_many(docs) == [host.count(d) for d in docs]
     assert sc.stats().tier == ("SpecTablesWide" if ab["winner"] == "static"
                                else "CoreTables")
+
+
+@pytest.mark.parametrize("name", [
+    "all_valid", "bad_at_0", "bad_at_1023", "bad_at_1024", "bad_at_last",
+    "short_C", "bad_tail", "esc", "scan_fm", "wrap", "random"])
+def test_summary_kernel_equals_torch_summary(cuda, name):
+    """csrc/spec_summary.cu against the torch summary on CPU copies of
+    the same planes (chip_smoke's summary cases): the summary and both
+    pack formats bit-exact."""
+    from chip_smoke import summary_case, summary_check
+    case = summary_case(name, np.random.default_rng(len(name)),
+                        (2, 8, 8, 128))
+    for wide in (False, True):
+        assert summary_check(cuda, case, wide) == (2, 0)
+
+
+def test_scan_launches_one_summary(cuda):
+    """A wide-tier count enqueues its scan and one summary launch, and
+    nothing else before the readback."""
+    from sregex_tpu_torch import build_dfa, compile_regex, parse_multi
+    from sregex_tpu_torch.native import NativeDfa
+    dfa = build_dfa(compile_regex(parse_multi(
+        [b"agggtaaa|tttaccct", b"[cgt]gggtaaa|tttaccc[acg]"])[0]))
+    tables = tscan.SpecTablesWide(dfa, cuda)
+    rng = np.random.default_rng(3)
+    data = rng.choice(np.frombuffer(b"acgt", np.uint8), 40 << 20).tobytes()
+    before = (tscan.spec_scan_launches, tscan.spec_summary_launches)
+    state, count = tscan.spec_count_bytes(tables, data)
+    assert (count, state) == NativeDfa(dfa).count(data, 0)
+    assert (tscan.spec_scan_launches - before[0],
+            tscan.spec_summary_launches - before[1]) == (1, 1)
